@@ -1,0 +1,439 @@
+"""Batched characterization substrate on PyTorch: the DIMM population as one
+set of tensors on one device.
+
+The counterpart of ``repro.core.substrate`` for the main path:
+
+  * ``DimmBatch``          — stacked per-DIMM leaves (torch tensors), lowered
+                             from ``DimmModel``s or carried over from the
+                             reference batch's numpy leaves (``from_arrays``).
+  * ``fail_prob_grids``    — (D, mats, rows, cols) failure grids through the
+                             CUDA ``fail_prob`` kernel (kernels/fail_prob.py).
+  * ``row_error_lambda``   — expected per-row error counts (Figs 6/7/14): one
+                             kernel launch per (subarray, pattern), the DIMM
+                             axis inside the kernel grid.
+  * ``profile_population`` — DIVA / conventional profiling of every DIMM
+                             (Sec 6.1): plain torch ops, a Python loop where
+                             the reference has a ``lax.scan``.
+
+Monte-Carlo decisions use the counter hash of core/hashing.py, whose torch
+and numpy forms give the same bits, so the batched sweep reproduces the
+per-DIMM numpy walkers and the reference's tables decision for decision.
+Not ported yet: the ``axes``/``retention``/``vdd`` operating-point sweep,
+lifetime, shuffling and the ``mesh`` DIMM sharding (ROADMAP queue 1).
+
+Entry points run on the batch's device.  A batch lands on CUDA unless the
+caller passes ``device="cpu"``; with no CUDA device and no explicit device
+the constructors raise.  Results return as numpy, as in the reference.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.errors import DimmModel
+from repro_torch.core.geometry import (DimmGeometry, precharge_delay,
+                                       wordline_distance)
+from repro_torch.core.hashing import query_uniform_t
+from repro_torch.core.latency import (DEFAULT_ITERS, DEFAULT_PATTERNS,
+                                      PATTERN_STRESS, condition_scalars, div_t,
+                                      fail_mixture_t, multibit_tail_t,
+                                      worst_rows_internal)
+from repro_torch.core.timing import AXES, CYCLE_NS, PARAMS, STANDARD, TimingParams
+from repro_torch.kernels.fail_prob import fail_prob
+
+TIMING_GRIDS = {p: AXES[p].grid for p in PARAMS}
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``device`` when given, else the
+    current CUDA device.  Raises when no device is given and CUDA is not
+    available — the port never carries on quietly on the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
+                           "port on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+# ------------------------------------------------------------- the batch
+
+_LEAVES = ("serial", "base", "k_bl", "k_wl", "k_mat", "k_row", "sigma",
+           "temp_coef", "refresh_coef", "aging_coef", "age_years",
+           "outlier_rate", "outlier_ns", "chip_offsets", "sub_offsets",
+           "row_src", "int_to_ext", "ext_to_int",
+           "vdd_coef", "ret_base", "ret_k", "ret_sigma", "ret_drop")
+_NP_DTYPES = {"serial": np.int64, "row_src": np.int32,
+              "int_to_ext": np.int32, "ext_to_int": np.int32}  # else float32
+
+
+@dataclass
+class DimmBatch:
+    """Stacked per-DIMM state; leading axis D on every leaf, geometry static.
+
+    Coefficient tables are (D, 4) in ``timing.PARAMS`` order; ``row_src`` is
+    the repair-resolved internal row source per (D, subarray, row) — repaired
+    rows point at their replacement row, everything else at itself.  Every
+    leaf is a tensor on one device; ``serial`` is int64 (uint32 in the
+    reference).
+    """
+    geom: DimmGeometry
+    serial: Any          # (D,) int64
+    base: Any            # (D, 4) f32
+    k_bl: Any            # (D, 4) f32
+    k_wl: Any            # (D, 4) f32
+    k_mat: Any           # (D, 4) f32
+    k_row: Any           # (D, 4) f32
+    sigma: Any           # (D,) f32
+    temp_coef: Any       # (D,) f32
+    refresh_coef: Any    # (D,) f32
+    aging_coef: Any      # (D,) f32
+    age_years: Any       # (D,) f32
+    outlier_rate: Any    # (D,) f32
+    outlier_ns: Any      # (D,) f32
+    chip_offsets: Any    # (D, chips) f32
+    sub_offsets: Any     # (D, subarrays) f32
+    row_src: Any         # (D, subarrays, R) int32
+    int_to_ext: Any      # (D, R) int32
+    ext_to_int: Any      # (D, R) int32
+    vdd_coef: Any        # (D,) f32
+    ret_base: Any        # (D,) f32
+    ret_k: Any           # (D,) f32
+    ret_sigma: Any       # (D,) f32
+    ret_drop: Any        # (D,) f32
+
+    @property
+    def n_dimms(self) -> int:
+        return int(self.serial.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.serial.device
+
+    @classmethod
+    def from_arrays(cls, geom_fields: dict, leaves: dict, device=None
+                    ) -> "DimmBatch":
+        """Build a batch from ``dataclasses.asdict(geom)`` and the 23 leaves
+        as numpy arrays (the reference batch's ``_LEAVES``) — how state is
+        carried across from the reference package."""
+        missing = set(_LEAVES) - set(leaves)
+        if missing:
+            raise ValueError(f"missing leaves: {sorted(missing)}")
+        dev = resolve_device(device)
+        kw = {n: torch.as_tensor(
+                  np.ascontiguousarray(leaves[n], _NP_DTYPES.get(n, np.float32)),
+                  device=dev) for n in _LEAVES}
+        return cls(geom=DimmGeometry(**geom_fields), **kw)
+
+    @classmethod
+    def from_population(cls, dimms: Sequence[DimmModel], device=None
+                        ) -> "DimmBatch":
+        """Stack DimmModels (all sharing one geometry) into tensor leaves."""
+        if not dimms:
+            raise ValueError("empty population: DimmBatch needs >= 1 DimmModel")
+        geom = dimms[0].geom
+        if any(d.geom != geom for d in dimms):
+            raise ValueError("mixed geometries in batch")
+        R = geom.rows_per_mat
+        rows = np.arange(R)
+        f32 = lambda v: np.asarray(v, np.float32)
+
+        def coeff(attr):
+            return f32([[getattr(d.vendor, attr)[p] for p in PARAMS]
+                        for d in dimms])
+
+        def scalar(attr):
+            return f32([getattr(d.vendor, attr) for d in dimms])
+
+        leaves = dict(
+            serial=np.asarray([d.serial for d in dimms], np.int64),
+            base=coeff("base"), k_bl=coeff("k_bl"), k_wl=coeff("k_wl"),
+            k_mat=coeff("k_mat"), k_row=coeff("k_row"),
+            age_years=f32([d.age_years for d in dimms]),
+            chip_offsets=f32([d.chip_offsets for d in dimms]),
+            sub_offsets=f32([d.sub_offsets for d in dimms]),
+            row_src=np.stack([np.where(d.repaired, d.repair_perm, rows[None, :])
+                              for d in dimms]).astype(np.int32),
+            int_to_ext=np.stack([d.vendor.scramble.int_to_ext(rows)
+                                 for d in dimms]).astype(np.int32),
+            ext_to_int=np.stack([d.vendor.scramble.ext_to_int(rows)
+                                 for d in dimms]).astype(np.int32),
+            **{a: scalar(a) for a in (
+                "sigma", "temp_coef", "refresh_coef", "aging_coef",
+                "outlier_rate", "outlier_ns", "vdd_coef", "ret_base", "ret_k",
+                "ret_sigma", "ret_drop")})
+        return cls.from_arrays(dataclasses.asdict(geom), leaves, device)
+
+
+def pattern_stress(patterns=DEFAULT_PATTERNS) -> np.ndarray:
+    return np.asarray([PATTERN_STRESS[p] for p in patterns], np.float32)
+
+
+def _geom_consts(geom: DimmGeometry):
+    """Static f32 distance tables shared by every DIMM (same die floorplan)."""
+    C, M = geom.cols_per_mat, geom.mats_x
+    d_wl = np.asarray(wordline_distance(geom, np.arange(C, dtype=np.float32)),
+                      np.float32)
+    d_mat = np.asarray(precharge_delay(geom, np.arange(M, dtype=np.float32)),
+                       np.float32)
+    even = (np.arange(C) % 2) == 0 if geom.open_bitline else np.ones(C, bool)
+    return d_wl, d_mat, even
+
+
+def condition_adders(batch: DimmBatch, temp_C: float,
+                     refresh_ms: float) -> np.ndarray:
+    """(D,) f32 operating-condition adders, computed on the host in numpy
+    with the op order of ``latency.condition_adder`` — the per-DIMM walker,
+    the reference and this sweep add identical bits."""
+    t_delta, r_log = condition_scalars(temp_C, refresh_ms)
+    host = lambda a: a.cpu().numpy().astype(np.float32)
+    return (host(batch.temp_coef) * t_delta
+            + host(batch.refresh_coef) * r_log
+            + host(batch.aging_coef) * host(batch.age_years))
+
+
+# ------------------------------------------------- region failure decisions
+
+def _region_eval(batch: DimmBatch, pidx: int, t_op: float, rows, stress,
+                 adder, iters: int, multibit: bool, banks: int = 1):
+    """Monte-Carlo region test of the whole batch at one timing value.
+
+    Returns (D, banks) bool: does the row region fail the test at ``t_op`` in
+    each bank.  ``banks`` partitions the subarray axis into equal contiguous
+    groups; ``banks=1`` is the whole-DIMM test.  ``rows`` is a shared (Rr,)
+    internal row region or a per-DIMM (D, Rr) table (int64); ``stress`` the
+    (P,) pattern stresses and ``adder`` the (D,) host-computed condition term,
+    both f32 on the batch's device.  Mirrors the reference's ``_region_eval``
+    (scalar ``t_op``, ``extra=None``) operation for operation in float32,
+    including the broadcast order of the ``t`` sum; subarrays run in a
+    Python loop.
+    """
+    g = batch.geom
+    R, S, chips = g.rows_per_mat, g.subarrays, g.chips
+    subs_per_bank = S // banks
+    dev = batch.device
+    d_wl, d_mat, even = (torch.as_tensor(a, device=dev)
+                         for a in _geom_consts(g))
+    base = batch.base[:, pidx]
+    kbl, kwl = batch.k_bl[:, pidx], batch.k_wl[:, pidx]
+    kmat, krow = batch.k_mat[:, pidx], batch.k_row[:, pidx]
+    chip0 = batch.chip_offsets[:, 0]
+    t_cell = torch.tensor(t_op, dtype=torch.float32, device=dev)
+    t_hash = torch.round(t_cell * 4).to(torch.int64)
+    P = stress.shape[0]
+    pat_idx = torch.arange(P, device=dev)[None, :]
+    e5 = lambda v: v[:, None, None, None, None]
+    fails = torch.zeros((batch.n_dimms, banks), dtype=torch.bool, device=dev)
+    for s in range(S):
+        row_src_s = batch.row_src[:, s]                          # (D, R)
+        if rows.dim() == 2:                                      # per-DIMM
+            rsel = torch.gather(row_src_s, 1, rows)
+        else:
+            rsel = row_src_s[:, rows]
+        rf = rsel.to(torch.float32)                              # (D, Rr)
+        d_bl = div_t(torch.where(even[None, None, :], rf[:, :, None],
+                                 (R - 1) - rf[:, :, None]), R - 1)  # (D,Rr,C)
+        d_row = div_t(rf, R - 1)
+        var = (kbl[:, None, None, None] * d_bl[:, None, :, :]
+               + kwl[:, None, None, None] * d_wl[None, None, None, :]
+               + kmat[:, None, None, None] * d_mat[None, :, None, None]
+               + krow[:, None, None, None] * d_row[:, None, :, None])
+        t = e5(base) + stress[None, :, None, None, None] \
+            * var[:, None, :, :, :]                              # (D,P,M,Rr,C)
+        t = t + e5(adder)
+        t = t + e5(chip0)
+        t = t + e5(batch.sub_offsets[:, s])
+        p = fail_mixture_t(t, t_cell, e5(batch.sigma), e5(batch.outlier_rate),
+                           e5(batch.outlier_ns))
+        if multibit:
+            p_multi = multibit_tail_t(p)
+            lam = torch.clamp_min(
+                div_t(2 * iters * chips * p_multi.sum(dim=(2, 3, 4)), 72.0),
+                0.0)
+        else:
+            lam = 2 * iters * chips * p.sum(dim=(2, 3, 4))       # (D, P)
+        u = query_uniform_t(batch.serial[:, None], pidx, t_hash,
+                            int(multibit), s, pat_idx)
+        fail_s = torch.any(u < -torch.expm1(-lam), dim=1)        # (D,)
+        b = s // subs_per_bank
+        fails[:, b] |= fail_s
+    return fails
+
+
+def _sweep_param(batch: DimmBatch, pidx: int, floor, rows, stress, adder,
+                 guard_cycles: int, iters: int, multibit: bool,
+                 banks: int = 1):
+    """Walk one parameter's timing grid downward; per-(DIMM, bank) min-safe
+    value (``floor`` is (D, banks)).
+
+    Reproduces the walker: stop at the first grid point that fails or
+    undercuts the floor, keep the last safe value, add the guardband.  The
+    walk ends early once every (DIMM, bank) has stopped; the remaining grid
+    points cannot change the result.
+    """
+    grid = TIMING_GRIDS[PARAMS[pidx]]
+    std = getattr(STANDARD, PARAMS[pidx])
+    stops = []
+    for t_op in grid:
+        fail = _region_eval(batch, pidx, t_op, rows, stress, adder, iters,
+                            multibit, banks)
+        stops.append(fail | (floor - 1e-9 > t_op))
+        if bool(torch.all(stops[-1])):
+            break
+    stops = torch.stack(stops)                                   # (G', D, banks)
+    g = torch.tensor(grid[:len(stops)], dtype=torch.float32,
+                     device=batch.device)
+    ok = torch.cumsum(stops.to(torch.int32), dim=0) == 0
+    best = torch.min(torch.where(ok, g[:, None, None], torch.inf), dim=0).values
+    best = torch.where(torch.isfinite(best), best, std)
+    return torch.clamp_max(best + guard_cycles * CYCLE_NS, std)
+
+
+def _profile_impl(batch: DimmBatch, rows, stress, adder, *, guard_cycles: int,
+                  iters: int, multibit: bool, banks: int = 1):
+    """The whole-population sweep: tRCD first, tRAS floored by tRCD + 10 ns
+    (the Section 4 infrastructure constraint), then tRP and tWR.  Returns
+    (D, banks, 4)."""
+    D = batch.n_dimms
+    kw = dict(rows=rows, stress=stress, adder=adder, banks=banks,
+              guard_cycles=guard_cycles, iters=iters, multibit=multibit)
+    floor5 = torch.full((D, banks), 5.0, dtype=torch.float32,
+                        device=batch.device)
+    trcd = _sweep_param(batch, 0, floor5, **kw)
+    tras = _sweep_param(batch, 1, trcd + 10.0, **kw)
+    trp = _sweep_param(batch, 2, floor5, **kw)
+    twr = _sweep_param(batch, 3, floor5, **kw)
+    return torch.stack([trcd, tras, trp, twr], dim=2)
+
+
+def _resolve_rows(region, geom: DimmGeometry, n_dimms: int | None = None
+                  ) -> np.ndarray:
+    """Region spec -> internal row indices: the named regions, a shared (Rr,)
+    index array, or a per-DIMM (D, Rr) table (each DIMM tests its own rows —
+    the blind-discovery mode)."""
+    if isinstance(region, str):
+        if region == "worst":
+            return worst_rows_internal(geom)
+        if region == "all":
+            return np.arange(geom.rows_per_mat)
+        raise ValueError(f"unknown region {region!r}; "
+                         "use 'worst', 'all', or an index array")
+    rows = np.asarray(region)
+    if rows.ndim not in (1, 2):
+        raise ValueError(f"region must be (rows,) or (dimms, rows); "
+                         f"got shape {rows.shape}")
+    if rows.ndim == 2 and n_dimms is not None and rows.shape[0] != n_dimms:
+        raise ValueError(f"per-DIMM region has {rows.shape[0]} rows for "
+                         f"{n_dimms} DIMMs")
+    if rows.size and (rows.min() < 0 or rows.max() >= geom.rows_per_mat):
+        raise ValueError(f"region rows must lie in [0, {geom.rows_per_mat})")
+    return rows
+
+
+def profile_population_arrays(batch: DimmBatch, *, region="worst",
+                              temp_C: float = 55.0, refresh_ms: float = 64.0,
+                              guard_cycles: int = 1,
+                              multibit_only: bool = False,
+                              patterns=DEFAULT_PATTERNS,
+                              iters: int = DEFAULT_ITERS,
+                              banks: int = 1) -> np.ndarray:
+    """(D, 4) profiled timing table (PARAMS order) for every DIMM, or
+    (D, banks, 4) per-bank tables when ``banks > 1``.
+
+    ``region="worst"`` is DIVA Profiling (the design-induced slowest rows);
+    ``region="all"`` is conventional every-row profiling; an (Rr,) array is a
+    shared internal row region and a (D, Rr) array gives every DIMM its own.
+    ``banks`` partitions the subarray axis into that many equal bank groups,
+    each profiled against only its own subarrays.
+    """
+    if batch.geom.subarrays % banks != 0:
+        raise ValueError(f"banks={banks} must divide "
+                         f"subarrays={batch.geom.subarrays}")
+    dev = batch.device
+    rows = torch.as_tensor(_resolve_rows(region, batch.geom, batch.n_dimms),
+                           dtype=torch.int64, device=dev)
+    adder = torch.as_tensor(condition_adders(batch, temp_C, refresh_ms),
+                            device=dev)
+    stress = torch.as_tensor(pattern_stress(patterns), device=dev)
+    out = _profile_impl(batch, rows, stress, adder, guard_cycles=guard_cycles,
+                        iters=iters, multibit=multibit_only, banks=banks)
+    out = out.cpu().numpy()
+    return out[:, 0] if banks == 1 else out
+
+
+def profile_population(batch: DimmBatch, **kw) -> list[TimingParams]:
+    """Per-DIMM ``TimingParams`` for the whole population (see the arrays
+    variant; ``banks`` must stay 1)."""
+    arr = profile_population_arrays(batch, **kw)
+    return [TimingParams(*(float(v) for v in row)) for row in arr]
+
+
+# --------------------------------------------------- full-grid batched API
+
+def _pack_coeffs(batch: DimmBatch, pidx: int, t_op: float, stress: float,
+                 adder, chip: int, sub_idx: int):
+    """(D, 9) folded per-DIMM coefficient rows for the fail_prob kernel;
+    ``adder`` is the host-computed (D,) operating-condition term."""
+    base_eff = (batch.base[:, pidx] + adder + batch.chip_offsets[:, chip]
+                + batch.sub_offsets[:, sub_idx])
+    stress = float(stress)
+    return torch.stack([
+        base_eff, stress * batch.k_bl[:, pidx], stress * batch.k_wl[:, pidx],
+        stress * batch.k_mat[:, pidx], stress * batch.k_row[:, pidx],
+        torch.full_like(base_eff, float(np.float32(t_op))), batch.sigma,
+        batch.outlier_rate, batch.outlier_ns,
+    ], dim=1).to(torch.float32).contiguous()
+
+
+def fail_prob_grids(batch: DimmBatch, param: str, t_op: float, *,
+                    temp_C: float = 85.0, refresh_ms: float = 64.0,
+                    pattern: str = "0101", chip: int = 0,
+                    subarray: int = 0) -> torch.Tensor:
+    """(D, mats, rows, cols) failure-probability grids for every DIMM, on the
+    batch's device — one ``fail_prob`` call (one kernel launch on CUDA)."""
+    pidx = PARAMS.index(param)
+    dev = batch.device
+    adder = torch.as_tensor(condition_adders(batch, temp_C, refresh_ms),
+                            device=dev)
+    coeffs = _pack_coeffs(batch, pidx, t_op, PATTERN_STRESS[pattern], adder,
+                          chip, subarray)
+    d_mat = torch.as_tensor(_geom_consts(batch.geom)[1], device=dev)
+    return fail_prob(batch.row_src[:, subarray].contiguous(), d_mat, coeffs,
+                     cols=batch.geom.cols_per_mat)
+
+
+def row_error_lambda(batch: DimmBatch, param: str, t_op: float, *,
+                     temp_C: float = 85.0, refresh_ms: float = 64.0,
+                     patterns=DEFAULT_PATTERNS, iters: int = DEFAULT_ITERS,
+                     internal_order: bool = False) -> np.ndarray:
+    """(D, subarrays*rows) expected error counts per row address for every
+    DIMM — the population-scale ``row_error_counts(sample=False)``.  One
+    ``fail_prob`` launch per (subarray, pattern), each over all DIMMs."""
+    g = batch.geom
+    pidx = PARAMS.index(param)
+    dev = batch.device
+    D, S, R = batch.n_dimms, g.subarrays, g.rows_per_mat
+    adder = torch.as_tensor(condition_adders(batch, temp_C, refresh_ms),
+                            device=dev)
+    stress = pattern_stress(patterns)
+    d_mat = torch.as_tensor(_geom_consts(g)[1], device=dev)
+    lam = []
+    for s in range(S):
+        row_src = batch.row_src[:, s].contiguous()
+        exp_row = torch.zeros((D, R), dtype=torch.float32, device=dev)
+        for stress_p in stress:
+            coeffs = _pack_coeffs(batch, pidx, t_op, stress_p, adder, 0, s)
+            grids = fail_prob(row_src, d_mat, coeffs, cols=g.cols_per_mat)
+            exp_row = exp_row + 2 * grids.sum(dim=(1, 3)) * g.chips
+        lam.append(exp_row * iters)
+    lam = torch.stack(lam, dim=1)                                # (D, S, R)
+    if not internal_order:
+        # counts are produced in internal order then scattered to external
+        # addressing: ext_counts[j] = counts[ext_to_int[j]]
+        idx = batch.ext_to_int.to(torch.int64)[:, None, :].expand(D, S, R)
+        lam = torch.gather(lam, 2, idx)
+    return lam.reshape(D, -1).cpu().numpy()

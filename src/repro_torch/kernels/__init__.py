@@ -1,0 +1,2 @@
+"""Hand-written CUDA kernels of the port, each beside its plain PyTorch
+version (``fail_prob``); ``ops`` lists them and their launch counts."""

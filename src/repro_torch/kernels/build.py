@@ -1,0 +1,80 @@
+"""Build the CUDA kernels with ``nvcc`` at first use and bind them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C entry point and compiles on its own
+into ``_build/lib<name>-<digest>.so`` (the directory is git-ignored; the
+digest covers the source and the flags, so an edit rebuilds).  Nothing here
+runs at import time: this module imports on hosts without ``nvcc``, and only
+a launch on a CUDA tensor builds.
+
+Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false`` so that the float32
+arithmetic is that of the plain PyTorch versions, operation for operation.
+No ``--use_fast_math``: it would bring approximate division and ``__expf``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                           "host with the CUDA toolkit")
+    return found
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build_all(names=None) -> dict[str, str]:
+    """Compile every named source (default: all of ``csrc/*.cu``) that has no
+    library yet, one ``nvcc`` per source, all started together.  Returns
+    {name: nvcc's ptxas report}; raises with nvcc's output if one fails."""
+    if names is None:
+        names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    todo = [n for n in names if not _lib_path(n).exists()]
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for n in todo:
+        tmp = _lib_path(n).with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True))
+    logs, failed = {}, []
+    for n, (tmp, proc) in procs.items():
+        logs[n] = proc.communicate()[0]
+        if proc.returncode == 0:
+            os.replace(tmp, _lib_path(n))
+        else:
+            failed.append(n)
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+                           + "\n".join(logs[n] for n in failed))
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The ctypes handle of kernel library ``name``, built if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build_all([name])
+        lib = _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
+    return lib

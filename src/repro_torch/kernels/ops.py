@@ -1,0 +1,25 @@
+"""The port's kernel inventory and its launch counts.
+
+Each entry is a hand-written CUDA kernel's public wrapper: it dispatches by
+its tensors' device (CPU -> the plain PyTorch version, CUDA -> the kernel, or
+it raises) and carries ``launches``, a count of kernel launches that nothing
+but the launch itself increments.  There is no backend switch and no
+fallback: a CUDA tensor runs the kernel.  The reference's other eight Pallas
+kernels are not ported yet (ROADMAP queue 2).
+"""
+from __future__ import annotations
+
+from repro_torch.kernels.fail_prob import fail_prob
+
+KERNELS = {"fail_prob": fail_prob}
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    """{kernel name: launches since the last reset}."""
+    return {name: fn.launches for name, fn in KERNELS.items()}

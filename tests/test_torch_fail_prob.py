@@ -1,0 +1,94 @@
+"""The fail_prob kernel's plain version against the reference's jnp oracle and
+its Pallas kernel (interpret mode), and the wrapper's device dispatch.  The
+CUDA kernel against the plain version is in test_torch_kernels_cuda.py.
+
+Tolerance: atol 1e-6, the reference's own kernel-against-oracle bound
+(tests/test_fail_prob_substrate.py), against the reference's eager jnp
+oracle, which divides as the port does.  Against the Pallas kernel the bound
+is 1e-6 plus the gap between that kernel and its own oracle on the same
+inputs: jit-compiled XLA multiplies by the float32 reciprocal of a constant
+divisor and contracts FMAs, which moves t by an ulp and p by more than
+1e-6 on some of these inputs (the reference's own test meets 1e-6 at its
+one fixed coefficient row)."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.kernels import ref as jref
+from repro.kernels.fail_prob import fail_prob as pallas_fail_prob
+from repro_torch.kernels.fail_prob import fail_prob, fail_prob_ref
+from repro_torch.kernels.ops import launch_counts
+
+ATOL = 1e-6
+COEFFS = np.array([3.9, 2.1, 0.4, 0.8, 0.4, 7.5, 0.15, 3e-6, 3.5], np.float32)
+
+
+def _inputs(R, M, D=None, seed=3):
+    rng = np.random.default_rng(seed)
+    shape = (R,) if D is None else (D, R)
+    row_src = rng.integers(0, R, shape).astype(np.int32)
+    d_mat = np.linspace(0.1, 1.0, M).astype(np.float32)
+    cf_shape = (9,) if D is None else (D, 9)
+    noise = rng.normal(0, 0.05, cf_shape) * (np.arange(9) < 6)  # t terms only
+    coeffs = (COEFFS + noise).astype(np.float32)
+    return row_src, d_mat, coeffs
+
+
+def _t(*arrays):
+    return [torch.as_tensor(a) for a in arrays]
+
+
+@pytest.mark.parametrize("R,C,M", [(64, 64, 4), (100, 96, 3), (37, 20, 2)])
+@pytest.mark.parametrize("open_bitline", [True, False])
+def test_plain_matches_jnp_oracle_and_pallas_interpret(R, C, M, open_bitline):
+    row_src, d_mat, coeffs = _inputs(R, M)
+    want_ref = np.asarray(jref.fail_prob(row_src, d_mat, coeffs, cols=C,
+                                         open_bitline=open_bitline))
+    want_pallas = np.asarray(pallas_fail_prob(
+        row_src, d_mat, coeffs, cols=C, open_bitline=open_bitline,
+        interpret=True))
+    got = fail_prob_ref(*_t(row_src, d_mat, coeffs), cols=C,
+                        open_bitline=open_bitline).numpy()
+    assert got.shape == (M, R, C) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want_ref, atol=ATOL, rtol=0)
+    ref_gap = float(np.abs(want_pallas - want_ref).max())
+    np.testing.assert_allclose(got, want_pallas, atol=ATOL + ref_gap, rtol=0)
+    assert (got >= 0).all() and (got <= 1).all()
+
+
+def test_batched_equals_per_dimm():
+    """The DIMM axis the port puts inside the grid gives each DIMM's own
+    unbatched grid, bit for bit (the reference vmaps instead)."""
+    row_src, d_mat, coeffs = _inputs(48, 3, D=4)
+    batched = fail_prob_ref(*_t(row_src, d_mat, coeffs), cols=40)
+    assert batched.shape == (4, 3, 48, 40)
+    for d in range(4):
+        one = fail_prob_ref(*_t(row_src[d], d_mat, coeffs[d]), cols=40)
+        torch.testing.assert_close(batched[d], one, rtol=0, atol=0)
+        want = np.asarray(jref.fail_prob(row_src[d], d_mat, coeffs[d], cols=40))
+        np.testing.assert_allclose(batched[d].numpy(), want, atol=ATOL, rtol=0)
+
+
+def test_cpu_tensors_dispatch_to_plain_version_without_launching():
+    row_src, d_mat, coeffs = _t(*_inputs(32, 2, D=2))
+    before = launch_counts()["fail_prob"]
+    got = fail_prob(row_src, d_mat, coeffs, cols=32)
+    torch.testing.assert_close(got, fail_prob_ref(row_src, d_mat, coeffs,
+                                                  cols=32), rtol=0, atol=0)
+    assert launch_counts()["fail_prob"] == before
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "device", "mixed"])
+def test_wrapper_rejects_bad_inputs(bad):
+    row_src, d_mat, coeffs = _t(*_inputs(16, 2, D=2))
+    if bad == "dtype":
+        coeffs = coeffs.double()
+    elif bad == "shape":
+        coeffs = coeffs[:, :8]
+    elif bad == "device":   # neither cpu nor cuda: no silent route exists
+        row_src, d_mat, coeffs = (t.to("meta") for t in (row_src, d_mat, coeffs))
+    else:
+        row_src = row_src[0]
+    with pytest.raises((TypeError, ValueError)):
+        fail_prob(row_src, d_mat, coeffs, cols=16)

@@ -1,0 +1,71 @@
+"""The port stands alone: repro_torch and chip_smoke.py import neither jax nor
+the reference package, and an entry point never falls back to the CPU."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
+    + [ROOT / "chip_smoke.py"]
+FORBIDDEN = {"jax", "jaxlib", "repro"}
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_sources_import_no_jax_and_no_reference():
+    assert len(PORT_FILES) > 10
+    for path in PORT_FILES:
+        bad = FORBIDDEN & set(_imported_roots(path))
+        assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+_CHILD = """
+import sys
+import numpy as np
+from repro_torch.core.geometry import TINY
+from repro_torch.core.population import make_population
+from repro_torch.core.substrate import (DimmBatch, profile_population_arrays,
+                                        row_error_lambda)
+batch = DimmBatch.from_population(make_population(TINY, 4), device="cpu")
+tables = profile_population_arrays(batch, multibit_only=True)
+lam = row_error_lambda(batch, "trp", 7.5)
+assert tables.shape == (4, 4) and np.isfinite(lam).all()
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print("LEAKED", leaked)
+"""
+
+
+def test_port_runs_without_loading_jax_or_reference():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _CHILD], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LEAKED []" in out.stdout, out.stdout
+
+
+def test_entry_points_raise_without_cuda_and_without_device():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from repro_torch.core.geometry import TINY
+    from repro_torch.core.population import make_population
+    from repro_torch.core.profiling import diva_profile
+    from repro_torch.core.substrate import DimmBatch
+    pop = make_population(TINY, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DimmBatch.from_population(pop)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        diva_profile(pop[0])
