@@ -18,12 +18,31 @@ of 512x512 mats, 16 mats and 8 subarrays — it
   4. DIVA-profiles all 96 DIMMs and conventionally profiles 8 (at 96 its
      eager temporaries would be ~6.4 GB each), holds the DIVA tables of the
      first 8 DIMMs against the CPU port (identical), and prints the mean
-     read/write latency reduction beside the paper's 35.1% / 57.8%.
+     read/write latency reduction beside the paper's 35.1% / 57.8%;
+  5. holds the SECDED encode / syndrome and shuffle kernels against their
+     plain versions (``torch.equal``) on seeded 0/1 bits at the DIVA
+     Shuffling path's shapes — syndrome (3,072,000, 72), encode (8,388,608,
+     64), shuffle (192,000, 576) for the DIVA, unshuffled, inverse and codec
+     permutations — and at ragged N in {1, 1000003}, and times kernel, plain
+     version and, for the shuffle, ``torch.index_select``;
+  6. runs Fig 17 on the profiled population: burst-bit profiles of the 96
+     DIMMs (8 ``fail_prob`` launches), then the SECDED outcome with and
+     without DIVA Shuffling over 2000 accesses each (2 ``diva_shuffle`` + 1
+     ``secded_syndrome`` launches); holds the profiles of 2 DIMMs against the
+     CPU port (rtol 1e-5) and the counts of 8 DIMMs against the CPU port fed
+     the card's profiles (identical);
+  7. runs Fig 17 on the synthetic stripe profiles of the ``fig17_shuffling``
+     figure (72 DIMMs, 400 accesses): counts identical to the CPU port's;
+  8. protects a 64 MiB blob with the codec, flips 1,000 8-bit runs, recovers
+     it: the data must come back exactly with every flipped bit corrected,
+     and the first 1 MiB's lanes must equal the CPU port's.
 
 Every phase prints one JSON line.  The launch counts are set to 0 just before
-the main path (phases 3-4) and read just after it.  Any failed check raises;
-the last line is ``{"ok": true, "device": {...}}`` only when all passed.
-Exits non-zero, printing no result, when no CUDA device is available.
+each path (phases 3-4, 6, 7 and 8) and read just after it; every kernel of a
+path must have launched, and the ``kernels`` line sums the paths' counts.
+Any failed check raises; the last line is ``{"ok": true, "device": {...}}``
+only when all passed.  Exits non-zero, printing no result, when no CUDA
+device is available.
 """
 from __future__ import annotations
 
@@ -43,12 +62,20 @@ from repro_torch.core.geometry import FULL  # noqa: E402
 from repro_torch.core.latency import PATTERN_STRESS  # noqa: E402
 from repro_torch.core.population import make_population  # noqa: E402
 from repro_torch.core.profiling import latency_reduction  # noqa: E402
+from repro_torch.core.shuffling import design_stripe_profiles  # noqa: E402
 from repro_torch.core.substrate import (  # noqa: E402
-    DimmBatch, _geom_consts, _pack_coeffs, condition_adders,
-    profile_population_arrays, row_error_lambda)
+    DimmBatch, _geom_consts, _pack_coeffs, burst_bit_profile_population,
+    condition_adders, profile_population_arrays, row_error_lambda,
+    shuffling_gain_population)
 from repro_torch.core.timing import TimingParams  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels.fail_prob import fail_prob, fail_prob_ref  # noqa: E402
+from repro_torch.kernels.secded import (  # noqa: E402
+    encode_checks, encode_checks_ref, syndrome, syndrome_ref)
+from repro_torch.kernels.shuffle import (  # noqa: E402
+    _perm_tensor, apply_shuffle, apply_shuffle_ref, shuffle_permutation)
+from repro_torch.memsys.codec import (  # noqa: E402
+    corrupt_run, interleave_permutation, protect_blob, recover_blob)
 
 N_DIMMS = 96
 N_CONVENTIONAL = 8
@@ -58,6 +85,18 @@ LAMBDA_RTOL = 1e-5
 # H100 SXM (NVIDIA's data sheet): HBM3 rate, fp32 rate outside the tensor cores
 PEAK_BYTES_PER_S, PEAK_FP32_FLOPS = 3.35e12, 67e12
 FAIL_PROB_FLOPS_PER_CELL = 61   # counted from csrc/fail_prob.cu (exp = 1 op)
+# DIVA Shuffling path (Fig 17) and codec
+N_ACCESSES = 2000                 # accesses per DIMM, profiled population
+PROB_RTOL, PROB_ATOL = 1e-5, 1e-7
+N_COUNT_CHECK = 8                 # DIMMs whose counts the CPU port re-derives
+PAPER_GAIN, PAPER_RECOVERED = 0.26, 0.925   # benchmarks/paper_figures.py:285,308
+SYN_ROWS = 2 * N_DIMMS * N_ACCESSES * 8     # both layouts' codewords: 3,072,000
+SHUFFLE_ROWS = N_DIMMS * N_ACCESSES         # bursts per shuffle: 192,000
+BLOB_BYTES = 64 << 20             # a checkpoint leaf (checkpoint/manager.py:87)
+ENCODE_ROWS = BLOB_BYTES // 8               # its codewords: 8,388,608
+CHECK_BYTES = 1 << 20             # prefix whose lanes the CPU port re-derives
+N_RUNS, RUN_BITS = 1000, 8
+RAGGED = (1, 1000003)
 
 
 def emit(phase: str, **kw) -> None:
@@ -94,6 +133,208 @@ def max_abs_err(row_src, d_mat, coeffs, cols, open_bitline=True) -> float:
         raise AssertionError(f"fail_prob differs from fail_prob_ref by {err} "
                              f"at {tuple(k.shape)}, open_bitline={open_bitline}")
     return err
+
+
+def bits(rows: int, width: int, dev, seed: int) -> torch.Tensor:
+    """Seeded 0/1 int32 (rows, width) on the card."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, 2, (rows, width), generator=gen, device=dev,
+                         dtype=torch.int32)
+
+
+def exact(kernel_fn, plain_fn, x, what: str) -> float:
+    """Kernel against its plain version on ``x``: equal bit for bit, or
+    raise.  Returns max |kernel - plain| (0.0)."""
+    k, r = kernel_fn(x), plain_fn(x)
+    torch.cuda.synchronize()
+    if k.shape != r.shape or not torch.equal(k, r):
+        raise AssertionError(f"{what} differs from its plain version at "
+                             f"{tuple(x.shape)}")
+    return float((k - r).abs().max()) if k.numel() else 0.0
+
+
+def int_kernels_vs_plain(dev) -> dict:
+    """Phase 5: the three integer kernels against their plain versions at
+    the Fig 17 / codec shapes and ragged N; times of kernel, plain version
+    and library call.  Returns {kernel name: its ``kernels``-line fields}."""
+    bw, flops = PEAK_BYTES_PER_S, PEAK_FP32_FLOPS
+    out = {}
+    for name, kern, plain, rows, width in (
+            ("secded_syndrome", syndrome, syndrome_ref, SYN_ROWS, 72),
+            ("secded_encode", encode_checks, encode_checks_ref, ENCODE_ROWS, 64)):
+        x = bits(rows, width, dev, seed=width)
+        err = exact(kern, plain, x, name)
+        for n in RAGGED:
+            exact(kern, plain, bits(n, width, dev, seed=n), name)
+        n_bytes = rows * width * 4 + rows * 8 * 4
+        n_ops = rows * width * 8 * 2   # the (N, W) @ (W, 8) product it replaces
+        fields = dict(ms=cuda_ms(lambda: kern(x), 20),
+                      plain_ms=cuda_ms(lambda: plain(x), 20),
+                      bytes_ms=n_bytes / bw * 1e3, ops_ms=n_ops / flops * 1e3,
+                      library_ms=None, max_abs_err=err)
+        emit("kernel_vs_plain", kernel=name, shape=[rows, width],
+             ragged=list(RAGGED), equal=True, bytes=n_bytes, operations=n_ops,
+             **fields)
+        out[name] = fields
+        del x
+
+    x = bits(SHUFFLE_ROWS, 576, dev, seed=576)
+    perms = {"diva": dict(shuffle=True), "unshuffled": dict(shuffle=False),
+             "diva_inverse": dict(shuffle=True, inverse=True),
+             "codec": dict(perm=interleave_permutation()),
+             "codec_inverse": dict(perm=interleave_permutation(), inverse=True)}
+    err = 0.0
+    for label, kw in perms.items():
+        perm = kw.get("perm", shuffle_permutation(kw.get("shuffle", True)))
+        index = _perm_tensor(np.asarray(perm, np.int32).tobytes(),
+                             kw.get("inverse", False), x.device)
+        plain = lambda t, index=index: apply_shuffle_ref(t, index)
+        kern = lambda t, kw=kw: apply_shuffle(t, **kw)
+        err = max(err, exact(kern, plain, x, f"diva_shuffle ({label})"))
+        for n in RAGGED:
+            exact(kern, plain, bits(n, 576, dev, seed=n), f"diva_shuffle ({label})")
+    index = _perm_tensor(shuffle_permutation(True).tobytes(), False, x.device)
+    n_bytes = 2 * SHUFFLE_ROWS * 576 * 4
+    fields = dict(ms=cuda_ms(lambda: apply_shuffle(x, shuffle=True), 20),
+                  plain_ms=cuda_ms(lambda: apply_shuffle_ref(x, index), 20),
+                  library_ms=cuda_ms(lambda: torch.index_select(x, 1, index), 20),
+                  bytes_ms=n_bytes / bw * 1e3, ops_ms=0.0, max_abs_err=err)
+    emit("kernel_vs_plain", kernel="diva_shuffle", shape=[SHUFFLE_ROWS, 576],
+         permutations=sorted(perms), ragged=list(RAGGED), equal=True,
+         bytes=n_bytes, operations=0, **fields)
+    out["diva_shuffle"] = fields
+    return out
+
+
+def counted(expected: dict) -> dict:
+    """Launch counts since the last reset; raise unless each kernel in
+    ``expected`` launched exactly that often and no other kernel did."""
+    got = ops.launch_counts()
+    want = {name: expected.get(name, 0) for name in got}
+    if got != want:
+        raise AssertionError(f"launches {got}, expected {want}")
+    return got
+
+
+def summary(gain: dict) -> dict:
+    """Fig 17 means over the DIMMs that saw errors."""
+    active = gain["total"] > 0
+    mean = lambda k: float(np.mean(gain[k][active])) if active.any() else 0.0
+    unc_ns = int(gain["uncorrectable_no_shuffle"].sum())
+    unc_s = int(gain["uncorrectable_shuffle"].sum())
+    return dict(dimms_with_errors=int(active.sum()),
+                mean_gain=mean("gain"),
+                mean_frac_no_shuffle=mean("frac_no_shuffle"),
+                mean_frac_shuffle=mean("frac_shuffle"),
+                errors=int(gain["total"].sum()),
+                uncorrectable_words_no_shuffle=unc_ns,
+                uncorrectable_words_shuffle=unc_s,
+                uncorrectable_words_recovered=(1 - unc_s / unc_ns) if unc_ns else None,
+                undetected_words_no_shuffle=int(gain["undetected_no_shuffle"].sum()),
+                undetected_words_shuffle=int(gain["undetected_shuffle"].sum()),
+                paper_gain=PAPER_GAIN, paper_recovered=PAPER_RECOVERED)
+
+
+def same_counts(got: dict, want: dict, what: str) -> None:
+    for k in want:
+        if not np.array_equal(got[k], want[k]):
+            raise AssertionError(f"{what}: {k} differs on the card and the CPU")
+
+
+def fig17_profiled(batch, pop) -> dict:
+    """Phase 6: Fig 17 on the profiled population; returns its launches."""
+    g = batch.geom
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    probs = burst_bit_profile_population(batch, "trp", 7.5, refresh_ms=256.0)
+    profile_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gain = shuffling_gain_population(probs, seeds=batch.serial,
+                                     n_accesses=N_ACCESSES, device=batch.device)
+    gain_s = time.perf_counter() - t0
+    launches = counted({"fail_prob": g.chips, "diva_shuffle": 2,
+                        "secded_syndrome": 1})
+    if probs.shape != (batch.n_dimms, 9, 64) or not np.isfinite(probs).all():
+        raise AssertionError(f"burst-bit profiles {probs.shape}, non-finite?")
+    probs_cpu = burst_bit_profile_population(
+        DimmBatch.from_population(pop[:2], "cpu"), "trp", 7.5, refresh_ms=256.0)
+    np.testing.assert_allclose(probs[:2], probs_cpu, rtol=PROB_RTOL,
+                               atol=PROB_ATOL)
+    prob_rel = float(np.max(np.abs(probs[:2] - probs_cpu)
+                            / np.maximum(np.abs(probs_cpu), 1e-30)))
+    k = N_COUNT_CHECK
+    gain_cpu = shuffling_gain_population(
+        probs[:k], seeds=batch.serial[:k].cpu(), n_accesses=N_ACCESSES,
+        device="cpu")
+    same_counts({key: v[:k] for key, v in gain.items()}, gain_cpu,
+                "Fig 17 (profiled)")
+    emit("fig17_profiled", dimms=batch.n_dimms, param="trp", t_op=7.5,
+         refresh_ms=256.0, n_accesses=N_ACCESSES, profile_seconds=profile_s,
+         shuffling_seconds=gain_s, launches=launches,
+         probs_mean=float(probs.mean()), probs_max=float(probs.max()),
+         probs_cpu_dimms=2, probs_max_rel_err_vs_cpu=prob_rel,
+         probs_rtol=PROB_RTOL, probs_atol=PROB_ATOL,
+         counts_equal_cpu_dimms=k, **summary(gain))
+    return launches
+
+
+def fig17_synthetic(dev) -> dict:
+    """Phase 7: the fig17_shuffling configuration; returns its launches."""
+    probs = design_stripe_profiles(72, seed=7)
+    seeds = np.arange(72)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gain = shuffling_gain_population(probs, seeds=seeds, n_accesses=400,
+                                     device=dev)
+    gain_s = time.perf_counter() - t0
+    launches = counted({"diva_shuffle": 2, "secded_syndrome": 1})
+    gain_cpu = shuffling_gain_population(probs, seeds=seeds, n_accesses=400,
+                                         device="cpu")
+    same_counts(gain, gain_cpu, "Fig 17 (synthetic)")
+    emit("fig17_synthetic", dimms=72, n_accesses=400, seconds=gain_s,
+         launches=launches, counts_equal_cpu_dimms=72, **summary(gain))
+    return launches
+
+
+def codec_blob(dev) -> dict:
+    """Phase 8: the codec on a 64 MiB blob; returns its launches."""
+    rng = np.random.default_rng(12)
+    data = rng.integers(0, 256, BLOB_BYTES, dtype=np.uint8).tobytes()
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lanes = protect_blob(data, device=dev)
+    protect_s = time.perf_counter() - t0
+    bursts = rng.choice(lanes.shape[0], N_RUNS, replace=False)
+    starts = rng.integers(0, lanes.shape[1], N_RUNS)
+    bad = lanes.copy()
+    for b, s in zip(bursts, starts):
+        bad[b:b + 1] = corrupt_run(bad[b:b + 1], burst=0, start_lane=int(s),
+                                   n_bits=RUN_BITS)
+    # interleaved: each run puts one error into each of up to 8 codewords
+    flipped = int(np.minimum(RUN_BITS, lanes.shape[1] - starts).sum())
+    t0 = time.perf_counter()
+    out, stats = recover_blob(bad, len(data), device=dev)
+    recover_s = time.perf_counter() - t0
+    launches = counted({"secded_encode": 1, "diva_shuffle": 2,
+                        "secded_syndrome": 1})
+    if out != data:
+        raise AssertionError("the codec did not give the 64 MiB blob back")
+    if stats.corrected != flipped or stats.uncorrectable:
+        raise AssertionError(f"codec stats {stats}, expected {flipped} "
+                             f"corrected and 0 uncorrectable")
+    head = CHECK_BYTES // 64
+    if not np.array_equal(lanes[:head], protect_blob(data[:CHECK_BYTES],
+                                                     device="cpu")):
+        raise AssertionError("codec lanes differ on the card and the CPU")
+    emit("codec", blob_bytes=BLOB_BYTES, bursts=int(lanes.shape[0]),
+         codewords=stats.codewords, runs=N_RUNS, run_bits=RUN_BITS,
+         corrected=stats.corrected, uncorrectable=stats.uncorrectable,
+         protect_seconds=protect_s, recover_seconds=recover_s,
+         launches=launches, lanes_equal_cpu_bytes=CHECK_BYTES)
+    return launches
 
 
 def main() -> int:
@@ -175,10 +416,7 @@ def main() -> int:
     t0 = time.perf_counter()
     conv = profile_population_arrays(conv_batch, region="all")
     conv_s = time.perf_counter() - t0
-    launches = ops.launch_counts()
-    for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
+    launches = counted({"fail_prob": expected})   # the sweep runs no kernel
 
     # ---- checks against the port on the CPU
     if lam.shape != (D, g.subarrays * R) or not np.isfinite(lam).all():
@@ -216,15 +454,33 @@ def main() -> int:
          paper_read_reduction=PAPER_READ, paper_write_reduction=PAPER_WRITE,
          diva_first_tables=diva[:4].tolist())
 
+    # ---- 5-8. the DIVA Shuffling path and the codec, each counted
+    ints = int_kernels_vs_plain(dev)
+    paths = [launches, fig17_profiled(batch, pop), fig17_synthetic(dev),
+             codec_blob(dev)]
+    total = {name: sum(p[name] for p in paths) for name in ops.KERNELS}
+
+    rows = [dict(name="fail_prob",
+                 source="src/repro_torch/kernels/csrc/fail_prob.cu",
+                 replaces="src/repro/kernels/fail_prob.py:114",
+                 max_abs_err=max(err_main, err_closed, err_ragged),
+                 ms=kernel_ms, plain_ms=plain_ms, bytes_ms=bytes_ms,
+                 ops_ms=ops_ms, library_ms=None)]
+    for name, source, replaces in (
+            ("secded_encode", "secded.cu", "secded.py:56"),
+            ("secded_syndrome", "secded.cu", "secded.py:73"),
+            ("diva_shuffle", "shuffle.cu", "shuffle.py:64")):
+        rows.append(dict(name=name,
+                         source=f"src/repro_torch/kernels/csrc/{source}",
+                         replaces=f"src/repro/kernels/{replaces}", **ints[name]))
     print(json.dumps({"kernels": [{
-        "name": "fail_prob", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/fail_prob.cu",
-        "replaces": "src/repro/kernels/fail_prob.py:114",
-        "launches": launches["fail_prob"],
-        "max_abs_err": max(err_main, err_closed, err_ragged),
-        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None}]}), flush=True)
+        "name": r["name"], "route": "cuda", "source": r["source"],
+        "replaces": r["replaces"], "launches": total[r["name"]],
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"],
+        "bound_ms": max(r["bytes_ms"], r["ops_ms"]),
+        "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",
+        "library_ms": r["library_ms"]} for r in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
         flush=True)

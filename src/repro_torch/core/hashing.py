@@ -1,9 +1,11 @@
-"""Counter-based hash for the Monte-Carlo profiling draws (``query_uniform``).
+"""Counter-based hashes for the Monte-Carlo draws: the profiling queries
+(``query_uniform``) and the Fig 17 burst-error draws (``burst_uniform``).
 
 A copy of ``repro.core.substrate``'s ``_mix32`` / ``query_uniform`` /
-``quantize_t``: the numpy form serves the per-DIMM walkers in core/errors.py,
-the torch form serves the batched sweep in core/substrate.py, and both give
-the same bits for the same key, so the two paths make identical decisions.
+``quantize_t`` / ``burst_uniform``: the numpy forms serve the per-DIMM walkers
+(core/errors.py, core/shuffling.py), the torch forms the batched paths in
+core/substrate.py, and both give the same bits for the same key, so the two
+paths make identical decisions.
 
 Torch has no ``>>`` on ``uint32`` tensors, so the torch form carries each
 32-bit word in an int64 tensor and masks it back to 32 bits after every
@@ -79,4 +81,27 @@ def query_uniform_t(serial, param_idx: int, t_q, multibit: int, sub, pat):
     h = _mix32_t(h ^ _mul32(u32(t_q), 0xC2B2AE35))
     h = _mix32_t(h ^ ((u32(multibit) + _mul32(u32(sub), 0x27D4EB2F)
                        + _mul32(u32(pat), 0x165667B1)) & _M32))
+    return (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def burst_uniform(seed, access, lane):
+    """Deterministic uniform in [0, 1) for one (access, burst-lane) error draw
+    of the Fig 17 shuffling experiment — a sibling stream of
+    ``query_uniform`` with its own mixing constants.  Inputs broadcast; pass
+    arrays, not 0-d scalars."""
+    u32 = lambda v: np.asarray(v, np.uint32)
+    h = u32(seed) * np.uint32(_GOLD)
+    h = _mix32(h ^ (u32(access) * np.uint32(0xB5297A4D)))
+    h = _mix32(h ^ (u32(lane) * np.uint32(0x68E31DA4)))
+    return (h >> 8).astype(np.float32) * np.float32(1.0 / (1 << 24))
+
+
+def burst_uniform_t(seed, access, lane):
+    """Torch twin of ``burst_uniform`` on int64 tensors (any values; taken
+    mod 2**32).  Returns float32 on ``seed``'s device."""
+    dev = seed.device
+    u32 = lambda v: torch.as_tensor(v, dtype=torch.int64, device=dev) & _M32
+    h = _mul32(u32(seed), _GOLD)
+    h = _mix32_t(h ^ _mul32(u32(access), 0xB5297A4D))
+    h = _mix32_t(h ^ _mul32(u32(lane), 0x68E31DA4))
     return (h >> 8).to(torch.float32) * (1.0 / (1 << 24))

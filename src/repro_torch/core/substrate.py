@@ -14,12 +14,19 @@ The counterpart of ``repro.core.substrate`` for the main path:
   * ``profile_population`` — DIVA / conventional profiling of every DIMM
                              (Sec 6.1): plain torch ops, a Python loop where
                              the reference has a ``lax.scan``.
+  * ``burst_bit_profile_population`` / ``shuffling_gain_population`` — DIVA
+                             Shuffling (Sec 6.2, Fig 17): burst-bit error
+                             profiles from the ``fail_prob`` grids, and the
+                             SECDED outcome with and without shuffling
+                             through the ``diva_shuffle`` and
+                             ``secded_syndrome`` kernels.
 
-Monte-Carlo decisions use the counter hash of core/hashing.py, whose torch
-and numpy forms give the same bits, so the batched sweep reproduces the
-per-DIMM numpy walkers and the reference's tables decision for decision.
-Not ported yet: the ``axes``/``retention``/``vdd`` operating-point sweep,
-lifetime, shuffling and the ``mesh`` DIMM sharding (ROADMAP queue 1).
+Monte-Carlo decisions and error draws use the counter hashes of
+core/hashing.py, whose torch and numpy forms give the same bits, so the
+batched paths reproduce the per-DIMM numpy walkers and the reference's
+tables and counts decision for decision.  Not ported yet: the
+``axes``/``retention``/``vdd`` operating-point sweep, lifetime and the
+``mesh`` DIMM sharding (ROADMAP queue 1).
 
 Entry points run on the batch's device.  A batch lands on CUDA unless the
 caller passes ``device="cpu"``; with no CUDA device and no explicit device
@@ -35,15 +42,17 @@ import numpy as np
 import torch
 
 from repro_torch.core.errors import DimmModel
-from repro_torch.core.geometry import (DimmGeometry, precharge_delay,
-                                       wordline_distance)
-from repro_torch.core.hashing import query_uniform_t
+from repro_torch.core.geometry import (DimmGeometry, burst_bit_to_mat,
+                                       precharge_delay, wordline_distance)
+from repro_torch.core.hashing import burst_uniform_t, query_uniform_t
 from repro_torch.core.latency import (DEFAULT_ITERS, DEFAULT_PATTERNS,
                                       PATTERN_STRESS, condition_scalars, div_t,
                                       fail_mixture_t, multibit_tail_t,
                                       worst_rows_internal)
 from repro_torch.core.timing import AXES, CYCLE_NS, PARAMS, STANDARD, TimingParams
 from repro_torch.kernels.fail_prob import fail_prob
+from repro_torch.kernels.secded import syndrome
+from repro_torch.kernels.shuffle import apply_shuffle
 
 TIMING_GRIDS = {p: AXES[p].grid for p in PARAMS}
 
@@ -437,3 +446,114 @@ def row_error_lambda(batch: DimmBatch, param: str, t_op: float, *,
         idx = batch.ext_to_int.to(torch.int64)[:, None, :].expand(D, S, R)
         lam = torch.gather(lam, 2, idx)
     return lam.reshape(D, -1).cpu().numpy()
+
+
+# ----------------------------------------------- batched DIVA Shuffling (Fig 17)
+
+N_LANES = 9 * 64  # chips x burst bits, the SECDED burst of core/shuffling.py
+
+
+def _shuffling_impl(probs, seeds, n_accesses: int):
+    """The whole Fig 17 experiment on ``probs``' device: sample (D, n, 576)
+    error lanes with the counter hash, lay the lanes out per codeword without
+    and with DIVA Shuffling (two ``diva_shuffle`` launches), and score every
+    codeword by its error weight and its syndrome (one ``secded_syndrome``
+    launch over both layouts).  ``probs`` is (D, 9, 64) float32 and ``seeds``
+    (D,) int64, both on one device.  Returns seven (D,) int64 counts."""
+    D, dev = probs.shape[0], probs.device
+    acc = torch.arange(n_accesses, device=dev)
+    lane = torch.arange(N_LANES, device=dev)
+    u = burst_uniform_t(seeds[:, None, None], acc[None, :, None],
+                        lane[None, None, :])                     # (D, n, 576)
+    errs = (u < probs.reshape(D, 1, N_LANES)).to(torch.int32)
+    del u
+    total = errs.sum(dim=(1, 2))
+    flat = errs.reshape(D * n_accesses, N_LANES)
+    # (beat, chip, dq) layout -> 8 codeword masks of 72 bits per access
+    masks_ns = apply_shuffle(flat, shuffle=False)
+    masks_s = apply_shuffle(flat, shuffle=True)
+    del errs, flat
+    both = torch.stack([masks_ns, masks_s]).reshape(2, D, n_accesses * 8, 72)
+    del masks_ns, masks_s
+    w = both.sum(dim=3)                                     # per-codeword weight
+    syn = syndrome(both.reshape(-1, 72))
+    detected = torch.any(syn.reshape(2, D, n_accesses * 8, 8) > 0, dim=3)
+    corrected = (w == 1).sum(dim=2)                          # (2, D)
+    uncorrectable = (w > 1).sum(dim=2)
+    undetected = ((w > 1) & ~detected).sum(dim=2)            # silent corruption
+    return (total, corrected[0], corrected[1], uncorrectable[0],
+            uncorrectable[1], undetected[0], undetected[1])
+
+
+def shuffling_gain_population(bit_error_prob, *, seeds=None, seed: int = 0,
+                              n_accesses: int = 2000, device=None) -> dict:
+    """Fig 17 at population scale: per-DIMM correctable-error fractions with
+    and without DIVA Shuffling, for (D, 9, 64) burst-bit error profiles
+    (numpy or a tensor; from ``burst_bit_profile_population`` or synthetic),
+    on ``device`` (default: the CUDA device).
+
+    ``seeds`` gives each DIMM its error-draw stream (default ``seed + i``;
+    taken mod 2**32); on a singleton batch with the same seed this reproduces
+    ``shuffling.shuffling_gain_loop`` count for count.  Beyond the loop's
+    counts it reports uncorrectable and undetected (syndrome-aliased
+    multi-bit) codewords per mode.  Counts return as int64 numpy arrays,
+    fractions as float64.
+    """
+    dev = resolve_device(device)
+    probs = torch.as_tensor(bit_error_prob).to(dev, torch.float32)
+    if probs.dim() == 2:
+        probs = probs[None]
+    if tuple(probs.shape[1:]) != (9, 64):
+        raise ValueError(f"burst-bit profiles must be (D, 9, 64), got "
+                         f"{tuple(probs.shape)}")
+    D = probs.shape[0]
+    if seeds is None:
+        seeds = seed + np.arange(D)
+    if not isinstance(seeds, torch.Tensor):
+        seeds = torch.as_tensor(np.asarray(seeds).astype(np.int64))
+    seeds = seeds.to(dev, torch.int64) & 0xFFFFFFFF
+    if tuple(seeds.shape) != (D,):
+        raise ValueError(f"seeds must be ({D},), got {tuple(seeds.shape)}")
+    out = _shuffling_impl(probs.contiguous(), seeds, n_accesses)
+    total, c_ns, c_s, unc_ns, unc_s, und_ns, und_s = (
+        v.cpu().numpy().astype(np.int64) for v in out)
+    denom = np.maximum(total, 1)
+    return {"total": total,
+            "frac_no_shuffle": np.where(total == 0, 1.0, c_ns / denom),
+            "frac_shuffle": np.where(total == 0, 1.0, c_s / denom),
+            "gain": np.where(total == 0, 0.0, (c_s - c_ns) / denom),
+            "uncorrectable_no_shuffle": unc_ns, "uncorrectable_shuffle": unc_s,
+            "undetected_no_shuffle": und_ns, "undetected_shuffle": und_s}
+
+
+def burst_bit_profile_population(batch: DimmBatch, param: str, t_op: float, *,
+                                 temp_C: float = 85.0, refresh_ms: float = 64.0,
+                                 pattern: str = "0101",
+                                 subarray: int = 0) -> np.ndarray:
+    """(D, 9, 64) per-access error probability per burst-bit position — the
+    population-scale Fig 12 profile feeding ``shuffling_gain_population`` —
+    on the batch's device.
+
+    Bit j of chip c reads mat ``burst_bit_to_mat(j)`` at the bit's column
+    stride; its per-access error probability is the row-average failure
+    probability at that (mat, col), from one ``fail_prob`` grid per data chip
+    (``chips`` kernel launches).  Each grid is reduced on the device; only
+    (D, 64) floats per chip cross to the host.  The ECC chip (row 8) gets the
+    across-data-chip mean profile.
+    """
+    g = batch.geom
+    bits = np.arange(g.burst_bits)
+    mats = torch.as_tensor(burst_bit_to_mat(g, bits), device=batch.device)
+    within = bits % g.bits_per_mat_in_burst
+    cols = torch.as_tensor(
+        within * (g.cols_per_mat // g.bits_per_mat_in_burst)
+        + g.cols_per_mat // (2 * g.bits_per_mat_in_burst), device=batch.device)
+    out = np.zeros((batch.n_dimms, 9, g.burst_bits), np.float32)
+    for chip in range(g.chips):
+        grids = fail_prob_grids(batch, param, t_op, temp_C=temp_C,
+                                refresh_ms=refresh_ms, pattern=pattern,
+                                chip=chip, subarray=subarray)
+        out[:, chip, :] = grids.mean(dim=2)[:, mats, cols].cpu().numpy()
+        del grids
+    out[:, 8, :] = out[:, :g.chips, :].mean(axis=1)
+    return out

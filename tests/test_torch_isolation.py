@@ -43,6 +43,14 @@ batch = DimmBatch.from_population(make_population(TINY, 4), device="cpu")
 tables = profile_population_arrays(batch, multibit_only=True)
 lam = row_error_lambda(batch, "trp", 7.5)
 assert tables.shape == (4, 4) and np.isfinite(lam).all()
+from repro_torch.core.shuffling import design_stripe_profiles
+from repro_torch.core.substrate import shuffling_gain_population
+from repro_torch.memsys.codec import protect_blob, recover_blob
+gain = shuffling_gain_population(design_stripe_profiles(2), n_accesses=50,
+                                 device="cpu")
+assert gain["total"].shape == (2,)
+lanes = protect_blob(b"port" * 40, device="cpu")
+assert recover_blob(lanes, 160, device="cpu")[0] == b"port" * 40
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LEAKED", leaked)
@@ -69,3 +77,13 @@ def test_entry_points_raise_without_cuda_and_without_device():
         DimmBatch.from_population(pop)
     with pytest.raises(RuntimeError, match="CUDA"):
         diva_profile(pop[0])
+    from repro_torch.core.shuffling import design_stripe_profiles
+    from repro_torch.core.substrate import shuffling_gain_population
+    from repro_torch.memsys.codec import protect_blob, recover_blob
+    with pytest.raises(RuntimeError, match="CUDA"):
+        shuffling_gain_population(design_stripe_profiles(2), n_accesses=10)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        protect_blob(b"port")
+    lanes = protect_blob(b"port", device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        recover_blob(lanes, 4)
