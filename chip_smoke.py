@@ -35,17 +35,28 @@ of 512x512 mats, 16 mats and 8 subarrays — it
      figure (72 DIMMs, 400 accesses): counts identical to the CPU port's;
   8. protects a 64 MiB blob with the codec, flips 1,000 8-bit runs, recovers
      it: the data must come back exactly with every flipped bit corrected,
-     and the first 1 MiB's lanes must equal the CPU port's.
+     and the first 1 MiB's lanes must equal the CPU port's;
+  9. the Fig 19 memory system: holds the ``bank_sched`` walk kernel against
+     its plain walk (``torch.equal`` on latency and hit in service order) on
+     base + the 96 DIVA tables x 12 workloads at n = 2,000 for four
+     configurations, and at n = 1, 5 and Q = 32; times it at n = 20,000;
+     then drives Fig 19 at n = 20,000 — FR-FCFS on the whole-DIMM tables,
+     FR-FCFS on 4-bank-group tables profiled from the same 96 DIMMs, the
+     in-order walker on the whole-DIMM tables, and the in-order grid behind
+     ``speedup_summary`` at 1/2/4/8 cores (4 ``bank_sched`` launches) — and
+     holds the integer totals of base + 8 whole-DIMM and base + 4 per-bank
+     tables, and the in-order grid, against the port run on the CPU.
 
 Every phase prints one JSON line.  The launch counts are set to 0 just before
-each path (phases 3-4, 6, 7 and 8) and read just after it; every kernel of a
-path must have launched, and the ``kernels`` line sums the paths' counts.
+each path (phases 3-4, 6, 7, 8 and 9) and read just after it; every kernel of
+a path must have launched, and the ``kernels`` line sums the paths' counts.
 Any failed check raises; the last line is ``{"ok": true, "device": {...}}``
 only when all passed.  Exits non-zero, printing no result, when no CUDA
 device is available.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -69,11 +80,13 @@ from repro_torch.core.substrate import (  # noqa: E402
     shuffling_gain_population)
 from repro_torch.core.timing import TimingParams  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels.bank_sched import memsim_walk, memsim_walk_ref  # noqa: E402
 from repro_torch.kernels.fail_prob import fail_prob, fail_prob_ref  # noqa: E402
 from repro_torch.kernels.secded import (  # noqa: E402
     encode_checks, encode_checks_ref, syndrome, syndrome_ref)
 from repro_torch.kernels.shuffle import (  # noqa: E402
     _perm_tensor, apply_shuffle, apply_shuffle_ref, shuffle_permutation)
+from repro_torch.memsim import sim as memsim  # noqa: E402
 from repro_torch.memsys.codec import (  # noqa: E402
     corrupt_run, interleave_permutation, protect_blob, recover_blob)
 
@@ -82,8 +95,9 @@ N_CONVENTIONAL = 8
 PAPER_READ, PAPER_WRITE = 0.351, 0.578   # Sec 6.1 / Fig 18 (quickstart.py)
 KERNEL_ATOL = 1e-6   # tests/test_fail_prob_substrate.py's kernel-vs-oracle bound
 LAMBDA_RTOL = 1e-5
-# H100 SXM (NVIDIA's data sheet): HBM3 rate, fp32 rate outside the tensor cores
-PEAK_BYTES_PER_S, PEAK_FP32_FLOPS = 3.35e12, 67e12
+# H100 SXM (NVIDIA's data sheet): HBM3 rate, fp32 rate outside the tensor
+# cores; int32 rate: 64 int32 lanes per SM per clock x 132 SMs x 1.98 GHz
+PEAK_BYTES_PER_S, PEAK_FP32_FLOPS, PEAK_INT32_OPS = 3.35e12, 67e12, 16.7e12
 FAIL_PROB_FLOPS_PER_CELL = 61   # counted from csrc/fail_prob.cu (exp = 1 op)
 # DIVA Shuffling path (Fig 17) and codec
 N_ACCESSES = 2000                 # accesses per DIMM, profiled population
@@ -97,16 +111,26 @@ ENCODE_ROWS = BLOB_BYTES // 8               # its codewords: 8,388,608
 CHECK_BYTES = 1 << 20             # prefix whose lanes the CPU port re-derives
 N_RUNS, RUN_BITS = 1000, 8
 RAGGED = (1, 1000003)
+# Fig 19 memory system (memsim)
+MEMSIM_N = 20000                  # requests per workload trace (the default)
+MEMSIM_PLAIN_N = 2000             # n of the kernel-vs-plain checks and plain time
+MEMSIM_CPU_DIMMS, MEMSIM_CPU_BANK_DIMMS = 8, 4   # re-derived on the CPU
+PAPER_SPEEDUP = {1: 0.092, 2: 0.147, 4: 0.137, 8: 0.138}   # Sec 6.3, Fig 19
+# int32 operations counted from csrc/bank_sched.cu with the bus and the
+# activation window on: per queued candidate (21 + 5 for tRRD/tFAW + 2 for the
+# bus) and per step (the winner's reductions, the state update, output, refill)
+BANK_SCHED_CANDIDATE_OPS, BANK_SCHED_STEP_OPS = 28, 48
 
 
 def emit(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, warm_up: bool = True) -> float:
     """Median milliseconds of ``fn`` on the card over ``reps`` runs (CUDA
-    events), after one warm-up run."""
-    fn()
+    events), after one warm-up run unless the caller has just run it."""
+    if warm_up:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -337,6 +361,143 @@ def codec_blob(dev) -> dict:
     return launches
 
 
+def walk_vs_plain(traces, tc, cfg, what: str) -> float:
+    """The bank_sched kernel against the plain walk: equal, or raise.
+    Returns max |kernel - plain| over latency and hit (0.0)."""
+    kw = memsim._walk_kw(cfg)
+    got, want = memsim_walk(traces, tc, **kw), memsim_walk_ref(traces, tc, **kw)
+    torch.cuda.synchronize()
+    for g, w, name in zip(got, want, ("latency", "hit")):
+        if g.shape != w.shape or not torch.equal(g, w):
+            raise AssertionError(f"bank_sched {name} differs from the plain "
+                                 f"walk ({what}, {tuple(traces.shape)})")
+    return max(float((g - w).abs().max()) if g.numel() else 0.0
+               for g, w in zip(got, want))
+
+
+def memsim_phase(dev, batch, diva) -> tuple[dict, dict]:
+    """Phase 9: the Fig 19 memory system; returns (its launches, the
+    bank_sched ``kernels``-line fields)."""
+    cfgs = {"default": memsim.MemSimConfig(),
+            "one_channel_one_rank": memsim.MemSimConfig(channels=1, ranks=1),
+            "queue4_no_bus": memsim.MemSimConfig(queue=4, bus=False),
+            "inorder": memsim.inorder_config(16)}
+    base = memsim.STANDARD
+    tc = torch.as_tensor(np.stack([memsim.timing_cycles_banks(t, 16)
+                                   for t in [base, *diva]]), device=dev)
+    traces = memsim._stack_traces(MEMSIM_PLAIN_N, 16, 0, dev)
+    err = max(walk_vs_plain(traces, tc, cfg, name)
+              for name, cfg in cfgs.items())
+    kw = memsim._walk_kw(cfgs["default"])
+    plain_ms = cuda_ms(lambda: memsim_walk_ref(traces, tc, **kw), 3,
+                       warm_up=False)                  # warmed by the check
+    kernel_ms_plain_n = cuda_ms(lambda: memsim_walk(traces, tc, **kw), 20)
+    for n in (1, 5):
+        err = max(err, walk_vs_plain(memsim._stack_traces(n, 16, 0, dev), tc,
+                                     cfgs["default"], f"n = {n}"))
+    err = max(err, walk_vs_plain(memsim._stack_traces(500, 16, 0, dev), tc,
+                                 memsim.MemSimConfig(queue=32), "Q = 32"))
+    full = memsim._stack_traces(MEMSIM_N, 16, 0, dev)
+    ms = cuda_ms(lambda: memsim_walk(full, tc, **kw), 20)
+    T, W = tc.shape[0], full.shape[0]
+    Q = cfgs["default"].queue
+    n_ops = T * W * MEMSIM_N * (Q * BANK_SCHED_CANDIDATE_OPS
+                                + BANK_SCHED_STEP_OPS)
+    n_bytes = full.numel() * 4 + tc.numel() * 4 + T * W * MEMSIM_N * 8
+    fields = dict(ms=ms, plain_ms=plain_ms, bytes_ms=n_bytes / PEAK_BYTES_PER_S * 1e3,
+                  ops_ms=n_ops / PEAK_INT32_OPS * 1e3, library_ms=None,
+                  max_abs_err=err)
+    emit("kernel_vs_plain", kernel="bank_sched", grid=[T, W],
+         configurations=sorted(cfgs), n=MEMSIM_PLAIN_N, ragged_n=[1, 5],
+         ragged_queue=32, equal=True, kernel_n=MEMSIM_N,
+         kernel_ms_at_plain_n=kernel_ms_plain_n, plain_n=MEMSIM_PLAIN_N,
+         bytes=n_bytes, operations=n_ops, peak_int32_ops=PEAK_INT32_OPS,
+         **fields)
+
+    # ---- the Fig 19 path, counted
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    secs = {}
+    t0 = time.perf_counter()
+    whole = memsim.system_speedup_population(diva, n_requests=MEMSIM_N,
+                                             device=dev)
+    secs["frfcfs_whole"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pb = profile_population_arrays(batch, banks=4, multibit_only=True)
+    secs["profile_banks4"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    per_bank = memsim.system_speedup_population(pb, n_requests=MEMSIM_N,
+                                                device=dev)
+    secs["frfcfs_per_bank"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    inorder = memsim.system_speedup_population(
+        diva, n_requests=MEMSIM_N, scheduler="inorder", device=dev)
+    secs["inorder_whole"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ipcs = memsim.evaluate_system_grid([base, diva[0]], n_requests=MEMSIM_N,
+                                       device=dev)
+    cores = {c: memsim.speedup_summary(TimingParams(*map(float, diva[0])),
+                                       base, cores=c, ipcs=ipcs)
+             for c in PAPER_SPEEDUP}
+    secs["inorder_summary"] = time.perf_counter() - t0
+    launches = counted({"bank_sched": 4})
+
+    # ---- checks against the port on the CPU
+    D = len(diva)
+    for name, res in (("whole", whole), ("per_bank", per_bank),
+                      ("inorder", inorder)):
+        sp = res["per_dimm_speedup"]
+        if sp.shape != (D,) or not np.isfinite(sp).all() \
+                or res["total_latency_cycles"].shape != (D + 1, W):
+            raise AssertionError(f"Fig 19 {name}: speedups {sp.shape}, "
+                                 f"non-finite?")
+    if pb.shape != (D, 4, 4) or not np.array_equal(pb.max(axis=1), diva):
+        raise AssertionError("per-bank tables are not (D, 4, 4) with the "
+                             "whole-DIMM tables as their envelope")
+    k, kb = min(MEMSIM_CPU_DIMMS, D), min(MEMSIM_CPU_BANK_DIMMS, D)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)     # the plain walk's tiny ops run best on one
+    t0 = time.perf_counter()
+    cpu = memsim._grid_totals([base, *diva[:k], *pb[:kb]],
+                              memsim.MemSimConfig(), MEMSIM_N, 0, "cpu")
+    cpu_ipcs = memsim.evaluate_system_grid([base, diva[0]],
+                                           n_requests=MEMSIM_N, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    torch.set_num_threads(threads)
+    if not (np.array_equal(whole["total_latency_cycles"][:k + 1], cpu[:k + 1])
+            and np.array_equal(per_bank["total_latency_cycles"][0], cpu[0])
+            and np.array_equal(per_bank["total_latency_cycles"][1:kb + 1],
+                               cpu[k + 1:])
+            and np.array_equal(ipcs, cpu_ipcs)):
+        raise AssertionError("Fig 19 latency totals differ on the card and "
+                             "the CPU")
+    # speedups are scored on the host from the totals: identical to the CPU's
+    if not np.array_equal(memsim._speedups(cpu[:k + 1], MEMSIM_N)
+                          ["per_dimm_workload_speedup"],
+                          whole["per_dimm_workload_speedup"][:k]):
+        raise AssertionError("Fig 19 speedups differ on the card and the CPU")
+    slack = int((pb < diva[:, None, :]).any(axis=(1, 2)).sum())
+    stat = lambda res: {key: res[key] for key in (
+        "mean_speedup", "median_speedup", "min_speedup", "max_speedup")}
+    emit("fig19_memsim", dimms=D, workloads=W, n_requests=MEMSIM_N,
+         config=dataclasses.asdict(cfgs["default"]),
+         seconds=secs, launches=launches,
+         frfcfs_whole=stat(whole), frfcfs_per_bank=stat(per_bank),
+         inorder_whole=stat(inorder),
+         per_bank_dimms_with_bank_slack=slack,
+         per_bank_at_least_whole_dimms=int(
+             (per_bank["per_dimm_speedup"] >= whole["per_dimm_speedup"]).sum()),
+         inorder_summary_table=diva[0].tolist(),
+         speedup_by_cores={c: (s["mean_singlecore_speedup"] if c == 1
+                               else s["mean_weighted_speedup"]) - 1.0
+                           for c, s in cores.items()},
+         paper_speedup_by_cores=PAPER_SPEEDUP,
+         totals_equal_cpu=dict(whole_tables=1 + k, per_bank_tables=1 + kb,
+                               inorder_grid=2),
+         speedups_equal_cpu_dimms=k, cpu_check_seconds=cpu_s)
+    return launches, fields
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU host",
@@ -458,6 +619,10 @@ def main() -> int:
     ints = int_kernels_vs_plain(dev)
     paths = [launches, fig17_profiled(batch, pop), fig17_synthetic(dev),
              codec_blob(dev)]
+
+    # ---- 9. the Fig 19 memory system, counted
+    memsim_launches, ints["bank_sched"] = memsim_phase(dev, batch, diva)
+    paths.append(memsim_launches)
     total = {name: sum(p[name] for p in paths) for name in ops.KERNELS}
 
     rows = [dict(name="fail_prob",
@@ -469,7 +634,8 @@ def main() -> int:
     for name, source, replaces in (
             ("secded_encode", "secded.cu", "secded.py:56"),
             ("secded_syndrome", "secded.cu", "secded.py:73"),
-            ("diva_shuffle", "shuffle.cu", "shuffle.py:64")):
+            ("diva_shuffle", "shuffle.cu", "shuffle.py:64"),
+            ("bank_sched", "bank_sched.cu", "bank_sched.py:138")):
         rows.append(dict(name=name,
                          source=f"src/repro_torch/kernels/csrc/{source}",
                          replaces=f"src/repro/kernels/{replaces}", **ints[name]))

@@ -1,9 +1,11 @@
 """Counter-based hashes for the Monte-Carlo draws: the profiling queries
-(``query_uniform``) and the Fig 17 burst-error draws (``burst_uniform``).
+(``query_uniform``), the Fig 17 burst-error draws (``burst_uniform``) and the
+memory-system traces and core mixes (``trace_uniform``, ``mix_uniform``).
 
 A copy of ``repro.core.substrate``'s ``_mix32`` / ``query_uniform`` /
-``quantize_t`` / ``burst_uniform``: the numpy forms serve the per-DIMM walkers
-(core/errors.py, core/shuffling.py), the torch forms the batched paths in
+``quantize_t`` / ``burst_uniform`` / ``trace_uniform`` / ``mix_uniform``: the
+numpy forms serve the per-DIMM walkers (core/errors.py, core/shuffling.py)
+and the host-built memsim traces, the torch forms the batched paths in
 core/substrate.py, and both give the same bits for the same key, so the two
 paths make identical decisions.
 
@@ -105,3 +107,26 @@ def burst_uniform_t(seed, access, lane):
     h = _mix32_t(h ^ _mul32(u32(access), 0xB5297A4D))
     h = _mix32_t(h ^ _mul32(u32(lane), 0x68E31DA4))
     return (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def trace_uniform(seed, idx, lane):
+    """Deterministic uniform in [0, 1) for one per-request draw of the memsim
+    synthetic workloads, keyed by (workload stream seed, request index, draw
+    lane) — never by batch position.  Inputs broadcast; pass arrays, not 0-d
+    scalars."""
+    u32 = lambda v: np.asarray(v, np.uint32)
+    h = u32(seed) * np.uint32(_GOLD)
+    h = _mix32(h ^ (u32(idx) * np.uint32(0xBF58476D)))
+    h = _mix32(h ^ (u32(lane) * np.uint32(0x94D049BB)))
+    return (h >> 8).astype(np.float32) * np.float32(1.0 / (1 << 24))
+
+
+def mix_uniform(seed, draw, core):
+    """Deterministic uniform in [0, 1) for one multi-core workload-mix pick
+    (Sec 6.3's 32 random mixes), keyed by (seed, mix draw, core slot): a
+    stream of its own, so the trace configuration cannot move the mixes."""
+    u32 = lambda v: np.asarray(v, np.uint32)
+    h = u32(seed) * np.uint32(_GOLD)
+    h = _mix32(h ^ (u32(draw) * np.uint32(0xA0761D65)))
+    h = _mix32(h ^ (u32(core) * np.uint32(0xE7037ED1)))
+    return (h >> 8).astype(np.float32) * np.float32(1.0 / (1 << 24))

@@ -1,3 +1,3 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
-version (``fail_prob``, ``secded``, ``shuffle``); ``ops`` lists them and their
-launch counts."""
+version (``fail_prob``, ``secded``, ``shuffle``, ``bank_sched``); ``ops``
+lists them and their launch counts."""

@@ -4,17 +4,19 @@ Each entry is a hand-written CUDA kernel's public wrapper: it dispatches by
 its tensors' device (CPU -> the plain PyTorch version, CUDA -> the kernel, or
 it raises) and carries ``launches``, a count of kernel launches that nothing
 but the launch itself increments.  There is no backend switch and no
-fallback: a CUDA tensor runs the kernel.  The reference's other five Pallas
+fallback: a CUDA tensor runs the kernel.  The reference's other four Pallas
 kernels are not ported yet (ROADMAP queue 2).
 """
 from __future__ import annotations
 
+from repro_torch.kernels.bank_sched import memsim_walk
 from repro_torch.kernels.fail_prob import fail_prob
 from repro_torch.kernels.secded import encode_checks, syndrome
 from repro_torch.kernels.shuffle import apply_shuffle
 
 KERNELS = {"fail_prob": fail_prob, "secded_encode": encode_checks,
-           "secded_syndrome": syndrome, "diva_shuffle": apply_shuffle}
+           "secded_syndrome": syndrome, "diva_shuffle": apply_shuffle,
+           "bank_sched": memsim_walk}
 
 
 def reset_launches() -> None:

@@ -6,6 +6,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -51,6 +52,11 @@ gain = shuffling_gain_population(design_stripe_profiles(2), n_accesses=50,
 assert gain["total"].shape == (2,)
 lanes = protect_blob(b"port" * 40, device="cpu")
 assert recover_blob(lanes, 160, device="cpu")[0] == b"port" * 40
+from repro_torch.memsim import sim
+speed = sim.system_speedup_population(tables, n_requests=40, device="cpu")
+assert speed["per_dimm_speedup"].shape == (4,)
+tr = sim.make_trace(sim.WORKLOADS[0], 40, 16)
+assert sim.simulate(tr, sim.STANDARD, device="cpu")["total_latency_cycles"] > 0
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LEAKED", leaked)
@@ -87,3 +93,16 @@ def test_entry_points_raise_without_cuda_and_without_device():
     lanes = protect_blob(b"port", device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         recover_blob(lanes, 4)
+    from repro_torch.memsim import sim
+    tr = sim.make_trace(sim.WORKLOADS[0], 20, 16)
+    for call in (
+            lambda: sim.system_speedup_population(np.full((2, 4), 10.0),
+                                                  n_requests=20),
+            lambda: sim.system_speedup_population(np.full((2, 4), 10.0),
+                                                  n_requests=20,
+                                                  scheduler="inorder"),
+            lambda: sim.simulate(tr, sim.STANDARD),
+            lambda: sim.simulate_trace(tr, sim.STANDARD),
+            lambda: sim.evaluate_system_grid([sim.STANDARD], n_requests=20)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()

@@ -8,17 +8,19 @@ GPU host without JAX:
 
 Tolerance: ``fail_prob`` atol 1e-6, the reference's kernel-against-oracle
 bound (the kernel performs the plain version's float32 operations in its
-order); the SECDED and shuffle kernels are integer work and must equal their
-plain versions exactly."""
+order); the SECDED, shuffle and bank_sched kernels are integer work and must
+equal their plain versions exactly."""
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels.bank_sched import memsim_walk, memsim_walk_ref
 from repro_torch.kernels.fail_prob import fail_prob, fail_prob_ref
 from repro_torch.kernels.secded import (encode_checks, encode_checks_ref,
                                         syndrome, syndrome_ref)
 from repro_torch.kernels.shuffle import _perm_tensor, apply_shuffle, apply_shuffle_ref
+from repro_torch.memsim import sim as memsim
 from repro_torch.memsys.codec import interleave_permutation
 
 ATOL = 1e-6
@@ -140,3 +142,68 @@ def test_shuffle_kernel_unaligned_empty_and_non_contiguous(cuda):
     assert apply_shuffle.launches == before
     with pytest.raises(ValueError, match="contiguous"):
         apply_shuffle(_bits(4, 1152, cuda)[:, ::2])
+
+
+MEMSIM_CONFIGS = {
+    "default": memsim.MemSimConfig(),
+    "one_channel_one_rank": memsim.MemSimConfig(channels=1, ranks=1),
+    "queue4_no_bus": memsim.MemSimConfig(queue=4, bus=False),
+    "inorder": memsim.inorder_config(16),
+    "queue32": memsim.MemSimConfig(queue=32),
+}
+MEMSIM_TABLES = [memsim.STANDARD, np.array([8.75, 23.75, 8.75, 6.25]),
+                 np.array([[8.75, 23.75, 8.75, 6.25], [10.0, 27.5, 10.0, 7.5],
+                           [13.75, 35.0, 13.75, 15.0], [12.5, 30.0, 11.25, 10.0]])]
+
+
+def _walk_inputs(cfg, n, dev):
+    traces = memsim._stack_traces(n, cfg.banks, 0, dev)
+    tc = torch.as_tensor(np.stack([memsim.timing_cycles_banks(t, cfg.banks)
+                                   for t in MEMSIM_TABLES]), device=dev)
+    return traces, tc, memsim._walk_kw(cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 5, 33, 700])
+@pytest.mark.parametrize("name", sorted(MEMSIM_CONFIGS))
+def test_bank_sched_kernel_equals_plain_walk(cuda, name, n):
+    traces, tc, kw = _walk_inputs(MEMSIM_CONFIGS[name], n, cuda)
+    before = memsim_walk.launches
+    lat, hit = memsim_walk(traces, tc, **kw)
+    want_lat, want_hit = memsim_walk_ref(traces, tc, **kw)
+    torch.cuda.synchronize()
+    assert memsim_walk.launches == before + 1
+    assert lat.shape == (len(MEMSIM_TABLES), len(memsim.WORKLOADS), n)
+    assert lat.dtype == hit.dtype == torch.int32
+    assert torch.equal(lat, want_lat) and torch.equal(hit, want_hit)
+
+
+@pytest.mark.cuda
+def test_bank_sched_population_on_the_card_equals_the_cpu(cuda):
+    tables = np.array([[8.75, 23.75, 8.75, 6.25], [11.25, 30.0, 11.25, 12.5]])
+    before = memsim_walk.launches
+    got = memsim.system_speedup_population(tables, n_requests=300)
+    assert memsim_walk.launches == before + 1
+    want = memsim.system_speedup_population(tables, n_requests=300,
+                                            device="cpu")
+    assert np.array_equal(got["total_latency_cycles"],
+                          want["total_latency_cycles"])
+    assert np.array_equal(got["per_dimm_workload_speedup"],
+                          want["per_dimm_workload_speedup"])
+
+
+@pytest.mark.cuda
+def test_bank_sched_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    traces, tc, kw = _walk_inputs(memsim.MemSimConfig(), 64, cuda)
+    with pytest.raises(ValueError, match="queue"):
+        memsim_walk(traces, tc, **dict(kw, queue=33))
+    with pytest.raises(ValueError, match="contiguous"):
+        memsim_walk(traces[:, ::2], tc, **kw)
+    with pytest.raises(TypeError, match="int32"):
+        memsim_walk(traces.long(), tc, **kw)
+    with pytest.raises(ValueError, match="cpu"):
+        memsim_walk(traces, tc.cpu(), **kw)
+    before = memsim_walk.launches
+    lat, _ = memsim_walk(traces[:, :0].contiguous(), tc, **kw)
+    assert lat.shape == (len(MEMSIM_TABLES), len(memsim.WORKLOADS), 0)
+    assert memsim_walk.launches == before

@@ -132,4 +132,5 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     assert torch.equal(syndrome(code), syndrome_ref(code))
     apply_shuffle(torch.as_tensor(_bits(5, 576, seed=5)))
     assert ops.launch_counts() == {"fail_prob": 0, "secded_encode": 0,
-                                   "secded_syndrome": 0, "diva_shuffle": 0}
+                                   "secded_syndrome": 0, "diva_shuffle": 0,
+                                   "bank_sched": 0}
