@@ -45,11 +45,35 @@ of 512x512 mats, 16 mats and 8 subarrays — it
      in-order walker on the whole-DIMM tables, and the in-order grid behind
      ``speedup_summary`` at 1/2/4/8 cores (4 ``bank_sched`` launches) — and
      holds the integer totals of base + 8 whole-DIMM and base + 4 per-bank
-     tables, and the in-order grid, against the port run on the CPU.
+     tables, and the in-order grid, against the port run on the CPU;
+ 10. holds the ``fail_prob_op`` kernel against its plain version for all four
+     (voltage, retention) flag pairs at (96, 16, 512, 512) on the Fig 7
+     operating point's coefficients, a ragged shape and
+     ``open_bitline=False`` (max |kernel - plain| <= 1e-6), and with both
+     flags off against the ``fail_prob`` kernel (``torch.equal``); times
+     kernel and plain version with both flags on;
+ 11. holds the ``bit_signature`` kernel against its plain version
+     (``torch.equal``) at the blind-discovery shape (768, 512), at nbits 1
+     and 12 and N in {1, 100,003}; times kernel, plain version and the
+     ``torch.matmul`` yardstick at (262,144, 512);
+ 12. operating points of the 96 DIMMs (``operating_points_population``: the
+     timing table, min-safe supply and max-safe refresh interval with the
+     retention channel) and the 4-point operating grid — no kernel launch,
+     as in the reference — held against the CPU port on 8 DIMMs;
+ 13. the fleet error summary at an operating point (tRAS 25 ns, 85 C,
+     256 ms, 1.20 V, retention; chunks of 40: 3 ``fail_prob_op`` launches)
+     and at nominal supply without retention (3 ``fail_prob``), a ragged
+     stream of 8 DIMMs held against the CPU port;
+ 14. blind discovery: ``campaign_counts`` (tRP 10 / 7.5 / 5 ns, 96
+     ``fail_prob`` launches), ``BlindDiva.discover`` (6 ``bit_signature``
+     launches) and ``blind_vs_oracle``; the expectations of 4 DIMMs, every
+     discovery decision on the same counts and the blind tables of 8 DIMMs
+     held against the CPU port.
 
 Every phase prints one JSON line.  The launch counts are set to 0 just before
-each path (phases 3-4, 6, 7, 8 and 9) and read just after it; every kernel of
-a path must have launched, and the ``kernels`` line sums the paths' counts.
+each path (phases 3-4, 6, 7, 8, 9, 12, 13 and 14) and read just after it;
+every kernel of a path must have launched, and the ``kernels`` line sums the
+paths' counts.
 Any failed check raises; the last line is ``{"ok": true, "device": {...}}``
 only when all passed.  Exits non-zero, printing no result, when no CUDA
 device is available.
@@ -70,18 +94,28 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.core.geometry import FULL  # noqa: E402
-from repro_torch.core.latency import PATTERN_STRESS  # noqa: E402
+from repro_torch.core.latency import (  # noqa: E402
+    PATTERN_STRESS, access_vdd_shift, retention_stress)
+from repro_torch.core.packing import unpack_bool  # noqa: E402
 from repro_torch.core.population import make_population  # noqa: E402
 from repro_torch.core.profiling import latency_reduction  # noqa: E402
 from repro_torch.core.shuffling import design_stripe_profiles  # noqa: E402
+from repro_torch.core.streaming import (  # noqa: E402
+    PopulationStream, stream_error_summary)
 from repro_torch.core.substrate import (  # noqa: E402
-    DimmBatch, _geom_consts, _pack_coeffs, burst_bit_profile_population,
-    condition_adders, profile_population_arrays, row_error_lambda,
+    DimmBatch, _geom_consts, _pack_coeffs, _pack_op_coeffs,
+    burst_bit_profile_population, condition_adders, operating_grid_arrays,
+    operating_points_population, profile_population_arrays, row_error_lambda,
     shuffling_gain_population)
-from repro_torch.core.timing import TimingParams  # noqa: E402
+from repro_torch.core.timing import OperatingPoint, TimingParams  # noqa: E402
+from repro_torch.discovery.blind import (  # noqa: E402
+    BlindDiva, blind_vs_oracle, campaign_counts)
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels.bank_sched import memsim_walk, memsim_walk_ref  # noqa: E402
-from repro_torch.kernels.fail_prob import fail_prob, fail_prob_ref  # noqa: E402
+from repro_torch.kernels.bit_signature import (  # noqa: E402
+    bit_signature, bit_signature_ref)
+from repro_torch.kernels.fail_prob import (  # noqa: E402
+    fail_prob, fail_prob_op, fail_prob_op_ref, fail_prob_ref)
 from repro_torch.kernels.secded import (  # noqa: E402
     encode_checks, encode_checks_ref, syndrome, syndrome_ref)
 from repro_torch.kernels.shuffle import (  # noqa: E402
@@ -120,6 +154,21 @@ PAPER_SPEEDUP = {1: 0.092, 2: 0.147, 4: 0.137, 8: 0.138}   # Sec 6.3, Fig 19
 # activation window on: per queued candidate (21 + 5 for tRRD/tFAW + 2 for the
 # bus) and per step (the winner's reductions, the state update, output, refill)
 BANK_SCHED_CANDIDATE_OPS, BANK_SCHED_STEP_OPS = 28, 48
+# operating points: fp32 operations counted from csrc/fail_prob.cu that the
+# voltage shift and the retention mixture add to fail_prob's per cell
+OP_VOLTAGE_FLOPS, OP_RETENTION_FLOPS = 1, 67
+OP_FLAGS = ((False, False), (True, False), (False, True), (True, True))
+OP_PARAM, OP_T, OP_TEMP, OP_REFRESH, OP_VDD = "tras", 25.0, 85.0, 256.0, 1.20
+OP_CHUNK, OP_CPU_DIMMS, OP_CPU_CHUNK = 40, 8, 5
+# tests/test_operating_point.py's grid
+OP_POINTS = [OperatingPoint(), OperatingPoint(vdd=1.05),
+             OperatingPoint(refresh_ms=256.0, temp_C=75.0),
+             OperatingPoint(timing=TimingParams(10.0, 25.0, 10.0, 10.0),
+                            vdd=1.20)]
+# blind discovery: 96 DIMMs x 8 subarrays of 512 rows per signature pass
+SIG_PATH_ROWS, SIG_ROWS, SIG_NBITS = N_DIMMS * 8, 262144, 9
+SIG_RAGGED, SIG_NBITS_EXTRA = (1, 100003), (1, 12)
+BLIND_CPU_EXPECTED_DIMMS, BLIND_CPU_TABLE_DIMMS = 4, 8
 
 
 def emit(phase: str, **kw) -> None:
@@ -498,6 +547,309 @@ def memsim_phase(dev, batch, diva) -> tuple[dict, dict]:
     return launches, fields
 
 
+def op_kernel_vs_plain(batch) -> dict:
+    """Phase 10: ``fail_prob_op`` against its plain version; returns its
+    ``kernels``-line fields."""
+    g, dev = batch.geom, batch.device
+    adder = torch.as_tensor(condition_adders(batch, OP_TEMP, OP_REFRESH),
+                            device=dev)
+    shift = access_vdd_shift(batch.vdd_coef.cpu().numpy(), OP_VDD)
+    coeffs = _pack_op_coeffs(batch, 1, OP_T, PATTERN_STRESS["0101"], adder, 0,
+                             0, shift, retention_stress(OP_TEMP, OP_REFRESH,
+                                                        OP_VDD))
+    row_src = batch.row_src[:, 0].contiguous()
+    d_mat = torch.as_tensor(_geom_consts(g)[1], device=dev)
+    C = g.cols_per_mat
+    rng = np.random.default_rng(1)
+    rag_rows = torch.as_tensor(rng.integers(0, 100, (3, 100)),
+                               dtype=torch.int32, device=dev)
+    rag_cf = coeffs[:3].clone()
+    rag_cf[:, :6] += torch.as_tensor(rng.normal(0, 0.05, (3, 6)),
+                                     dtype=torch.float32, device=dev)
+    errs = {}
+
+    def check(rs, dm, cf, cols, open_bitline, voltage, retention):
+        kw = dict(cols=cols, open_bitline=open_bitline, voltage=voltage,
+                  retention=retention)
+        k, r = fail_prob_op(rs, dm, cf, **kw), fail_prob_op_ref(rs, dm, cf, **kw)
+        torch.cuda.synchronize()
+        if k.shape != r.shape or not torch.isfinite(k).all():
+            raise AssertionError(f"fail_prob_op output {tuple(k.shape)} not "
+                                 f"finite or not of shape {tuple(r.shape)}")
+        err = float((k - r).abs().max())
+        if err > KERNEL_ATOL:
+            raise AssertionError(f"fail_prob_op differs from its plain version "
+                                 f"by {err} ({kw}, {tuple(k.shape)})")
+        return err
+
+    for voltage, retention in OP_FLAGS:
+        key = f"voltage={voltage},retention={retention}"
+        errs[key] = check(row_src, d_mat, coeffs, C, True, voltage, retention)
+        errs[key + ",ragged"] = check(rag_rows, d_mat[:5], rag_cf, 96, True,
+                                      voltage, retention)
+    errs["closed_bitline"] = check(row_src, d_mat, coeffs, C, False, True, True)
+    off = fail_prob_op(row_src, d_mat, coeffs, cols=C)
+    if not torch.equal(off, fail_prob(row_src, d_mat,
+                                      coeffs[:, :9].contiguous(), cols=C)):
+        raise AssertionError("fail_prob_op with both flags off is not "
+                             "fail_prob bit for bit")
+    del off
+    kw = dict(cols=C, voltage=True, retention=True)
+    ms = cuda_ms(lambda: fail_prob_op(row_src, d_mat, coeffs, **kw), 20)
+    plain_ms = cuda_ms(lambda: fail_prob_op_ref(row_src, d_mat, coeffs, **kw), 5)
+    cells = batch.n_dimms * g.mats_x * g.rows_per_mat * C
+    n_bytes = row_src.numel() * 4 + d_mat.numel() * 4 + coeffs.numel() * 4 \
+        + cells * 4
+    n_ops = cells * (FAIL_PROB_FLOPS_PER_CELL + OP_VOLTAGE_FLOPS
+                     + OP_RETENTION_FLOPS)
+    fields = dict(ms=ms, plain_ms=plain_ms,
+                  bytes_ms=n_bytes / PEAK_BYTES_PER_S * 1e3,
+                  ops_ms=n_ops / PEAK_FP32_FLOPS * 1e3, library_ms=None,
+                  max_abs_err=max(errs.values()))
+    emit("kernel_vs_plain", kernel="fail_prob_op",
+         shape=[batch.n_dimms, g.mats_x, g.rows_per_mat, C],
+         max_abs_err_by_case=errs, ragged_shape=[3, 5, 100, 96],
+         flags_off_equal_fail_prob=True, atol=KERNEL_ATOL,
+         timed_flags=dict(voltage=True, retention=True), bytes=n_bytes,
+         flops=n_ops, **fields)
+    return fields
+
+
+def counts_rows(n: int, nbits: int, dev, seed: int) -> torch.Tensor:
+    """Seeded (n, 2**nbits) int32 counts in [0, 1000) on the card."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, 1000, (n, 2 ** nbits), generator=gen, device=dev,
+                         dtype=torch.int32)
+
+
+def sig_kernel_vs_plain(dev) -> dict:
+    """Phase 11: ``bit_signature`` against its plain version; returns its
+    ``kernels``-line fields."""
+    kern = lambda x, nb=SIG_NBITS: bit_signature(x, nbits=nb)
+    plain = lambda x, nb=SIG_NBITS: bit_signature_ref(x, nbits=nb)
+    err = exact(kern, plain, counts_rows(SIG_PATH_ROWS, SIG_NBITS, dev, 1),
+                "bit_signature")
+    for nb in SIG_NBITS_EXTRA:
+        exact(lambda x: kern(x, nb), lambda x: plain(x, nb),
+              counts_rows(4099, nb, dev, nb), f"bit_signature (nbits {nb})")
+    for n in SIG_RAGGED:
+        exact(kern, plain, counts_rows(n, SIG_NBITS, dev, n), "bit_signature")
+    x = counts_rows(SIG_ROWS, SIG_NBITS, dev, 2)
+    R = x.shape[1]
+    r = torch.arange(R, device=dev)
+    signs = ((((r[:, None] >> torch.arange(SIG_NBITS, device=dev)) & 1) * 2
+              - 1).to(torch.float32))                          # (R, nbits)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    library = lambda: torch.matmul(x.float(), signs)
+    # exact while every |sum| < 2**24: the counts are below 1000
+    if not torch.equal(library().to(torch.int32), kern(x)):
+        raise AssertionError("the matmul yardstick does not compute the "
+                             "signatures")
+    n_bytes = x.numel() * 4 + SIG_ROWS * SIG_NBITS * 4
+    n_ops = x.numel() * SIG_NBITS * 2        # a +-1 product and an add each
+    fields = dict(ms=cuda_ms(lambda: kern(x), 20),
+                  plain_ms=cuda_ms(lambda: plain(x), 5),
+                  library_ms=cuda_ms(library, 20),
+                  bytes_ms=n_bytes / PEAK_BYTES_PER_S * 1e3,
+                  ops_ms=n_ops / PEAK_INT32_OPS * 1e3, max_abs_err=err)
+    emit("kernel_vs_plain", kernel="bit_signature",
+         shape=[SIG_PATH_ROWS, R], timed_shape=[SIG_ROWS, R],
+         nbits_extra=list(SIG_NBITS_EXTRA), ragged=list(SIG_RAGGED),
+         equal=True, bytes=n_bytes, operations=n_ops,
+         library="torch.matmul(counts.float(), signs), allow_tf32=False",
+         **fields)
+    return fields
+
+
+def op_points_phase(batch, pop) -> dict:
+    """Phase 12: operating points and the operating grid; returns its
+    launches (none: the reference's dense operating-point path runs no
+    kernel either)."""
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pts = operating_points_population(batch, temp_C=55.0, multibit_only=True)
+    pts_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    grid = operating_grid_arrays(batch, OP_POINTS)
+    grid_s = time.perf_counter() - t0
+    launches = counted({})
+    k = OP_CPU_DIMMS
+    cpu = DimmBatch.from_population(pop[:k], "cpu")
+    t0 = time.perf_counter()
+    pts_cpu = operating_points_population(cpu, temp_C=55.0, multibit_only=True)
+    grid_cpu = operating_grid_arrays(cpu, OP_POINTS)
+    cpu_s = time.perf_counter() - t0
+    if [p.as_dict() for p in pts[:k]] != [p.as_dict() for p in pts_cpu]:
+        raise AssertionError("operating points differ on the card and the CPU")
+    if not np.array_equal(grid["fails"][:k], grid_cpu["fails"]):
+        raise AssertionError("operating-grid fails differ on the card and "
+                             "the CPU")
+    np.testing.assert_allclose(grid["lam"][:k], grid_cpu["lam"],
+                               rtol=LAMBDA_RTOL)
+    if grid["lam"].shape != (batch.n_dimms, len(OP_POINTS)) \
+            or not np.isfinite(grid["lam"]).all():
+        raise AssertionError(f"operating grid lam {grid['lam'].shape}, "
+                             f"non-finite?")
+    lam_rel = float(np.max(np.abs(grid["lam"][:k] - grid_cpu["lam"])
+                           / np.maximum(np.abs(grid_cpu["lam"]), 1e-30)))
+    emit("operating_points", dimms=batch.n_dimms, temp_C=55.0,
+         multibit_only=True, seconds=pts_s, grid_seconds=grid_s,
+         launches=launches,
+         mean_safe_vdd=float(np.mean([p.vdd for p in pts])),
+         mean_safe_refresh_ms=float(np.mean([p.refresh_ms for p in pts])),
+         mean_read_reduction=float(np.mean([latency_reduction(p.timing)
+                                            ["read_reduction"] for p in pts])),
+         first_points=[p.as_dict() for p in pts[:2]],
+         grid_points=[p.as_dict() for p in OP_POINTS],
+         grid_fail_share=grid["fails"].mean(axis=0).tolist(),
+         cpu_dimms=k, equal_cpu=True, grid_lam_max_rel_err_vs_cpu=lam_rel,
+         rtol=LAMBDA_RTOL, cpu_check_seconds=cpu_s)
+    return launches
+
+
+def _op_coeffs_cpu(pop, k):
+    cpu = DimmBatch.from_population(pop[:k], "cpu")
+    adder = torch.as_tensor(condition_adders(cpu, OP_TEMP, OP_REFRESH))
+    shift = access_vdd_shift(cpu.vdd_coef.numpy(), OP_VDD)
+    return cpu, _pack_op_coeffs(cpu, 1, OP_T, PATTERN_STRESS["0101"], adder,
+                                0, 0, shift, retention_stress(
+                                    OP_TEMP, OP_REFRESH, OP_VDD))
+
+
+def error_summary_phase(batch, pop) -> dict:
+    """Phase 13: the fleet error summary at an operating point and at
+    nominal supply; returns its launches."""
+    op = dict(temp_C=OP_TEMP, refresh_ms=OP_REFRESH, vdd=OP_VDD,
+              retention=True, collect_fail_maps=True)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    at_op = stream_error_summary(PopulationStream.from_batch(batch), OP_PARAM,
+                                 OP_T, chunk_size=OP_CHUNK, **op)
+    op_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nominal = stream_error_summary(PopulationStream.from_batch(batch),
+                                   OP_PARAM, OP_T, chunk_size=OP_CHUNK,
+                                   temp_C=OP_TEMP, refresh_ms=OP_REFRESH)
+    nominal_s = time.perf_counter() - t0
+    n_chunks = -(-batch.n_dimms // OP_CHUNK)
+    launches = counted({"fail_prob_op": n_chunks, "fail_prob": n_chunks})
+    g = batch.geom
+    if at_op["grid_sum"].shape != (g.mats_x, g.rows_per_mat, g.cols_per_mat) \
+            or not np.isfinite(at_op["grid_sum"]).all() \
+            or at_op["lam_total"].shape != (batch.n_dimms,):
+        raise AssertionError("fleet error summary: bad shapes or non-finite")
+
+    # a ragged stream of 8 DIMMs, card against CPU
+    k = OP_CPU_DIMMS
+    sub = DimmBatch.from_population(pop[:k], batch.device)
+    card = stream_error_summary(sub, OP_PARAM, OP_T, chunk_size=OP_CPU_CHUNK,
+                                **op)
+    cpu_batch, cpu_cf = _op_coeffs_cpu(pop, k)
+    t0 = time.perf_counter()
+    cpu = stream_error_summary(cpu_batch, OP_PARAM, OP_T,
+                               chunk_size=OP_CPU_CHUNK, **op)
+    cpu_s = time.perf_counter() - t0
+    np.testing.assert_allclose(card["lam_total"], cpu["lam_total"],
+                               rtol=LAMBDA_RTOL)
+    # each cell of each DIMM within the kernel's bound of the plain version
+    np.testing.assert_allclose(card["grid_sum"], cpu["grid_sum"],
+                               rtol=LAMBDA_RTOL, atol=k * KERNEL_ATOL)
+    for key in ("lam_min", "lam_max"):
+        if not np.array_equal(card[key]["serial"], cpu[key]["serial"]):
+            raise AssertionError(f"{key} serial differs on the card and CPU")
+    maps = lambda res: np.concatenate([unpack_bool(p)
+                                       for p in res["fail_maps"]])
+    hot_diff = card["hot_cells"] != cpu["hot_cells"]          # (M, R, C)
+    row_diff = maps(card) != maps(cpu)                        # (k, R)
+    near_cells = int(hot_diff.sum()) + int(row_diff.sum())
+    if near_cells:
+        # a difference is allowed only where a cell lies within the kernel's
+        # bound of the threshold (0.5)
+        grids = fail_prob_op_ref(cpu_batch.row_src[:, 0].contiguous(),
+                                 torch.as_tensor(_geom_consts(g)[1]), cpu_cf,
+                                 cols=g.cols_per_mat, voltage=True,
+                                 retention=True)
+        near = ((grids - 0.5).abs() <= KERNEL_ATOL).numpy()
+        if (hot_diff & ~near.any(axis=0)).any() \
+                or (row_diff & ~near.any(axis=(1, 3))).any():
+            raise AssertionError("hot cells or fail maps differ on the card "
+                                 "and the CPU away from the threshold")
+    emit("error_summary", dimms=batch.n_dimms, param=OP_PARAM, t_op=OP_T,
+         temp_C=OP_TEMP, refresh_ms=OP_REFRESH, vdd=OP_VDD, retention=True,
+         chunk_size=OP_CHUNK, n_chunks=at_op["n_chunks"],
+         seconds=op_s, nominal_seconds=nominal_s, launches=launches,
+         lam_mean_operating_point=float(at_op["lam_stats"]["mean"]),
+         lam_mean_nominal=float(nominal["lam_stats"]["mean"]),
+         lam_max_serial=int(at_op["lam_max"]["serial"]),
+         hot_cells_total=int(at_op["hot_cells"].sum()),
+         hot_cells_total_nominal=int(nominal["hot_cells"].sum()),
+         rows_failing=int(maps(at_op).sum()),
+         cpu_dimms=k, cpu_chunk_size=OP_CPU_CHUNK, rtol=LAMBDA_RTOL,
+         cells_differing_near_threshold=near_cells, cpu_check_seconds=cpu_s)
+    return launches
+
+
+def blind_phase(batch, pop) -> dict:
+    """Phase 14: blind discovery on the 96 DIMMs; returns its launches."""
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    secs = {}
+    t0 = time.perf_counter()
+    counts, expected = campaign_counts(pop, batch)
+    secs["campaign"] = time.perf_counter() - t0
+    serials = batch.serial.cpu().numpy()
+    t0 = time.perf_counter()
+    disc = BlindDiva().discover(counts, expected, serials=serials,
+                                device=batch.device)
+    secs["discover"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bvo = blind_vs_oracle(batch, disc, temp_C=55.0, multibit_only=True)
+    secs["blind_vs_oracle"] = time.perf_counter() - t0
+    g = batch.geom
+    T = counts.shape[0]
+    launches = counted({"fail_prob": T * g.subarrays * 4,
+                        "bit_signature": 2 * T})
+
+    # checks against the port on the CPU
+    t0 = time.perf_counter()
+    ke = BLIND_CPU_EXPECTED_DIMMS
+    _, exp_cpu = campaign_counts(pop[:ke], DimmBatch.from_population(
+        pop[:ke], "cpu"), t_ops=(7.5,))
+    np.testing.assert_allclose(expected[1, :ke], exp_cpu[0], rtol=5e-5)
+    exp_rel = float(np.max(np.abs(expected[1, :ke] - exp_cpu[0])
+                           / np.maximum(np.abs(exp_cpu[0]), 1e-30)))
+    disc_cpu = BlindDiva().discover(counts, expected, serials=serials,
+                                    device="cpu")
+    for f in ("labels", "ext_rows", "ext_to_int", "vuln_rows", "canonical",
+              "confidence"):
+        if not np.array_equal(getattr(disc, f), getattr(disc_cpu, f)):
+            raise AssertionError(f"blind discovery {f} differs on the card "
+                                 f"and the CPU")
+    kt = BLIND_CPU_TABLE_DIMMS
+    blind_cpu = BlindDiva().profile(
+        DimmBatch.from_population(pop[:kt], "cpu"),
+        dataclasses.replace(disc_cpu, ext_rows=disc_cpu.ext_rows[:kt]),
+        temp_C=55.0, multibit_only=True)
+    if not np.array_equal(bvo["blind"][:kt], blind_cpu):
+        raise AssertionError("blind tables differ on the card and the CPU")
+    cpu_s = time.perf_counter() - t0
+    emit("blind_discovery", dimms=batch.n_dimms, param="trp",
+         t_ops=[10.0, 7.5, 5.0], temp_C=85.0, refresh_ms=256.0,
+         seconds=secs, launches=launches,
+         generations=int(disc.canonical.shape[0]),
+         agreement=bvo["agreement"], n_agree=bvo["n_agree"],
+         region_recovered_frac=bvo["region_recovered_frac"],
+         mean_confidence=float(disc.confidence.mean()),
+         rows_tested_blind=bvo["rows_tested_blind"],
+         rows_tested_conventional=bvo["rows_tested_conventional"],
+         expected_cpu_dimms=ke, expected_cpu_t_op=7.5,
+         expected_max_rel_err_vs_cpu=exp_rel, discovery_equal_cpu=True,
+         blind_tables_equal_cpu_dimms=kt, cpu_check_seconds=cpu_s)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU host",
@@ -623,6 +975,14 @@ def main() -> int:
     # ---- 9. the Fig 19 memory system, counted
     memsim_launches, ints["bank_sched"] = memsim_phase(dev, batch, diva)
     paths.append(memsim_launches)
+
+    # ---- 10-11. the operating-point and signature kernels against plain
+    ints["fail_prob_op"] = op_kernel_vs_plain(batch)
+    ints["bit_signature"] = sig_kernel_vs_plain(dev)
+
+    # ---- 12-14. operating points, the fleet error summary, blind discovery
+    paths += [op_points_phase(batch, pop), error_summary_phase(batch, pop),
+              blind_phase(batch, pop)]
     total = {name: sum(p[name] for p in paths) for name in ops.KERNELS}
 
     rows = [dict(name="fail_prob",
@@ -635,7 +995,9 @@ def main() -> int:
             ("secded_encode", "secded.cu", "secded.py:56"),
             ("secded_syndrome", "secded.cu", "secded.py:73"),
             ("diva_shuffle", "shuffle.cu", "shuffle.py:64"),
-            ("bank_sched", "bank_sched.cu", "bank_sched.py:138")):
+            ("bank_sched", "bank_sched.cu", "bank_sched.py:138"),
+            ("fail_prob_op", "fail_prob.cu", "fail_prob.py:161"),
+            ("bit_signature", "bit_signature.cu", "bit_signature.py:53")):
         rows.append(dict(name=name,
                          source=f"src/repro_torch/kernels/csrc/{source}",
                          replaces=f"src/repro/kernels/{replaces}", **ints[name]))

@@ -297,6 +297,13 @@ def fail_mixture_t(t_req_det, t_op, sigma, outlier_rate, outlier_ns):
     return (1.0 - outlier_rate) * p + outlier_rate * p_out
 
 
+def retention_fail_mixture_t(slowness, ret_base, ret_k, x, sigma,
+                             outlier_rate, drop):
+    """Torch twin of ``retention_fail_mixture``."""
+    margin = ret_base - ret_k * slowness
+    return fail_mixture_t(-margin, -x, sigma, outlier_rate, drop)
+
+
 def multibit_tail_t(q, width: int = 72):
     """Torch twin of ``multibit_tail`` (the expm1/log1p form)."""
     q = torch.clamp(q, 0.0, 0.999999)

@@ -11,10 +11,11 @@ cost (Appendix A: 625 ms vs 1.22 ms per pattern for a 4GB DIMM).
 
 The counterpart of ``repro.core.profiling`` for the main path:
 ``diva_profile`` / ``conventional_profile`` run the batched sweep of
-core/substrate.py on a one-DIMM batch; the numpy walkers
-(``diva_profile_loop`` / ``conventional_profile_loop``) are the per-DIMM
-references it reproduces decision for decision.  ``DivaProfiler``, ``ALDRAM``
-and ``lifetime_loop`` are not ported yet.
+core/substrate.py on a one-DIMM batch, and ``diva_operating_point`` its
+operating-point sweep; the numpy walkers (``diva_profile_loop`` /
+``conventional_profile_loop``) are the per-DIMM references it reproduces
+decision for decision.  ``DivaProfiler``, ``ALDRAM`` and ``lifetime_loop``
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -22,8 +23,11 @@ import numpy as np
 
 from repro_torch.core.errors import DEFAULT_ITERS, DEFAULT_PATTERNS, DimmModel
 from repro_torch.core.latency import worst_rows_internal
-from repro_torch.core.substrate import DimmBatch, profile_population
-from repro_torch.core.timing import CYCLE_NS, STANDARD, TimingParams, timing_grid
+from repro_torch.core.substrate import (DimmBatch,
+                                        operating_points_population,
+                                        profile_population)
+from repro_torch.core.timing import (CYCLE_NS, STANDARD, VDD_STD,
+                                     OperatingPoint, TimingParams, timing_grid)
 
 
 # ------------------------------------------------------------- cost model
@@ -53,6 +57,21 @@ def diva_profile(dimm: DimmModel, *, temp_C=55.0, refresh_ms=64.0,
                               region="worst", temp_C=temp_C,
                               refresh_ms=refresh_ms, guard_cycles=guard_cycles,
                               multibit_only=with_ecc)[0]
+
+
+def diva_operating_point(dimm: DimmModel, *, temp_C=55.0, refresh_ms=64.0,
+                         vdd=VDD_STD, guard_cycles: int = 1,
+                         with_ecc: bool = True, device=None,
+                         **kw) -> OperatingPoint:
+    """N-axis DIVA profiling of one DIMM: the timing table plus the safe
+    supply voltage and refresh interval (each non-timing axis swept one knob
+    at a time at standard timing, with the retention channel live) as one
+    ``OperatingPoint`` — the per-DIMM face of
+    ``substrate.operating_points_population``."""
+    return operating_points_population(
+        DimmBatch.from_population([dimm], device), temp_C=temp_C,
+        refresh_ms=refresh_ms, vdd=vdd, guard_cycles=guard_cycles,
+        multibit_only=with_ecc, **kw)[0]
 
 
 def conventional_profile(dimm: DimmModel, *, temp_C=55.0, refresh_ms=64.0,

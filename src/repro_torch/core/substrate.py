@@ -13,7 +13,13 @@ The counterpart of ``repro.core.substrate`` for the main path:
                              axis inside the kernel grid.
   * ``profile_population`` — DIVA / conventional profiling of every DIMM
                              (Sec 6.1): plain torch ops, a Python loop where
-                             the reference has a ``lax.scan``.
+                             the reference has a ``lax.scan``; with ``axes``
+                             beyond the four timings also the safe supply
+                             voltage and refresh interval, and with
+                             ``retention`` the retention error channel.
+  * ``operating_points_population`` / ``operating_grid_arrays`` — per-DIMM
+                             ``OperatingPoint``s, and every DIMM evaluated at
+                             a static grid of operating points.
   * ``burst_bit_profile_population`` / ``shuffling_gain_population`` — DIVA
                              Shuffling (Sec 6.2, Fig 17): burst-bit error
                              profiles from the ``fail_prob`` grids, and the
@@ -24,8 +30,7 @@ The counterpart of ``repro.core.substrate`` for the main path:
 Monte-Carlo decisions and error draws use the counter hashes of
 core/hashing.py, whose torch and numpy forms give the same bits, so the
 batched paths reproduce the per-DIMM numpy walkers and the reference's
-tables and counts decision for decision.  Not ported yet: the
-``axes``/``retention``/``vdd`` operating-point sweep, lifetime and the
+tables and counts decision for decision.  Not ported yet: lifetime and the
 ``mesh`` DIMM sharding (ROADMAP queue 1).
 
 Entry points run on the batch's device.  A batch lands on CUDA unless the
@@ -46,15 +51,20 @@ from repro_torch.core.geometry import (DimmGeometry, burst_bit_to_mat,
                                        precharge_delay, wordline_distance)
 from repro_torch.core.hashing import burst_uniform_t, query_uniform_t
 from repro_torch.core.latency import (DEFAULT_ITERS, DEFAULT_PATTERNS,
-                                      PATTERN_STRESS, condition_scalars, div_t,
-                                      fail_mixture_t, multibit_tail_t,
-                                      worst_rows_internal)
-from repro_torch.core.timing import AXES, CYCLE_NS, PARAMS, STANDARD, TimingParams
+                                      PATTERN_STRESS, access_vdd_shift,
+                                      condition_scalars, div_t, fail_mixture_t,
+                                      multibit_tail_t, retention_fail_mixture_t,
+                                      retention_stress, worst_rows_internal)
+from repro_torch.core.timing import (AXES, CYCLE_NS, EXTENDED_AXES,
+                                     OP_GRID_LANE, PARAMS, STANDARD, VDD_STD,
+                                     OperatingPoint, TimingParams,
+                                     op_point_key)
 from repro_torch.kernels.fail_prob import fail_prob
 from repro_torch.kernels.secded import syndrome
 from repro_torch.kernels.shuffle import apply_shuffle
 
 TIMING_GRIDS = {p: AXES[p].grid for p in PARAMS}
+GRIDS = dict(TIMING_GRIDS, vdd=AXES["vdd"].grid, refresh=AXES["refresh"].grid)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -207,8 +217,34 @@ def condition_adders(batch: DimmBatch, temp_C: float,
 
 # ------------------------------------------------- region failure decisions
 
+def _row_distances(batch: DimmBatch, s: int, rows, even):
+    """Bitline (D, Rr, C) and row-index (D, Rr) distances of subarray ``s``'s
+    test rows after repair, for a shared (Rr,) or per-DIMM (D, Rr) region."""
+    R = batch.geom.rows_per_mat
+    row_src_s = batch.row_src[:, s]                              # (D, R)
+    if rows.dim() == 2:                                          # per-DIMM
+        rsel = torch.gather(row_src_s, 1, rows)
+    else:
+        rsel = row_src_s[:, rows]
+    rf = rsel.to(torch.float32)                                  # (D, Rr)
+    d_bl = div_t(torch.where(even[None, None, :], rf[:, :, None],
+                             (R - 1) - rf[:, :, None]), R - 1)
+    return d_bl, div_t(rf, R - 1)
+
+
+def _channel_lam(pr, chips: int, iters: int, multibit: bool):
+    """(D, P) expected failures of one error channel's (D, P, M, Rr, C)
+    probabilities: all failing cells, or SECDED-uncorrectable codewords."""
+    if multibit:
+        return torch.clamp_min(
+            div_t(2 * iters * chips * multibit_tail_t(pr).sum(dim=(2, 3, 4)),
+                  72.0), 0.0)
+    return 2 * iters * chips * pr.sum(dim=(2, 3, 4))
+
+
 def _region_eval(batch: DimmBatch, pidx: int, t_op: float, rows, stress,
-                 adder, iters: int, multibit: bool, banks: int = 1):
+                 adder, iters: int, multibit: bool, banks: int = 1,
+                 extra=None):
     """Monte-Carlo region test of the whole batch at one timing value.
 
     Returns (D, banks) bool: does the row region fail the test at ``t_op`` in
@@ -216,13 +252,15 @@ def _region_eval(batch: DimmBatch, pidx: int, t_op: float, rows, stress,
     groups; ``banks=1`` is the whole-DIMM test.  ``rows`` is a shared (Rr,)
     internal row region or a per-DIMM (D, Rr) table (int64); ``stress`` the
     (P,) pattern stresses and ``adder`` the (D,) host-computed condition term,
-    both f32 on the batch's device.  Mirrors the reference's ``_region_eval``
-    (scalar ``t_op``, ``extra=None``) operation for operation in float32,
-    including the broadcast order of the ``t`` sum; subarrays run in a
-    Python loop.
+    both f32 on the batch's device.  ``extra`` is an optional (D,) f32
+    required-latency addend (the access-channel voltage shift of a
+    non-nominal supply); ``None`` leaves the sum as it was without it.
+    Mirrors the reference's ``_region_eval`` (scalar ``t_op``) operation for
+    operation in float32, including the broadcast order of the ``t`` sum;
+    subarrays run in a Python loop.
     """
     g = batch.geom
-    R, S, chips = g.rows_per_mat, g.subarrays, g.chips
+    S, chips = g.subarrays, g.chips
     subs_per_bank = S // banks
     dev = batch.device
     d_wl, d_mat, even = (torch.as_tensor(a, device=dev)
@@ -238,15 +276,7 @@ def _region_eval(batch: DimmBatch, pidx: int, t_op: float, rows, stress,
     e5 = lambda v: v[:, None, None, None, None]
     fails = torch.zeros((batch.n_dimms, banks), dtype=torch.bool, device=dev)
     for s in range(S):
-        row_src_s = batch.row_src[:, s]                          # (D, R)
-        if rows.dim() == 2:                                      # per-DIMM
-            rsel = torch.gather(row_src_s, 1, rows)
-        else:
-            rsel = row_src_s[:, rows]
-        rf = rsel.to(torch.float32)                              # (D, Rr)
-        d_bl = div_t(torch.where(even[None, None, :], rf[:, :, None],
-                                 (R - 1) - rf[:, :, None]), R - 1)  # (D,Rr,C)
-        d_row = div_t(rf, R - 1)
+        d_bl, d_row = _row_distances(batch, s, rows, even)
         var = (kbl[:, None, None, None] * d_bl[:, None, :, :]
                + kwl[:, None, None, None] * d_wl[None, None, None, :]
                + kmat[:, None, None, None] * d_mat[None, :, None, None]
@@ -254,17 +284,13 @@ def _region_eval(batch: DimmBatch, pidx: int, t_op: float, rows, stress,
         t = e5(base) + stress[None, :, None, None, None] \
             * var[:, None, :, :, :]                              # (D,P,M,Rr,C)
         t = t + e5(adder)
+        if extra is not None:
+            t = t + e5(extra)
         t = t + e5(chip0)
         t = t + e5(batch.sub_offsets[:, s])
         p = fail_mixture_t(t, t_cell, e5(batch.sigma), e5(batch.outlier_rate),
                            e5(batch.outlier_ns))
-        if multibit:
-            p_multi = multibit_tail_t(p)
-            lam = torch.clamp_min(
-                div_t(2 * iters * chips * p_multi.sum(dim=(2, 3, 4)), 72.0),
-                0.0)
-        else:
-            lam = 2 * iters * chips * p.sum(dim=(2, 3, 4))       # (D, P)
+        lam = _channel_lam(p, chips, iters, multibit)            # (D, P)
         u = query_uniform_t(batch.serial[:, None], pidx, t_hash,
                             int(multibit), s, pat_idx)
         fail_s = torch.any(u < -torch.expm1(-lam), dim=1)        # (D,)
@@ -275,7 +301,7 @@ def _region_eval(batch: DimmBatch, pidx: int, t_op: float, rows, stress,
 
 def _sweep_param(batch: DimmBatch, pidx: int, floor, rows, stress, adder,
                  guard_cycles: int, iters: int, multibit: bool,
-                 banks: int = 1):
+                 banks: int = 1, extra=None):
     """Walk one parameter's timing grid downward; per-(DIMM, bank) min-safe
     value (``floor`` is (D, banks)).
 
@@ -289,7 +315,7 @@ def _sweep_param(batch: DimmBatch, pidx: int, floor, rows, stress, adder,
     stops = []
     for t_op in grid:
         fail = _region_eval(batch, pidx, t_op, rows, stress, adder, iters,
-                            multibit, banks)
+                            multibit, banks, extra)
         stops.append(fail | (floor - 1e-9 > t_op))
         if bool(torch.all(stops[-1])):
             break
@@ -302,21 +328,154 @@ def _sweep_param(batch: DimmBatch, pidx: int, floor, rows, stress, adder,
     return torch.clamp_max(best + guard_cycles * CYCLE_NS, std)
 
 
-def _profile_impl(batch: DimmBatch, rows, stress, adder, *, guard_cycles: int,
-                  iters: int, multibit: bool, banks: int = 1):
-    """The whole-population sweep: tRCD first, tRAS floored by tRCD + 10 ns
-    (the Section 4 infrastructure constraint), then tRP and tWR.  Returns
-    (D, banks, 4)."""
+def _op_region_eval(batch: DimmBatch, t_subs, rows, stress, adder, extra,
+                    lane: int, key_q: int, iters: int, multibit: bool,
+                    banks: int, retention: bool, ret_x):
+    """Monte-Carlo region test of the whole batch at one operating point.
+
+    Every timing parameter at its (D, S, 4) per-subarray table value
+    ``t_subs``, plus the retention error channel when ``retention``, with
+    one accept/reject draw per (subarray, pattern) keyed on ``(lane,
+    key_q)`` and never on the ambient conditions.  ``extra`` is the (D,)
+    access-channel voltage shift or None; ``ret_x`` a 0-d f32 retention
+    stress.  Returns ``(fails, lam)``, both (D, banks): lam sums the access
+    channel over the four parameters plus the retention channel.  Mirrors
+    the reference's ``_op_region_eval`` operation for operation; subarrays
+    run in a Python loop.
+    """
+    g = batch.geom
+    S, chips = g.subarrays, g.chips
+    subs_per_bank = S // banks
+    dev = batch.device
+    d_wl, d_mat, even = (torch.as_tensor(a, device=dev)
+                         for a in _geom_consts(g))
+    chip0 = batch.chip_offsets[:, 0]
+    P = stress.shape[0]
+    pat_idx = torch.arange(P, device=dev)[None, :]
+    e5 = lambda v: v[:, None, None, None, None]
     D = batch.n_dimms
+    fails = torch.zeros((D, banks), dtype=torch.bool, device=dev)
+    lam_total = torch.zeros((D, banks), dtype=torch.float32, device=dev)
+    for s in range(S):
+        d_bl, d_row = _row_distances(batch, s, rows, even)
+        sub_off = batch.sub_offsets[:, s]
+        lam_sp = torch.zeros((D, P), dtype=torch.float32, device=dev)
+        var_tras = None
+        for p in range(len(PARAMS)):
+            var = (batch.k_bl[:, p][:, None, None, None] * d_bl[:, None, :, :]
+                   + batch.k_wl[:, p][:, None, None, None]
+                   * d_wl[None, None, None, :]
+                   + batch.k_mat[:, p][:, None, None, None]
+                   * d_mat[None, :, None, None]
+                   + batch.k_row[:, p][:, None, None, None]
+                   * d_row[:, None, :, None])
+            if p == 1:
+                var_tras = var   # tRAS (charge restore) drives retention too
+            t = e5(batch.base[:, p]) + stress[None, :, None, None, None] \
+                * var[:, None, :, :, :]                          # (D,P,M,Rr,C)
+            t = t + e5(adder)
+            if extra is not None:
+                t = t + e5(extra)
+            t = t + e5(chip0)
+            t = t + e5(sub_off)
+            pr = fail_mixture_t(t, e5(t_subs[:, s, p]), e5(batch.sigma),
+                                e5(batch.outlier_rate), e5(batch.outlier_ns))
+            lam_sp = lam_sp + _channel_lam(pr, chips, iters, multibit)
+        if retention:
+            slow = stress[None, :, None, None, None] * var_tras[:, None, :, :, :]
+            pr = retention_fail_mixture_t(
+                slow, e5(batch.ret_base), e5(batch.ret_k), ret_x,
+                e5(batch.ret_sigma), e5(batch.outlier_rate),
+                e5(batch.ret_drop))
+            lam_sp = lam_sp + _channel_lam(pr, chips, iters, multibit)
+        u = query_uniform_t(batch.serial[:, None], lane, key_q, int(multibit),
+                            s, pat_idx)
+        fail_s = torch.any(u < -torch.expm1(-lam_sp), dim=1)     # (D,)
+        b = s // subs_per_bank
+        fails[:, b] |= fail_s
+        lam_total[:, b] = lam_total[:, b] + lam_sp.sum(dim=1)
+    return fails, lam_total
+
+
+def _sweep_axis(batch: DimmBatch, axis: str, t_subs, rows, stress,
+                extras_gd, adders_gd, keys_g, retx_g, guard_cycles: int,
+                iters: int, multibit: bool, banks: int, retention: bool):
+    """Walk one non-timing axis's grid (vdd / refresh) with the timing table
+    at standard values (``t_subs``): the per-(DIMM, bank) most aggressive
+    safe value.  The guardband retreats ``guard_cycles`` grid steps toward
+    standard; fewer safe points than that gives the standard value.  The
+    walk ends early once every (DIMM, bank) has stopped; the remaining grid
+    points cannot change the count of leading safe points.
+    """
+    spec = AXES[axis]
+    stops = []
+    for i in range(len(spec.grid)):
+        fail, _ = _op_region_eval(batch, t_subs, rows, stress, adders_gd[i],
+                                  extras_gd[i], spec.index, int(keys_g[i]),
+                                  iters, multibit, banks, retention, retx_g[i])
+        stops.append(fail)
+        if bool(torch.all(fail)):
+            break
+    stops = torch.stack(stops)                                   # (G', D, banks)
+    n_ok = torch.sum(torch.cumsum(stops.to(torch.int32), dim=0) == 0, dim=0)
+    idx = n_ok - 1 - guard_cycles                                # (D, banks)
+    grid = torch.tensor(spec.grid, dtype=torch.float32, device=batch.device)
+    vals = grid[torch.clamp(idx, 0, len(spec.grid) - 1)]
+    return torch.where(idx >= 0, vals,
+                       torch.tensor(spec.standard, dtype=torch.float32,
+                                    device=batch.device))
+
+
+def _profile_impl(batch: DimmBatch, rows, stress, adder, ctx_d=None,
+                  ctx_g=None, *, guard_cycles: int, iters: int,
+                  multibit: bool, banks: int = 1, axes=PARAMS,
+                  retention: bool = False):
+    """The whole-population sweep: tRCD first, tRAS floored by tRCD + 10 ns
+    (the Section 4 infrastructure constraint), then tRP and tWR — then the
+    further operating-point axes of ``axes`` ("vdd", "refresh"), each swept
+    one knob at a time at standard timing.  Returns (D, banks, len(axes)).
+
+    ``ctx_d``/``ctx_g`` are the host-computed per-axis tables of
+    ``_axis_context``, as tensors on the batch's device (ctx_g's keys stay
+    numpy).  With the default ``axes=PARAMS``, no context and no retention
+    this is the 4-parameter sweep, operation for operation.
+    """
+    if tuple(axes[:len(PARAMS)]) != PARAMS:
+        raise ValueError(f"axes must keep the 4 timing params as a prefix, "
+                         f"got {axes!r}")
+    D, S = batch.n_dimms, batch.geom.subarrays
+    dev = batch.device
+    extra = None if not ctx_d else ctx_d.get("vdd_extra")
     kw = dict(rows=rows, stress=stress, adder=adder, banks=banks,
-              guard_cycles=guard_cycles, iters=iters, multibit=multibit)
-    floor5 = torch.full((D, banks), 5.0, dtype=torch.float32,
-                        device=batch.device)
-    trcd = _sweep_param(batch, 0, floor5, **kw)
-    tras = _sweep_param(batch, 1, trcd + 10.0, **kw)
-    trp = _sweep_param(batch, 2, floor5, **kw)
-    twr = _sweep_param(batch, 3, floor5, **kw)
-    return torch.stack([trcd, tras, trp, twr], dim=2)
+              guard_cycles=guard_cycles, iters=iters, multibit=multibit,
+              extra=extra)
+    floor5 = torch.full((D, banks), 5.0, dtype=torch.float32, device=dev)
+    res = {}
+    res["trcd"] = trcd = _sweep_param(batch, 0, floor5, **kw)
+    res["tras"] = _sweep_param(batch, 1, trcd + 10.0, **kw)
+    res["trp"] = _sweep_param(batch, 2, floor5, **kw)
+    res["twr"] = _sweep_param(batch, 3, floor5, **kw)
+    extra_axes = tuple(axes[len(PARAMS):])
+    if extra_axes:
+        std_t = torch.tensor([getattr(STANDARD, p) for p in PARAMS],
+                             dtype=torch.float32, device=dev)
+        t_subs = std_t[None, None, :].expand(D, S, len(PARAMS))
+        for ax in extra_axes:
+            if ax == "vdd":
+                extras_gd = ctx_d["vdd_shift"].T                 # (G, D)
+                adders_gd = adder[None, :].expand(extras_gd.shape[0], D)
+            elif ax == "refresh":
+                adders_gd = adder[None, :] + ctx_d["refresh_delta"].T
+                base_extra = extra if extra is not None \
+                    else torch.zeros((D,), dtype=torch.float32, device=dev)
+                extras_gd = base_extra[None, :].expand(adders_gd.shape[0], D)
+            else:
+                raise ValueError(f"unknown operating-point axis {ax!r}")
+            res[ax] = _sweep_axis(
+                batch, ax, t_subs, rows, stress, extras_gd, adders_gd,
+                ctx_g[f"{ax}_keys"], ctx_g[f"{ax}_retx"], guard_cycles,
+                iters, multibit, banks, retention)
+    return torch.stack([res[a] for a in axes], dim=2)
 
 
 def _resolve_rows(region, geom: DimmGeometry, n_dimms: int | None = None
@@ -343,42 +502,191 @@ def _resolve_rows(region, geom: DimmGeometry, n_dimms: int | None = None
     return rows
 
 
+def _axis_context(batch: DimmBatch, axes, *, temp_C: float, refresh_ms: float,
+                  vdd: float):
+    """Host-computed per-axis tables for the operating-point sweep, in numpy
+    float32 with the op order of the latency-module helpers (the reference's
+    ``_axis_context``): every operating-point-dependent float enters the
+    sweep as data.  Returns ``(ctx_d, ctx_g)``: DIMM-leading (D,) / (D, G)
+    f32 tables and per-grid-point (G,) uint32 hash keys and f32 retention
+    stresses; both ``None`` at the nominal supply with no extra axes.
+    """
+    ctx_d, ctx_g = {}, {}
+    vc = batch.vdd_coef.cpu().numpy()
+    if vdd != VDD_STD:
+        ctx_d["vdd_extra"] = access_vdd_shift(vc, vdd)
+    if "vdd" in axes:
+        spec = AXES["vdd"]
+        ctx_d["vdd_shift"] = np.stack(
+            [access_vdd_shift(vc, v) for v in spec.grid], axis=1)
+        ctx_g["vdd_keys"] = np.asarray([spec.quantize(v) for v in spec.grid],
+                                       np.uint32)
+        ctx_g["vdd_retx"] = np.asarray(
+            [retention_stress(temp_C, refresh_ms, v) for v in spec.grid],
+            np.float32)
+    if "refresh" in axes:
+        spec = AXES["refresh"]
+        base = condition_adders(batch, temp_C, refresh_ms)
+        ctx_d["refresh_delta"] = np.stack(
+            [condition_adders(batch, temp_C, r) - base for r in spec.grid],
+            axis=1).astype(np.float32)
+        ctx_g["refresh_keys"] = np.asarray(
+            [spec.quantize(r) for r in spec.grid], np.uint32)
+        ctx_g["refresh_retx"] = np.asarray(
+            [retention_stress(temp_C, r, vdd) for r in spec.grid], np.float32)
+    if not ctx_d and not ctx_g:
+        return None, None
+    return ctx_d, ctx_g
+
+
 def profile_population_arrays(batch: DimmBatch, *, region="worst",
                               temp_C: float = 55.0, refresh_ms: float = 64.0,
-                              guard_cycles: int = 1,
+                              vdd: float = VDD_STD, guard_cycles: int = 1,
                               multibit_only: bool = False,
                               patterns=DEFAULT_PATTERNS,
                               iters: int = DEFAULT_ITERS,
-                              banks: int = 1) -> np.ndarray:
-    """(D, 4) profiled timing table (PARAMS order) for every DIMM, or
-    (D, banks, 4) per-bank tables when ``banks > 1``.
+                              banks: int = 1, axes=PARAMS,
+                              retention: bool = False) -> np.ndarray:
+    """(D, len(axes)) profiled operating values for every DIMM, or
+    (D, banks, len(axes)) per-bank tables when ``banks > 1``; the first four
+    columns are the timing table in PARAMS order.
 
     ``region="worst"`` is DIVA Profiling (the design-induced slowest rows);
     ``region="all"`` is conventional every-row profiling; an (Rr,) array is a
     shared internal row region and a (D, Rr) array gives every DIMM its own.
     ``banks`` partitions the subarray axis into that many equal bank groups,
-    each profiled against only its own subarrays.
+    each profiled against only its own subarrays.  ``axes`` extends the
+    sweep beyond the four timings with "vdd" and "refresh", each swept one
+    knob at a time at standard timing; ``vdd`` is the ambient supply of the
+    timing sweeps, and ``retention`` adds the retention error channel to the
+    non-timing axes' evaluations.
     """
     if batch.geom.subarrays % banks != 0:
         raise ValueError(f"banks={banks} must divide "
                          f"subarrays={batch.geom.subarrays}")
+    axes = tuple(axes)
     dev = batch.device
     rows = torch.as_tensor(_resolve_rows(region, batch.geom, batch.n_dimms),
                            dtype=torch.int64, device=dev)
     adder = torch.as_tensor(condition_adders(batch, temp_C, refresh_ms),
                             device=dev)
     stress = torch.as_tensor(pattern_stress(patterns), device=dev)
-    out = _profile_impl(batch, rows, stress, adder, guard_cycles=guard_cycles,
-                        iters=iters, multibit=multibit_only, banks=banks)
+    ctx_d, ctx_g = _axis_context(batch, axes, temp_C=temp_C,
+                                 refresh_ms=refresh_ms, vdd=vdd)
+    if ctx_d is not None:
+        ctx_d = {k: torch.as_tensor(v, device=dev) for k, v in ctx_d.items()}
+        ctx_g = {k: v if k.endswith("_keys") else torch.as_tensor(v, device=dev)
+                 for k, v in ctx_g.items()}
+    out = _profile_impl(batch, rows, stress, adder, ctx_d, ctx_g,
+                        guard_cycles=guard_cycles, iters=iters,
+                        multibit=multibit_only, banks=banks, axes=axes,
+                        retention=retention)
     out = out.cpu().numpy()
     return out[:, 0] if banks == 1 else out
 
 
 def profile_population(batch: DimmBatch, **kw) -> list[TimingParams]:
     """Per-DIMM ``TimingParams`` for the whole population (see the arrays
-    variant; ``banks`` must stay 1)."""
+    variant; ``banks`` must stay 1).  With extended ``axes`` only the
+    4-timing prefix lands in the ``TimingParams``."""
     arr = profile_population_arrays(batch, **kw)
-    return [TimingParams(*(float(v) for v in row)) for row in arr]
+    return [TimingParams(*(float(v) for v in row[:len(PARAMS)]))
+            for row in arr]
+
+
+def operating_points_population(batch: DimmBatch, *, temp_C: float = 55.0,
+                                vdd: float = VDD_STD, **kw
+                                ) -> list[OperatingPoint]:
+    """Per-DIMM ``OperatingPoint`` over the full extended axis list: the
+    timing table plus the min-safe supply voltage and the max-safe refresh
+    interval, each profiled one knob at a time with the retention channel
+    live (defaults ``axes=EXTENDED_AXES``, ``retention=True``)."""
+    kw.setdefault("axes", EXTENDED_AXES)
+    kw.setdefault("retention", True)
+    arr = profile_population_arrays(batch, temp_C=temp_C, vdd=vdd, **kw)
+    axes = tuple(kw["axes"])
+    out = []
+    for row in arr:
+        d = dict(zip(axes, (float(v) for v in row)))
+        out.append(OperatingPoint(
+            timing=TimingParams(*(d[p] for p in PARAMS)),
+            vdd=d.get("vdd", vdd), temp_C=temp_C,
+            refresh_ms=d.get("refresh", 64.0)))
+    return out
+
+
+# ------------------------------------------- operating-grid sweeps (N-axis)
+
+def operating_grid_tables(batch: DimmBatch, points) -> tuple:
+    """Host-side numpy tables for a static grid of ``OperatingPoint``s:
+    per-point timing rows (G, 4) f32, per-DIMM condition adders and voltage
+    shifts (D, G) f32, per-point hash keys (G,) uint32 folding the quantized
+    timing/vdd/refresh coordinates (``timing.op_point_key``; temperature
+    never keys a draw) and retention stresses (G,) f32."""
+    t_g = np.asarray([[getattr(pt.timing, p) for p in PARAMS]
+                      for pt in points], np.float32)
+    adders_dg = np.stack([condition_adders(batch, pt.temp_C, pt.refresh_ms)
+                          for pt in points], axis=1).astype(np.float32)
+    vc = batch.vdd_coef.cpu().numpy()
+    shifts_dg = np.stack([access_vdd_shift(vc, pt.vdd) for pt in points],
+                         axis=1)
+    keys = []
+    for pt in points:
+        tq = 0
+        for p in PARAMS:
+            tq = (tq * 0x9E3779B9 + AXES[p].quantize(getattr(pt.timing, p))) \
+                & 0xFFFFFFFF
+        keys.append(op_point_key(tq, AXES["vdd"].quantize(pt.vdd),
+                                 AXES["refresh"].quantize(pt.refresh_ms)))
+    keys_g = np.asarray(keys, np.uint32)
+    retx_g = np.asarray([retention_stress(pt.temp_C, pt.refresh_ms, pt.vdd)
+                         for pt in points], np.float32)
+    return t_g, adders_dg, shifts_dg, keys_g, retx_g
+
+
+def _op_grid_impl(batch: DimmBatch, rows, stress, t_g, adders_dg, shifts_dg,
+                  keys_g, retx_g, *, iters: int, multibit: bool,
+                  banks: int = 1, retention: bool = True):
+    """Every DIMM at every point of a static operating-point grid (a Python
+    loop where the reference scans): ``(fails, lam)`` shaped (D, G, banks).
+    Points are independent (no stop logic), so the loop carries no state."""
+    D, S = batch.n_dimms, batch.geom.subarrays
+    fails, lams = [], []
+    for i in range(t_g.shape[0]):
+        t_subs = t_g[i][None, None, :].expand(D, S, len(PARAMS))
+        f, lam = _op_region_eval(batch, t_subs, rows, stress, adders_dg[:, i],
+                                 shifts_dg[:, i], OP_GRID_LANE, int(keys_g[i]),
+                                 iters, multibit, banks, retention, retx_g[i])
+        fails.append(f)
+        lams.append(lam)
+    return torch.stack(fails, dim=1), torch.stack(lams, dim=1)
+
+
+def operating_grid_arrays(batch: DimmBatch, points, *,
+                          region="worst", patterns=DEFAULT_PATTERNS,
+                          iters: int = DEFAULT_ITERS,
+                          multibit_only: bool = False, banks: int = 1,
+                          retention: bool = True) -> dict:
+    """Every DIMM at every ``OperatingPoint`` in ``points`` — the batched
+    N-axis (timing x voltage x temperature x refresh) evaluation.  Returns
+    ``fails`` (D, G[, banks]) bool Monte-Carlo region outcomes and ``lam``
+    (D, G[, banks]) f32 expected failure counts (access + retention
+    channels), as numpy."""
+    if batch.geom.subarrays % banks != 0:
+        raise ValueError(f"banks={banks} must divide "
+                         f"subarrays={batch.geom.subarrays}")
+    dev = batch.device
+    rows = torch.as_tensor(_resolve_rows(region, batch.geom, batch.n_dimms),
+                           dtype=torch.int64, device=dev)
+    t_g, adders_dg, shifts_dg, keys_g, retx_g = \
+        operating_grid_tables(batch, points)
+    as_t = lambda a: torch.as_tensor(a, device=dev)
+    fails, lam = _op_grid_impl(
+        batch, rows, as_t(pattern_stress(patterns)), as_t(t_g),
+        as_t(adders_dg), as_t(shifts_dg), keys_g, as_t(retx_g), iters=iters,
+        multibit=multibit_only, banks=banks, retention=retention)
+    sq = (lambda a: a[..., 0]) if banks == 1 else (lambda a: a)
+    return {"fails": sq(fails).cpu().numpy(), "lam": sq(lam).cpu().numpy()}
 
 
 # --------------------------------------------------- full-grid batched API
@@ -396,6 +704,22 @@ def _pack_coeffs(batch: DimmBatch, pidx: int, t_op: float, stress: float,
         torch.full_like(base_eff, float(np.float32(t_op))), batch.sigma,
         batch.outlier_rate, batch.outlier_ns,
     ], dim=1).to(torch.float32).contiguous()
+
+
+def _pack_op_coeffs(batch: DimmBatch, pidx: int, t_op: float, stress: float,
+                    adder, chip: int, sub_idx: int, shift, ret_x):
+    """(D, 15) operating-point coefficient rows for the ``fail_prob_op``
+    kernel: the 9 access coefficients of ``_pack_coeffs`` plus the
+    host-computed (D,) voltage shift and the retention channel (ret_base,
+    ret_k, the scalar retention stress ``ret_x``, ret_sigma, ret_drop)."""
+    cf = _pack_coeffs(batch, pidx, t_op, stress, adder, chip, sub_idx)
+    shift = torch.as_tensor(shift, dtype=torch.float32, device=batch.device)
+    extra = torch.stack([
+        shift, batch.ret_base, batch.ret_k,
+        torch.full_like(batch.ret_base, float(np.float32(ret_x))),
+        batch.ret_sigma, batch.ret_drop,
+    ], dim=1).to(torch.float32)
+    return torch.cat([cf, extra], dim=1).contiguous()
 
 
 def fail_prob_grids(batch: DimmBatch, param: str, t_op: float, *,

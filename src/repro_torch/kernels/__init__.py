@@ -1,3 +1,4 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
-version (``fail_prob``, ``secded``, ``shuffle``, ``bank_sched``); ``ops``
-lists them and their launch counts."""
+version (``fail_prob`` and ``fail_prob_op``, ``secded``, ``shuffle``,
+``bank_sched``, ``bit_signature``); ``ops`` lists them and their launch
+counts."""

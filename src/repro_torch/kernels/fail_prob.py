@@ -1,16 +1,20 @@
-"""Per-cell failure-probability grid (the DIVA model eval): plain version and
-CUDA kernel.
+"""Per-cell failure-probability grid (the DIVA model eval): plain versions and
+CUDA kernels.
 
 ``fail_prob`` replaces the Pallas TPU kernel
-``repro/kernels/fail_prob.py::fail_prob`` (``:114``).  It takes one DIMM
-(``row_src (R,)``, ``coeffs (9,)``) or a population (``(D, R)``, ``(D, 9)``)
-and returns the ``(M, R, C)`` or ``(D, M, R, C)`` float32 grid.  The DIMM
-axis is inside the CUDA grid (the reference vmaps the kernel instead).
+``repro/kernels/fail_prob.py::fail_prob`` (``:114``); ``fail_prob_op``
+replaces its operating-point variant ``fail_prob_op`` (``:161``), whose
+15-coefficient rows append the voltage shift and the retention channel.
+Each takes one DIMM (``row_src (R,)``, ``coeffs (9,)`` / ``(15,)``) or a
+population (``(D, R)``, ``(D, 9)`` / ``(D, 15)``) and returns the
+``(M, R, C)`` or ``(D, M, R, C)`` float32 grid.  The DIMM axis is inside the
+CUDA grid (the reference vmaps the kernels instead).
 
 Dispatch is by the tensors' device alone: CPU tensors go to
-``fail_prob_ref``, CUDA tensors to the kernel in ``csrc/fail_prob.cu``
-(its header states the bound and the design); anything else raises.
-``fail_prob.launches`` counts kernel launches.
+``fail_prob_ref`` / ``fail_prob_op_ref``, CUDA tensors to the kernels in
+``csrc/fail_prob.cu`` (its header states the bounds and the design);
+anything else raises.  ``fail_prob.launches`` and ``fail_prob_op.launches``
+count kernel launches.
 """
 from __future__ import annotations
 
@@ -18,16 +22,25 @@ import ctypes
 
 import torch
 
-from repro_torch.core.latency import div_t, fail_mixture_t
+from repro_torch.core.latency import (div_t, fail_mixture_t,
+                                      retention_fail_mixture_t)
 
 N_COEFFS = 9  # base_eff, k_bl', k_wl', k_mat', k_row', t_op, sigma, rate, ns
+# operating-point row: N_COEFFS access coefficients plus the voltage shift
+# and the retention channel (ret_base, ret_k, ret_x, ret_sigma, ret_drop)
+N_OP_COEFFS = 15
 
 
-def cell_probs(rf, colf, even, d_mat, cf, n_rows: int, n_cols: int,
-               open_bitline: bool = True):
-    """Failure probability of each cell (the reference's ``cell_probs``):
-    ``rf``/``colf``/``even``/``d_mat`` broadcast to the grid; ``cf`` is the
-    folded 9-coefficient row, each entry broadcastable too."""
+def op_cell_probs(rf, colf, even, d_mat, cf, n_rows: int, n_cols: int,
+                  open_bitline: bool = True, voltage: bool = False,
+                  retention: bool = False):
+    """Failure probability of each cell at a full operating point (the
+    reference's ``op_cell_probs``): the access channel shifted by ``cf[9]``
+    when ``voltage``, plus the retention channel on the design slowness when
+    ``retention``.  The channel probabilities add.  With both flags off this
+    is the reference's ``cell_probs`` on ``cf[:9]``, operation for
+    operation.  ``rf``/``colf``/``even``/``d_mat`` broadcast to the grid;
+    each entry of ``cf`` is broadcastable too."""
     if open_bitline:
         d_bl = div_t(torch.where(even, rf, (n_rows - 1.0) - rf), n_rows - 1.0)
     else:
@@ -35,12 +48,18 @@ def cell_probs(rf, colf, even, d_mat, cf, n_rows: int, n_cols: int,
     d_wl = div_t(colf, n_cols - 1.0)
     d_row = div_t(rf, n_rows - 1.0)
     t = cf[0] + cf[1] * d_bl + cf[2] * d_wl + cf[3] * d_mat + cf[4] * d_row
-    return fail_mixture_t(t, cf[5], cf[6], cf[7], cf[8])
+    if voltage:
+        t = t + cf[9]
+    p = fail_mixture_t(t, cf[5], cf[6], cf[7], cf[8])
+    if retention:
+        slow = cf[1] * d_bl + cf[2] * d_wl + cf[3] * d_mat + cf[4] * d_row
+        p = p + retention_fail_mixture_t(slow, cf[10], cf[11], cf[12], cf[13],
+                                         cf[7], cf[14])
+    return p
 
 
-def fail_prob_ref(row_src, d_mat, coeffs, *, cols: int,
-                  open_bitline: bool = True):
-    """Plain PyTorch version of the kernel, on any device."""
+def _grid_ref(row_src, d_mat, coeffs, cols: int, open_bitline: bool,
+              voltage: bool = False, retention: bool = False):
     batched = row_src.dim() == 2
     rs = row_src if batched else row_src[None]
     cf = coeffs if batched else coeffs[None]
@@ -49,17 +68,32 @@ def fail_prob_ref(row_src, d_mat, coeffs, *, cols: int,
     colf = torch.arange(cols, dtype=torch.float32, device=dev)[None, None, None, :]
     even = (torch.arange(cols, device=dev) % 2 == 0)[None, None, None, :]
     dm = d_mat.to(torch.float32)[None, :, None, None]          # (1, M, 1, 1)
-    cfs = [cf[:, i, None, None, None] for i in range(N_COEFFS)]
-    out = cell_probs(rf, colf, even, dm, cfs, R, cols, open_bitline)
+    cfs = [cf[:, i, None, None, None] for i in range(cf.shape[1])]
+    out = op_cell_probs(rf, colf, even, dm, cfs, R, cols, open_bitline,
+                        voltage, retention)
     return out if batched else out[0]
 
 
-def _check(row_src, d_mat, coeffs, cols: int):
+def fail_prob_ref(row_src, d_mat, coeffs, *, cols: int,
+                  open_bitline: bool = True):
+    """Plain PyTorch version of the ``fail_prob`` kernel, on any device."""
+    return _grid_ref(row_src, d_mat, coeffs, cols, open_bitline)
+
+
+def fail_prob_op_ref(row_src, d_mat, coeffs, *, cols: int,
+                     open_bitline: bool = True, voltage: bool = False,
+                     retention: bool = False):
+    """Plain PyTorch version of the ``fail_prob_op`` kernel, on any device."""
+    return _grid_ref(row_src, d_mat, coeffs, cols, open_bitline, voltage,
+                     retention)
+
+
+def _check(row_src, d_mat, coeffs, cols: int, n_coeffs: int):
     if row_src.dim() not in (1, 2) or row_src.dim() != coeffs.dim():
         raise ValueError(f"row_src {tuple(row_src.shape)} and coeffs "
                          f"{tuple(coeffs.shape)} must both be 1-D or both 2-D")
-    if coeffs.shape[-1] != N_COEFFS or d_mat.dim() != 1:
-        raise ValueError(f"coeffs must end in {N_COEFFS}, d_mat must be 1-D")
+    if coeffs.shape[-1] != n_coeffs or d_mat.dim() != 1:
+        raise ValueError(f"coeffs must end in {n_coeffs}, d_mat must be 1-D")
     if row_src.dim() == 2 and row_src.shape[0] != coeffs.shape[0]:
         raise ValueError("row_src and coeffs disagree on the DIMM count")
     if row_src.dtype not in (torch.int32, torch.int64):
@@ -72,7 +106,10 @@ def _check(row_src, d_mat, coeffs, cols: int):
         raise ValueError("the grid needs at least one row and one column")
 
 
-def _launch(row_src, d_mat, coeffs, cols: int, open_bitline: bool):
+def _launch(entry: str, row_src, d_mat, coeffs, cols: int, flags: tuple):
+    """Launch ``entry`` of the fail_prob library with the trailing int
+    ``flags`` (open_bitline, then voltage and retention for the
+    operating-point entry).  Returns the grid, or raises."""
     from repro_torch.kernels.build import load
     rs = row_src if row_src.dim() == 2 else row_src[None]
     cf = coeffs if coeffs.dim() == 2 else coeffs[None]
@@ -84,32 +121,60 @@ def _launch(row_src, d_mat, coeffs, cols: int, open_bitline: bool):
     M = d_mat.shape[0]
     out = torch.empty((D, M, R, cols), dtype=torch.float32, device=rs.device)
     if out.numel():
-        fn = load("fail_prob").fail_prob_launch
+        fn = getattr(load("fail_prob"), entry)
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * (4 + len(flags)) \
             + [ctypes.c_void_p]
         with torch.cuda.device(rs.device):
             stream = torch.cuda.current_stream(rs.device).cuda_stream
             err = fn(rs.data_ptr(), d_mat.data_ptr(), cf.data_ptr(),
-                     out.data_ptr(), D, M, R, cols, int(open_bitline), stream)
+                     out.data_ptr(), D, M, R, cols, *map(int, flags), stream)
         if err != 0:
-            raise RuntimeError(f"fail_prob kernel launch failed: CUDA error {err}")
-        fail_prob.launches += 1
+            raise RuntimeError(f"{entry} failed: CUDA error {err}")
     return out if row_src.dim() == 2 else out[0]
+
+
+def _device_kind(row_src, name: str) -> str:
+    kind = row_src.device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda tensors, not {kind}")
+    return kind
 
 
 def fail_prob(row_src, d_mat, coeffs, *, cols: int, open_bitline: bool = True):
     """``row_src`` (R,) or (D, R) int repair-resolved internal rows;
     ``d_mat`` (M,) f32 precharge-arrival delays; ``coeffs`` (9,) or (D, 9)
     f32 folded coefficient rows.  Returns (M, R, C) or (D, M, R, C) f32."""
-    _check(row_src, d_mat, coeffs, cols)
-    if row_src.device.type == "cpu":
+    _check(row_src, d_mat, coeffs, cols, N_COEFFS)
+    if _device_kind(row_src, "fail_prob") == "cpu":
         return fail_prob_ref(row_src, d_mat, coeffs, cols=cols,
                              open_bitline=open_bitline)
-    if row_src.device.type == "cuda":
-        return _launch(row_src, d_mat, coeffs, cols, open_bitline)
-    raise ValueError(f"fail_prob runs on cpu or cuda tensors, not "
-                     f"{row_src.device.type}")
+    out = _launch("fail_prob_launch", row_src, d_mat, coeffs, cols,
+                  (open_bitline,))
+    if out.numel():
+        fail_prob.launches += 1
+    return out
+
+
+def fail_prob_op(row_src, d_mat, coeffs, *, cols: int,
+                 open_bitline: bool = True, voltage: bool = False,
+                 retention: bool = False):
+    """The operating-point grid: as ``fail_prob`` with (15,) or (D, 15)
+    coefficient rows ``[*access 0-8, vdd_shift, ret_base, ret_k, ret_x,
+    ret_sigma, ret_drop]``; ``voltage``/``retention`` switch the extra terms
+    on (both off gives ``fail_prob`` on ``coeffs[..., :9]``, bit for bit).
+    Returns the summed two-channel grid."""
+    _check(row_src, d_mat, coeffs, cols, N_OP_COEFFS)
+    if _device_kind(row_src, "fail_prob_op") == "cpu":
+        return fail_prob_op_ref(row_src, d_mat, coeffs, cols=cols,
+                                open_bitline=open_bitline, voltage=voltage,
+                                retention=retention)
+    out = _launch("fail_prob_op_launch", row_src, d_mat, coeffs, cols,
+                  (open_bitline, voltage, retention))
+    if out.numel():
+        fail_prob_op.launches += 1
+    return out
 
 
 fail_prob.launches = 0
+fail_prob_op.launches = 0

@@ -57,6 +57,17 @@ speed = sim.system_speedup_population(tables, n_requests=40, device="cpu")
 assert speed["per_dimm_speedup"].shape == (4,)
 tr = sim.make_trace(sim.WORKLOADS[0], 40, 16)
 assert sim.simulate(tr, sim.STANDARD, device="cpu")["total_latency_cycles"] > 0
+from repro_torch.core.streaming import stream_error_summary
+from repro_torch.core.substrate import operating_points_population
+assert len(operating_points_population(batch)) == 4
+summary = stream_error_summary(batch, "tras", 25.0, chunk_size=3, vdd=1.2,
+                               retention=True)
+assert summary["hot_cells"].shape == (4, 64, 64)
+from repro_torch.discovery import BlindDiva
+from repro_torch.discovery.blind import campaign_counts
+counts, expected = campaign_counts(make_population(TINY, 4), batch)
+disc = BlindDiva().discover(counts, expected, device="cpu")
+assert disc.ext_rows.shape == (4, 2)
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LEAKED", leaked)
@@ -104,5 +115,36 @@ def test_entry_points_raise_without_cuda_and_without_device():
             lambda: sim.simulate(tr, sim.STANDARD),
             lambda: sim.simulate_trace(tr, sim.STANDARD),
             lambda: sim.evaluate_system_grid([sim.STANDARD], n_requests=20)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+def test_new_entry_points_raise_without_cuda_and_without_device():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from repro_torch.core.geometry import TINY
+    from repro_torch.core.population import make_population
+    from repro_torch.core.profiling import diva_operating_point
+    from repro_torch.core.streaming import (PopulationStream,
+                                            stream_error_summary)
+    from repro_torch.core.substrate import (DimmBatch,
+                                            operating_points_population)
+    from repro_torch.discovery import (BlindDiva, bit_signature_population,
+                                       recover_mapping_population)
+    from repro_torch.discovery.blind import campaign_counts
+    pop = make_population(TINY, 2)
+    stream = PopulationStream(len(pop), TINY, lambda lo, hi:
+                              DimmBatch.from_population(pop[lo:hi]))
+    counts = np.random.default_rng(0).integers(0, 50, (2, 2, 64))
+    expected = counts.astype(np.float64) + 0.5
+    for call in (
+            lambda: stream_error_summary(stream, "tras", 25.0, vdd=1.2,
+                                         retention=True),
+            lambda: operating_points_population(DimmBatch.from_population(pop)),
+            lambda: diva_operating_point(pop[0]),
+            lambda: bit_signature_population(counts),
+            lambda: recover_mapping_population(counts, expected),
+            lambda: campaign_counts(pop),
+            lambda: BlindDiva().discover(counts, expected)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()

@@ -6,17 +6,21 @@ GPU host without JAX:
 
     python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerance: ``fail_prob`` atol 1e-6, the reference's kernel-against-oracle
-bound (the kernel performs the plain version's float32 operations in its
-order); the SECDED, shuffle and bank_sched kernels are integer work and must
-equal their plain versions exactly."""
+Tolerance: ``fail_prob`` and ``fail_prob_op`` atol 1e-6, the reference's
+kernel-against-oracle bound (the kernels perform the plain versions' float32
+operations in their order); ``fail_prob_op`` with both channels off must
+equal ``fail_prob`` bit for bit; the SECDED, shuffle, bank_sched and
+bit_signature kernels are integer work and must equal their plain versions
+exactly."""
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.bank_sched import memsim_walk, memsim_walk_ref
-from repro_torch.kernels.fail_prob import fail_prob, fail_prob_ref
+from repro_torch.kernels.bit_signature import bit_signature, bit_signature_ref
+from repro_torch.kernels.fail_prob import (fail_prob, fail_prob_op,
+                                           fail_prob_op_ref, fail_prob_ref)
 from repro_torch.kernels.secded import (encode_checks, encode_checks_ref,
                                         syndrome, syndrome_ref)
 from repro_torch.kernels.shuffle import _perm_tensor, apply_shuffle, apply_shuffle_ref
@@ -207,3 +211,133 @@ def test_bank_sched_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     lat, _ = memsim_walk(traces[:, :0].contiguous(), tc, **kw)
     assert lat.shape == (len(MEMSIM_TABLES), len(memsim.WORKLOADS), 0)
     assert memsim_walk.launches == before
+
+
+# ------------------------------------------------------------ fail_prob_op
+
+OP_EXTRA = np.array([0.3, 4.0, 0.25, 2.0, 0.25, 1.2], np.float32)
+
+
+def _op_inputs(D, M, R, dev, seed=3):
+    row_src, d_mat, coeffs = _inputs(D, M, R, dev, seed)
+    rng = np.random.default_rng(seed + 1)
+    extra = OP_EXTRA + rng.normal(0, 0.05, (D, 6)).astype(np.float32)
+    return row_src, d_mat, torch.cat(
+        [coeffs, torch.as_tensor(extra, device=dev)], dim=1).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("voltage,retention",
+                         [(False, False), (True, False), (False, True),
+                          (True, True)])
+@pytest.mark.parametrize("D,M,R,C,open_bitline",
+                         [(4, 16, 512, 512, True), (3, 5, 100, 96, True),
+                          (2, 3, 7, 5, False)])
+def test_fail_prob_op_kernel_matches_plain_version(cuda, D, M, R, C,
+                                                   open_bitline, voltage,
+                                                   retention):
+    row_src, d_mat, coeffs = _op_inputs(D, M, R, cuda)
+    kw = dict(cols=C, open_bitline=open_bitline, voltage=voltage,
+              retention=retention)
+    before = fail_prob_op.launches
+    got = fail_prob_op(row_src, d_mat, coeffs, **kw)
+    want = fail_prob_op_ref(row_src, d_mat, coeffs, **kw)
+    torch.cuda.synchronize()
+    assert fail_prob_op.launches == before + 1
+    assert got.shape == (D, M, R, C)
+    torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+    one = fail_prob_op(row_src[0], d_mat, coeffs[0], **kw)
+    torch.testing.assert_close(one, want[0], rtol=0, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("open_bitline", [True, False])
+def test_fail_prob_op_without_channels_is_fail_prob(cuda, open_bitline):
+    row_src, d_mat, coeffs = _op_inputs(3, 16, 512, cuda)
+    got = fail_prob_op(row_src, d_mat, coeffs, cols=512,
+                       open_bitline=open_bitline)
+    want = fail_prob(row_src, d_mat, coeffs[:, :9].contiguous(), cols=512,
+                     open_bitline=open_bitline)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_fail_prob_op_rejects_what_the_kernel_does_not_take(cuda):
+    row_src, d_mat, coeffs = _op_inputs(2, 3, 16, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        fail_prob_op(row_src[:, ::2], d_mat, coeffs, cols=8, retention=True)
+    with pytest.raises(ValueError, match="15"):
+        fail_prob_op(row_src, d_mat, coeffs[:, :9].contiguous(), cols=8)
+
+
+# ------------------------------------------------------------ bit_signature
+
+def _counts(n, nbits, dev, high=1000, seed=7):
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.integers(0, high, (n, 2 ** nbits)),
+                           dtype=torch.int32, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbits", [1, 2, 3, 5, 9, 12, 16])
+@pytest.mark.parametrize("n", [1, 31, 768, 4099])
+def test_bit_signature_kernel_equals_plain_version(cuda, nbits, n):
+    if n * 2 ** nbits > 1 << 26:
+        n = (1 << 26) >> nbits
+    counts = _counts(n, nbits, cuda)
+    before = bit_signature.launches
+    got = bit_signature(counts, nbits=nbits)
+    want = bit_signature_ref(counts, nbits=nbits)
+    torch.cuda.synchronize()
+    assert bit_signature.launches == before + 1
+    assert got.shape == (n, nbits) and got.dtype == torch.int32
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbits", [2, 9])
+def test_bit_signature_unaligned_rows_and_int32_wrap(cuda, nbits):
+    big = _counts(65, nbits, cuda, high=2 ** 31 - 1, seed=9)
+    flat = torch.cat([big.new_zeros(1), big.reshape(-1)])
+    unaligned = flat[1:].view(big.shape)   # starts 4 bytes past an alignment
+    assert unaligned.data_ptr() % 16 != 0
+    for counts in (big, unaligned):
+        assert torch.equal(bit_signature(counts, nbits=nbits),
+                           bit_signature_ref(counts, nbits=nbits))
+    before = bit_signature.launches
+    out = bit_signature(big[:0], nbits=nbits)
+    assert out.shape == (0, nbits) and bit_signature.launches == before
+    with pytest.raises(ValueError, match="contiguous"):
+        bit_signature(big[:, ::2], nbits=nbits - 1)
+    with pytest.raises(TypeError, match="int32"):
+        bit_signature(big.long(), nbits=nbits)
+
+
+# ------------------------------------------------ the slice's paths, card vs CPU
+
+@pytest.mark.cuda
+def test_error_summary_and_discovery_on_the_card_equal_the_cpu(cuda):
+    from repro_torch.core.geometry import SMALL
+    from repro_torch.core.population import make_population
+    from repro_torch.core.streaming import stream_error_summary
+    from repro_torch.core.substrate import DimmBatch
+    from repro_torch.discovery.blind import BlindDiva, campaign_counts
+    pop = make_population(SMALL, 6)
+    card, cpu = (DimmBatch.from_population(pop, d) for d in (cuda, "cpu"))
+    kw = dict(chunk_size=4, vdd=1.20, refresh_ms=256.0, retention=True)
+    before = fail_prob_op.launches
+    got = stream_error_summary(card, "tras", 25.0, **kw)
+    assert fail_prob_op.launches == before + 2
+    want = stream_error_summary(cpu, "tras", 25.0, **kw)
+    np.testing.assert_allclose(got["lam_stats"]["mean"],
+                               want["lam_stats"]["mean"], rtol=1e-5)
+    assert np.array_equal(got["lam_max"]["serial"], want["lam_max"]["serial"])
+    counts, expected = campaign_counts(pop, card)
+    before = bit_signature.launches
+    disc = BlindDiva().discover(counts, expected, serials=np.arange(6))
+    assert bit_signature.launches == before + 2 * counts.shape[0]
+    disc_cpu = BlindDiva().discover(counts, expected, serials=np.arange(6),
+                                    device="cpu")
+    for f in ("labels", "ext_rows", "ext_to_int", "vuln_rows", "canonical",
+              "confidence"):
+        assert np.array_equal(getattr(disc, f), getattr(disc_cpu, f)), f
