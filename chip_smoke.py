@@ -68,10 +68,27 @@ of 512x512 mats, 16 mats and 8 subarrays — it
      ``fail_prob`` launches), ``BlindDiva.discover`` (6 ``bit_signature``
      launches) and ``blind_vs_oracle``; the expectations of 4 DIMMs, every
      discovery decision on the same counts and the blind tables of 8 DIMMs
-     held against the CPU port.
+     held against the CPU port;
+ 15. holds the ``rc_transient`` kernel against its plain version on the sense
+     map of one 512x512 mat (262,144 cells), at ragged N in {1, 130,
+     100,003}, with uncharged cells (``sense_t`` all ``inf``) and with
+     ``n_seg=4``, ``t_pre_ns=12``: ``v_probe``/``v_cell`` within 1e-6,
+     ``sense_t`` on the same Euler step; times kernel and plain version;
+ 16. the Appendix B circuit path: ``fit_latency_coefficients``, the
+     ``appB_spice`` restore run and the mat's sense map (1 ``rc_transient``
+     launch), held against the CPU port (coefficients and sense times on the
+     same step, 4,096 map cells within phase 15's bound);
+ 17. the lifetime lifecycle (Sec 6.1, no kernel launch, as in the
+     reference): ``fig_lifetime`` on the 96 DIMMs (ages 0-10 in 6 epochs,
+     55 C, diagnostics), per-bank (4 banks) on 16, Fig 18's ``ALDRAM`` beside
+     ``diva_profile`` at 55/85 C and a ``DivaProfiler`` over 4 epochs; the
+     lifecycle of 4 DIMMs (timings and stale decisions identical, ECC
+     exposure within rtol 1e-3) and the served tables held against the CPU
+     port.
 
 Every phase prints one JSON line.  The launch counts are set to 0 just before
-each path (phases 3-4, 6, 7, 8, 9, 12, 13 and 14) and read just after it;
+each path (phases 3-4, 6, 7, 8, 9, 12, 13, 14, 16 and 17) and read just after
+it;
 every kernel of a path must have launched, and the ``kernels`` line sums the
 paths' counts.
 Any failed check raises; the last line is ``{"ok": true, "device": {...}}``
@@ -98,15 +115,20 @@ from repro_torch.core.latency import (  # noqa: E402
     PATTERN_STRESS, access_vdd_shift, retention_stress)
 from repro_torch.core.packing import unpack_bool  # noqa: E402
 from repro_torch.core.population import make_population  # noqa: E402
-from repro_torch.core.profiling import latency_reduction  # noqa: E402
+from repro_torch.core.profiling import (  # noqa: E402
+    ALDRAM, DivaProfiler, conventional_profile, diva_profile,
+    latency_reduction)
 from repro_torch.core.shuffling import design_stripe_profiles  # noqa: E402
+from repro_torch.core.spice import (  # noqa: E402
+    CircuitParams, fit_latency_coefficients, n_steps, restored_voltage,
+    sense_time, simulate, step_phases, step_times)
 from repro_torch.core.streaming import (  # noqa: E402
     PopulationStream, stream_error_summary)
 from repro_torch.core.substrate import (  # noqa: E402
     DimmBatch, _geom_consts, _pack_coeffs, _pack_op_coeffs,
-    burst_bit_profile_population, condition_adders, operating_grid_arrays,
-    operating_points_population, profile_population_arrays, row_error_lambda,
-    shuffling_gain_population)
+    burst_bit_profile_population, condition_adders, lifetime_population,
+    operating_grid_arrays, operating_points_population,
+    profile_population_arrays, row_error_lambda, shuffling_gain_population)
 from repro_torch.core.timing import OperatingPoint, TimingParams  # noqa: E402
 from repro_torch.discovery.blind import (  # noqa: E402
     BlindDiva, blind_vs_oracle, campaign_counts)
@@ -116,6 +138,8 @@ from repro_torch.kernels.bit_signature import (  # noqa: E402
     bit_signature, bit_signature_ref)
 from repro_torch.kernels.fail_prob import (  # noqa: E402
     fail_prob, fail_prob_op, fail_prob_op_ref, fail_prob_ref)
+from repro_torch.kernels.rc_transient import (  # noqa: E402
+    rc_transient, rc_transient_ref)
 from repro_torch.kernels.secded import (  # noqa: E402
     encode_checks, encode_checks_ref, syndrome, syndrome_ref)
 from repro_torch.kernels.shuffle import (  # noqa: E402
@@ -169,6 +193,24 @@ OP_POINTS = [OperatingPoint(), OperatingPoint(vdd=1.05),
 SIG_PATH_ROWS, SIG_ROWS, SIG_NBITS = N_DIMMS * 8, 262144, 9
 SIG_RAGGED, SIG_NBITS_EXTRA = (1, 100003), (1, 12)
 BLIND_CPU_EXPECTED_DIMMS, BLIND_CPU_TABLE_DIMMS = 4, 8
+# Appendix B circuit model: the sense map of one mat at the benchmark width
+MAT = 512
+RC_RAGGED = (1, 130, 100003)
+RC_CPU_STRIDE = 64                # every 64th map cell re-derived on the CPU
+# repro.core.spice on a CPU (fit_latency_coefficients and the appB_spice
+# restore run; tests/test_torch_spice.py holds the CPU port to repro's)
+APPB_REFERENCE = dict(t0_ns=7.63, k_bl_ns=1.044, k_wl_ns=0.180,
+                      restore_loss_far_mV=30.35)
+# lifetime (Sec 6.1): fig_lifetime's schedule, at FULL scale
+LIFE_AGES = np.linspace(0.0, 10.0, 6).astype(np.float32)
+LIFE_TEMP, LIFE_BANK_DIMMS, LIFE_CPU_DIMMS, PROFILER_EPOCHS = 55.0, 16, 4, 4
+# The ECC exposure sums multi-bit tails, 1-(1-q)^72 - 72q(1-q)^71, whose two
+# terms (~72q) cancel to ~2556q^2: an ulp of expm1/log1p is amplified by
+# ~0.03/q.  The float32 sums sit ~1e-4 (relative) from a float64 evaluation
+# of the same formula (tests/test_torch_lifetime.py), and the card's
+# expm1f/log1pf are not the CPU's (card vs CPU measured up to 2.4e-4 on an
+# H100).  Timings and stale decisions stay identical.
+ECC_RTOL = 1e-3
 
 
 def emit(phase: str, **kw) -> None:
@@ -850,6 +892,242 @@ def blind_phase(batch, pop) -> dict:
     return launches
 
 
+def rc_flops_per_cell(cp: CircuitParams, t_total_ns: float = 45.0,
+                      t_pre_ns: float = 30.0) -> int:
+    """float32 operations one cell of ``csrc/rc_transient.cu`` performs over
+    the run (its header's count: 8*n_seg + 3 a step, + 17 while the
+    wordline is open, + 5 while the sense amp is on, + 3 while precharging;
+    each division and transcendental one operation)."""
+    total = 0
+    for t in step_times(cp, t_total_ns):
+        wl_open, sa_on, pre_on = step_phases(t, cp, t_pre_ns)
+        total += 8 * cp.n_seg + 3 + 17 * wl_open + 5 * sa_on + 3 * pre_on
+    return total
+
+
+def mat_cells(dev):
+    """The sense map of one mat: (MAT*MAT,) row and column fractions."""
+    r = (np.arange(MAT) / (MAT - 1)).astype(np.float32)
+    return (torch.as_tensor(np.repeat(r, MAT), device=dev),
+            torch.as_tensor(np.tile(r, MAT), device=dev))
+
+
+def rc_compare(got: dict, want: dict, dt: float, what: str) -> dict:
+    """``rc_transient`` outputs against the plain version's (or the CPU
+    port's): v_probe/v_cell within KERNEL_ATOL, sense_t on the same Euler
+    step and ``inf`` where ``want`` has ``inf``, or raise.  Returns the
+    measured maxima and the count of crossings that moved at all."""
+    got = {k: v.cpu() for k, v in got.items()}
+    want = {k: v.cpu() for k, v in want.items()}
+    errs = {k: float((got[k] - want[k]).abs().max()) if got[k].numel() else 0.0
+            for k in ("v_probe", "v_cell")}
+    ts, ref_ts = got["sense_t"], want["sense_t"]
+    if not torch.equal(torch.isinf(ts), torch.isinf(ref_ts)):
+        raise AssertionError(f"rc_transient ({what}): sense_t is inf in other "
+                             f"cells than its reference's")
+    fin = torch.isfinite(ref_ts)
+    dts = (ts[fin] - ref_ts[fin]).abs()
+    errs["sense_t"] = float(dts.max()) if dts.numel() else 0.0
+    if max(errs["v_probe"], errs["v_cell"]) > KERNEL_ATOL \
+            or errs["sense_t"] >= dt / 2:
+        raise AssertionError(f"rc_transient ({what}) differs from its "
+                             f"reference: {errs}")
+    return dict(max_abs_err=errs, sense_steps_moved=int((dts > 0).sum()),
+                inf_cells=int((~fin).sum()), all_zero=not any(errs.values()))
+
+
+def rc_kernel_vs_plain(dev) -> dict:
+    """Phase 15: ``rc_transient`` against its plain version; returns its
+    ``kernels``-line fields."""
+    cp = CircuitParams()
+    rf, cf = mat_cells(dev)
+    cases = {}
+
+    def check(label, r, c, **kw):
+        got, want = rc_transient(r, c, **kw), rc_transient_ref(r, c, **kw)
+        torch.cuda.synchronize()
+        cases[label] = rc_compare(got, want, kw.get("cp", cp).dt_ns, label)
+        return got
+
+    mat = check("mat", rf, cf)
+    if not torch.isfinite(mat["sense_t"]).all():
+        raise AssertionError("a charged cell of the mat never sensed")
+    for n in RC_RAGGED:
+        rng = np.random.default_rng(n)
+        r, c = (torch.as_tensor(rng.uniform(0, 1, n), dtype=torch.float32,
+                                device=dev) for _ in range(2))
+        check(f"ragged_{n}", r, c)
+    check("uncharged", rf, cf, cell_charged=False)
+    if cases["uncharged"]["inf_cells"] != rf.numel():
+        raise AssertionError("an uncharged cell reached v_ready")
+    check("n_seg4_tpre12", rf, cf, cp=CircuitParams(n_seg=4), t_pre_ns=12.0)
+    ms = cuda_ms(lambda: rc_transient(rf, cf), 20)
+    plain_ms = cuda_ms(lambda: rc_transient_ref(rf, cf), 3)
+    N = rf.numel()
+    n_bytes = N * (2 + 3) * 4
+    n_ops = N * rc_flops_per_cell(cp)
+    err = max(max(c["max_abs_err"]["v_probe"], c["max_abs_err"]["v_cell"])
+              for c in cases.values())
+    fields = dict(ms=ms, plain_ms=plain_ms,
+                  bytes_ms=n_bytes / PEAK_BYTES_PER_S * 1e3,
+                  ops_ms=n_ops / PEAK_FP32_FLOPS * 1e3, library_ms=None,
+                  max_abs_err=err)
+    emit("kernel_vs_plain", kernel="rc_transient", shape=[N],
+         mat=[MAT, MAT], n_seg=cp.n_seg, steps=n_steps(cp, 45.0),
+         ragged=list(RC_RAGGED), cases=cases, atol=KERNEL_ATOL,
+         all_maxima_zero=all(c["all_zero"] for c in cases.values()),
+         bytes=n_bytes, flops=n_ops, flops_per_cell=n_ops // N,
+         library="none (no single PyTorch call computes it)", **fields)
+    return fields
+
+
+def circuit_phase(dev) -> dict:
+    """Phase 16: the Appendix B circuit path; returns its launches."""
+    rf, cf = mat_cells(dev)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    secs = {}
+    t0 = time.perf_counter()
+    coeffs = fit_latency_coefficients(device=dev)
+    secs["fit_latency_coefficients"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restore = simulate(np.array([0.05, 0.95]), np.array([0.0, 0.0]),
+                       t_precharge_at_ns=12.0, device=dev)
+    rv = restored_voltage(restore, 12.0)
+    secs["restore_run"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    smap = rc_transient(rf, cf)
+    torch.cuda.synchronize()
+    secs["sense_map"] = time.perf_counter() - t0
+    launches = counted({"rc_transient": 1})
+
+    # checks against the port on the CPU
+    t0 = time.perf_counter()
+    coeffs_cpu = fit_latency_coefficients(device="cpu")
+    if coeffs != coeffs_cpu:
+        raise AssertionError(f"Appendix B coefficients differ on the card and "
+                             f"the CPU: {coeffs} vs {coeffs_cpu}")
+    restore_cpu = simulate(np.array([0.05, 0.95]), np.array([0.0, 0.0]),
+                           t_precharge_at_ns=12.0, device="cpu")
+    rv_err = float(np.abs(rv - restored_voltage(restore_cpu, 12.0)).max())
+    if rv_err > KERNEL_ATOL or not np.array_equal(sense_time(restore),
+                                                  sense_time(restore_cpu)):
+        raise AssertionError(f"the appB restore run differs on the card and "
+                             f"the CPU (restored voltage by {rv_err})")
+    idx = torch.arange(0, rf.numel(), RC_CPU_STRIDE, device=dev)
+    smap_cpu = rc_transient(rf[idx].cpu(), cf[idx].cpu())
+    cpu_cmp = rc_compare({k: v[idx] for k, v in smap.items()}, smap_cpu,
+                         CircuitParams().dt_ns, "sense map, card vs CPU")
+    secs["cpu_check"] = time.perf_counter() - t0
+    ts = smap["sense_t"].reshape(MAT, MAT).cpu().numpy()
+    if not np.isfinite(ts).all():
+        raise AssertionError("a cell of the sense map never sensed")
+    loss_mv = float(rv[0] - rv[1]) * 1e3
+    emit("circuit", seconds=secs, launches=launches, map_cells=rf.numel(),
+         sense_t_near_row_mean_ns=float(ts[0].mean()),
+         sense_t_far_row_mean_ns=float(ts[-1].mean()),
+         sense_t_min_ns=float(ts.min()), sense_t_max_ns=float(ts.max()),
+         coefficients=coeffs, restore_loss_far_mV=loss_mv,
+         restored_voltage=rv.tolist(), reference=APPB_REFERENCE,
+         coefficients_equal_cpu=True, restore_max_abs_err_vs_cpu=rv_err,
+         map_cpu_cells=int(idx.numel()), map_vs_cpu=cpu_cmp)
+    return launches
+
+
+def lifetime_phase(batch, pop) -> dict:
+    """Phase 17: the lifetime lifecycle; returns its launches (none: the
+    reference's epoch scan is fused jnp)."""
+    dev = batch.device
+    temps = np.full(len(LIFE_AGES), LIFE_TEMP)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    secs = {}
+    t0 = time.perf_counter()
+    life = lifetime_population(batch, LIFE_AGES, temps)
+    secs["fig_lifetime"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    banked = lifetime_population(
+        DimmBatch.from_population(pop[:LIFE_BANK_DIMMS], dev), LIFE_AGES,
+        temps, banks=4)
+    secs["banks4"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    al = ALDRAM.install(pop[0], device=dev)
+    fig18 = {}
+    for t in (55.0, 85.0):
+        lr_diva = latency_reduction(diva_profile(pop[0], temp_C=t, device=dev))
+        lr_al = latency_reduction(al.timing(t))
+        fig18[f"{int(t)}C"] = dict(
+            diva_read=lr_diva["read_reduction"],
+            diva_write=lr_diva["write_reduction"],
+            aldram_read=lr_al["read_reduction"],
+            aldram_write=lr_al["write_reduction"])
+    secs["fig18"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prof = DivaProfiler(pop[0], period_steps=1, years_per_period=2.0,
+                        device=dev)
+    served = [prof.timing() for _ in range(PROFILER_EPOCHS)]
+    secs["diva_profiler"] = time.perf_counter() - t0
+    launches = counted({})
+
+    D, E = batch.n_dimms, len(LIFE_AGES)
+    t = life["timings"]
+    if t.shape != (E, D, 4) or life["stale_fail"].shape != (E, D) \
+            or not np.isfinite(life["ecc_lambda"]).all():
+        raise AssertionError("lifetime: bad shapes or non-finite ECC exposure")
+    if not (np.diff(t, axis=0) >= 0).all():
+        raise AssertionError("lifetime: aging at a fixed temperature lowered "
+                             "a profiled timing")
+    if banked["timings"].shape != (E, LIFE_BANK_DIMMS, 4, 4) or not \
+            np.array_equal(banked["timings"].max(axis=2),
+                           t[:, :LIFE_BANK_DIMMS]):
+        raise AssertionError("per-bank lifetime tables do not have the "
+                             "whole-DIMM tables as their envelope")
+    for temp in (55.0, 85.0):
+        if al.timing(temp) != conventional_profile(pop[0], temp_C=temp,
+                                                   device=dev):
+            raise AssertionError(f"ALDRAM's {temp} C bin is not the "
+                                 f"conventional profile")
+
+    # checks against the port on the CPU
+    t0 = time.perf_counter()
+    k = LIFE_CPU_DIMMS
+    cpu = lifetime_population(DimmBatch.from_population(pop[:k], "cpu"),
+                              LIFE_AGES, temps)
+    for key in ("timings", "stale_fail"):
+        if not np.array_equal(life[key][:, :k], cpu[key]):
+            raise AssertionError(f"lifetime {key} differs on the card and the "
+                                 f"CPU")
+    np.testing.assert_allclose(life["ecc_lambda"][:, :k], cpu["ecc_lambda"],
+                               rtol=ECC_RTOL)
+    ecc_rel = float(np.max(np.abs(life["ecc_lambda"][:, :k] - cpu["ecc_lambda"])
+                           / np.maximum(np.abs(cpu["ecc_lambda"]), 1e-30)))
+    prof_cpu = DivaProfiler(pop[0], period_steps=1, years_per_period=2.0,
+                            device="cpu")
+    if served != [prof_cpu.timing() for _ in range(PROFILER_EPOCHS)]:
+        raise AssertionError("DivaProfiler tables differ on the card and the "
+                             "CPU")
+    secs["cpu_check"] = time.perf_counter() - t0
+    read = t[:, :, :3].sum(axis=2)                       # tRCD + tRAS + tRP
+    emit("lifetime", dimms=D, epochs=E, ages=LIFE_AGES.tolist(),
+         temp_C=LIFE_TEMP, seconds=secs, launches=launches,
+         read_ns_mean_age0=float(read[0].mean()),
+         read_ns_mean_age10=float(read[-1].mean()),
+         read_drift_ns=float(read[-1].mean() - read[0].mean()),
+         drift_ns={p: float(t[-1, :, i].mean() - t[0, :, i].mean())
+                   for i, p in enumerate(("trcd", "tras", "trp", "twr"))},
+         stale_share=float(life["stale_fail"].mean()),
+         stale_share_by_epoch=life["stale_fail"].mean(axis=1).tolist(),
+         mean_ecc_lambda=float(life["ecc_lambda"].mean()),
+         mean_ecc_lambda_age10=float(life["ecc_lambda"][-1].mean()),
+         banks4_dimms=LIFE_BANK_DIMMS,
+         banks4_stale_share=float(banked["stale_fail"].mean()),
+         fig18_dimm0=fig18, profiler_served=[
+             dataclasses.astuple(s) for s in served],
+         cpu_dimms=k, equal_cpu=True, ecc_max_rel_err_vs_cpu=ecc_rel,
+         ecc_rtol=ECC_RTOL, profiler_equal_cpu_epochs=PROFILER_EPOCHS)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU host",
@@ -983,6 +1261,10 @@ def main() -> int:
     # ---- 12-14. operating points, the fleet error summary, blind discovery
     paths += [op_points_phase(batch, pop), error_summary_phase(batch, pop),
               blind_phase(batch, pop)]
+
+    # ---- 15-17. the circuit model (rc_transient) and the lifetime lifecycle
+    ints["rc_transient"] = rc_kernel_vs_plain(dev)
+    paths += [circuit_phase(dev), lifetime_phase(batch, pop)]
     total = {name: sum(p[name] for p in paths) for name in ops.KERNELS}
 
     rows = [dict(name="fail_prob",
@@ -997,7 +1279,8 @@ def main() -> int:
             ("diva_shuffle", "shuffle.cu", "shuffle.py:64"),
             ("bank_sched", "bank_sched.cu", "bank_sched.py:138"),
             ("fail_prob_op", "fail_prob.cu", "fail_prob.py:161"),
-            ("bit_signature", "bit_signature.cu", "bit_signature.py:53")):
+            ("bit_signature", "bit_signature.cu", "bit_signature.py:53"),
+            ("rc_transient", "rc_transient.cu", "rc_transient.py:80")):
         rows.append(dict(name=name,
                          source=f"src/repro_torch/kernels/csrc/{source}",
                          replaces=f"src/repro/kernels/{replaces}", **ints[name]))

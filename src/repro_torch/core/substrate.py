@@ -20,6 +20,12 @@ The counterpart of ``repro.core.substrate`` for the main path:
   * ``operating_points_population`` / ``operating_grid_arrays`` — per-DIMM
                              ``OperatingPoint``s, and every DIMM evaluated at
                              a static grid of operating points.
+  * ``lifetime_population`` — the online re-profiling lifecycle (Sec 6.1
+                             fn 2): a Python loop over profiling epochs that
+                             re-runs the sweep under each epoch's aging and
+                             temperature adders and reports per-DIMM
+                             (timing, stale-table failure, ECC exposure)
+                             trajectories.
   * ``burst_bit_profile_population`` / ``shuffling_gain_population`` — DIVA
                              Shuffling (Sec 6.2, Fig 17): burst-bit error
                              profiles from the ``fail_prob`` grids, and the
@@ -30,8 +36,8 @@ The counterpart of ``repro.core.substrate`` for the main path:
 Monte-Carlo decisions and error draws use the counter hashes of
 core/hashing.py, whose torch and numpy forms give the same bits, so the
 batched paths reproduce the per-DIMM numpy walkers and the reference's
-tables and counts decision for decision.  Not ported yet: lifetime and the
-``mesh`` DIMM sharding (ROADMAP queue 1).
+tables and counts decision for decision.  Not ported yet: the ``mesh`` DIMM
+sharding (ROADMAP queue 1).
 
 Entry points run on the batch's device.  A batch lands on CUDA unless the
 caller passes ``device="cpu"``; with no CUDA device and no explicit device
@@ -242,22 +248,29 @@ def _channel_lam(pr, chips: int, iters: int, multibit: bool):
     return 2 * iters * chips * pr.sum(dim=(2, 3, 4))
 
 
-def _region_eval(batch: DimmBatch, pidx: int, t_op: float, rows, stress,
+def _region_eval(batch: DimmBatch, pidx: int, t_op, rows, stress,
                  adder, iters: int, multibit: bool, banks: int = 1,
                  extra=None):
-    """Monte-Carlo region test of the whole batch at one timing value.
+    """Monte-Carlo region test of the whole batch at one operating point.
 
-    Returns (D, banks) bool: does the row region fail the test at ``t_op`` in
-    each bank.  ``banks`` partitions the subarray axis into equal contiguous
-    groups; ``banks=1`` is the whole-DIMM test.  ``rows`` is a shared (Rr,)
-    internal row region or a per-DIMM (D, Rr) table (int64); ``stress`` the
-    (P,) pattern stresses and ``adder`` the (D,) host-computed condition term,
-    both f32 on the batch's device.  ``extra`` is an optional (D,) f32
-    required-latency addend (the access-channel voltage shift of a
-    non-nominal supply); ``None`` leaves the sum as it was without it.
-    Mirrors the reference's ``_region_eval`` (scalar ``t_op``) operation for
-    operation in float32, including the broadcast order of the ``t`` sum;
-    subarrays run in a Python loop.
+    Returns ``(fails, lam_total)``: (D, banks) bool — does the row region
+    fail the test at ``t_op`` in each bank — and (D, banks) f32 — the
+    expected failure count behind the accept/reject draws, summed over the
+    bank's subarrays and patterns (the ECC-exposure integrand of the lifetime
+    sweep when ``multibit``).  ``banks`` partitions the subarray axis into
+    equal contiguous groups; ``banks=1`` is the whole-DIMM test.
+
+    ``t_op`` is a Python float (one grid point for everyone), a (D,) f32
+    tensor (each DIMM at its own value) or a (D, S) f32 tensor (each
+    subarray at its bank's own value); the hash sees the same per-DIMM bits
+    in every layout.  ``rows`` is a shared (Rr,) internal row region or a
+    per-DIMM (D, Rr) table (int64); ``stress`` the (P,) pattern stresses and
+    ``adder`` the (D,) host-computed condition term, both f32 on the batch's
+    device.  ``extra`` is an optional (D,) f32 required-latency addend (the
+    access-channel voltage shift of a non-nominal supply); ``None`` leaves
+    the sum as it was without it.  Mirrors the reference's ``_region_eval``
+    operation for operation in float32, including the broadcast order of the
+    ``t`` sum; subarrays run in a Python loop.
     """
     g = batch.geom
     S, chips = g.subarrays, g.chips
@@ -269,13 +282,21 @@ def _region_eval(batch: DimmBatch, pidx: int, t_op: float, rows, stress,
     kbl, kwl = batch.k_bl[:, pidx], batch.k_wl[:, pidx]
     kmat, krow = batch.k_mat[:, pidx], batch.k_row[:, pidx]
     chip0 = batch.chip_offsets[:, 0]
-    t_cell = torch.tensor(t_op, dtype=torch.float32, device=dev)
-    t_hash = torch.round(t_cell * 4).to(torch.int64)
+    t_cell = torch.as_tensor(t_op, dtype=torch.float32, device=dev)
+    t_q = torch.round(t_cell * 4).to(torch.int64)
     P = stress.shape[0]
     pat_idx = torch.arange(P, device=dev)[None, :]
     e5 = lambda v: v[:, None, None, None, None]
-    fails = torch.zeros((batch.n_dimms, banks), dtype=torch.bool, device=dev)
+    D = batch.n_dimms
+    fails = torch.zeros((D, banks), dtype=torch.bool, device=dev)
+    lam_total = torch.zeros((D, banks), dtype=torch.float32, device=dev)
     for s in range(S):
+        if t_cell.dim() == 2:                                    # (D, S) tables
+            t_s, t_hash = e5(t_cell[:, s]), t_q[:, s, None]
+        elif t_cell.dim() == 1:                                  # (D,) values
+            t_s, t_hash = e5(t_cell), t_q[:, None]
+        else:
+            t_s, t_hash = t_cell, t_q
         d_bl, d_row = _row_distances(batch, s, rows, even)
         var = (kbl[:, None, None, None] * d_bl[:, None, :, :]
                + kwl[:, None, None, None] * d_wl[None, None, None, :]
@@ -288,7 +309,7 @@ def _region_eval(batch: DimmBatch, pidx: int, t_op: float, rows, stress,
             t = t + e5(extra)
         t = t + e5(chip0)
         t = t + e5(batch.sub_offsets[:, s])
-        p = fail_mixture_t(t, t_cell, e5(batch.sigma), e5(batch.outlier_rate),
+        p = fail_mixture_t(t, t_s, e5(batch.sigma), e5(batch.outlier_rate),
                            e5(batch.outlier_ns))
         lam = _channel_lam(p, chips, iters, multibit)            # (D, P)
         u = query_uniform_t(batch.serial[:, None], pidx, t_hash,
@@ -296,7 +317,8 @@ def _region_eval(batch: DimmBatch, pidx: int, t_op: float, rows, stress,
         fail_s = torch.any(u < -torch.expm1(-lam), dim=1)        # (D,)
         b = s // subs_per_bank
         fails[:, b] |= fail_s
-    return fails
+        lam_total[:, b] = lam_total[:, b] + lam.sum(dim=1)
+    return fails, lam_total
 
 
 def _sweep_param(batch: DimmBatch, pidx: int, floor, rows, stress, adder,
@@ -314,8 +336,8 @@ def _sweep_param(batch: DimmBatch, pidx: int, floor, rows, stress, adder,
     std = getattr(STANDARD, PARAMS[pidx])
     stops = []
     for t_op in grid:
-        fail = _region_eval(batch, pidx, t_op, rows, stress, adder, iters,
-                            multibit, banks, extra)
+        fail, _ = _region_eval(batch, pidx, t_op, rows, stress, adder, iters,
+                               multibit, banks, extra)
         stops.append(fail | (floor - 1e-9 > t_op))
         if bool(torch.all(stops[-1])):
             break
@@ -509,7 +531,8 @@ def _axis_context(batch: DimmBatch, axes, *, temp_C: float, refresh_ms: float,
     ``_axis_context``): every operating-point-dependent float enters the
     sweep as data.  Returns ``(ctx_d, ctx_g)``: DIMM-leading (D,) / (D, G)
     f32 tables and per-grid-point (G,) uint32 hash keys and f32 retention
-    stresses; both ``None`` at the nominal supply with no extra axes.
+    stresses, as tensors on the batch's device (the keys stay numpy); both
+    ``None`` at the nominal supply with no extra axes.
     """
     ctx_d, ctx_g = {}, {}
     vc = batch.vdd_coef.cpu().numpy()
@@ -536,7 +559,10 @@ def _axis_context(batch: DimmBatch, axes, *, temp_C: float, refresh_ms: float,
             [retention_stress(temp_C, r, vdd) for r in spec.grid], np.float32)
     if not ctx_d and not ctx_g:
         return None, None
-    return ctx_d, ctx_g
+    dev = batch.device
+    return ({k: torch.as_tensor(v, device=dev) for k, v in ctx_d.items()},
+            {k: v if k.endswith("_keys") else torch.as_tensor(v, device=dev)
+             for k, v in ctx_g.items()})
 
 
 def profile_population_arrays(batch: DimmBatch, *, region="worst",
@@ -573,10 +599,6 @@ def profile_population_arrays(batch: DimmBatch, *, region="worst",
     stress = torch.as_tensor(pattern_stress(patterns), device=dev)
     ctx_d, ctx_g = _axis_context(batch, axes, temp_C=temp_C,
                                  refresh_ms=refresh_ms, vdd=vdd)
-    if ctx_d is not None:
-        ctx_d = {k: torch.as_tensor(v, device=dev) for k, v in ctx_d.items()}
-        ctx_g = {k: v if k.endswith("_keys") else torch.as_tensor(v, device=dev)
-                 for k, v in ctx_g.items()}
     out = _profile_impl(batch, rows, stress, adder, ctx_d, ctx_g,
                         guard_cycles=guard_cycles, iters=iters,
                         multibit=multibit_only, banks=banks, axes=axes,
@@ -613,6 +635,157 @@ def operating_points_population(batch: DimmBatch, *, temp_C: float = 55.0,
             vdd=d.get("vdd", vdd), temp_C=temp_C,
             refresh_ms=d.get("refresh", 64.0)))
     return out
+
+
+# --------------------------------------------- lifetime sweeps (Sec 6.1 fn 2)
+
+def lifetime_adders(batch: DimmBatch, ages, temps,
+                    refresh_ms: float = 64.0) -> np.ndarray:
+    """(E, D) f32 per-epoch operating-condition adders, on the host in numpy
+    with the op order of ``latency.condition_adder`` — the per-DIMM lifecycle
+    (``profiling.lifetime_loop``), the reference and the epoch loop add
+    identical bits.
+
+    ``ages`` / ``temps``: per-epoch (E,) or per-epoch-per-DIMM (E, D) values;
+    ``ages`` *overrides* the batch's static ``age_years`` leaf — the epoch
+    schedule owns the drift.
+    """
+    D = batch.n_dimms
+    ages = np.asarray(ages, np.float32)
+    temps = np.asarray(temps, np.float64)
+    if ages.ndim == 1:
+        ages = np.broadcast_to(ages[:, None], (ages.shape[0], D))
+    if temps.ndim == 1:
+        temps = np.broadcast_to(temps[:, None], (temps.shape[0], D))
+    if not (ages.shape == temps.shape == (ages.shape[0], D)):
+        raise ValueError(f"ages {ages.shape} / temps {temps.shape} must both "
+                         f"resolve to (n_epochs, {D})")
+    t_delta = np.float32(temps - 85.0)
+    _, r_log = condition_scalars(85.0, refresh_ms)
+    host = lambda a: a.cpu().numpy().astype(np.float32)[None, :]
+    return (host(batch.temp_coef) * t_delta + host(batch.refresh_coef) * r_log
+            + host(batch.aging_coef) * ages)
+
+
+def _lifetime_impl(batch: DimmBatch, rows, stress, adders_ed, ctx_d=None,
+                   ctx_g=None, *, guard_cycles: int, iters: int,
+                   multibit: bool, diagnostics: bool, banks: int = 1,
+                   axes=PARAMS, retention: bool = False):
+    """Profiling epochs in a Python loop on the batch's device (the
+    reference's ``lax.scan``); ``adders_ed`` is the (E, D) f32 tensor of
+    per-epoch condition adders.
+
+    Each epoch re-runs the full sweep under that epoch's conditions; with
+    ``diagnostics`` it also reports, per (DIMM, bank):
+      * ``stale``: would the PREVIOUS epoch's table (the standard table at
+        epoch 0) now fail the region test — the aging-drift unsafety that
+        static AL-DRAM-style tables accumulate (Sec 6.1 fn 2);
+      * ``ecc``: expected SECDED-multi-bit codewords of the region test at
+        the freshly profiled point — the residual ECC exposure.
+    With ``banks > 1`` each epoch profiles (D, banks, n_axes) tables and the
+    stale test runs every subarray at its own bank's previous value.  The
+    diagnostics evaluate the 4-timing prefix of ``axes``.
+
+    Returns epoch-leading trajectories: (E, D, banks, len(axes)) timings,
+    and with ``diagnostics`` (E, D, banks) bool stale decisions and
+    (E, D, banks) f32 ECC exposures.
+    """
+    D, S = batch.n_dimms, batch.geom.subarrays
+    dev = batch.device
+    sub_bank = torch.arange(S, device=dev) // (S // banks)
+    std = torch.tensor([AXES[a].standard for a in axes], dtype=torch.float32,
+                       device=dev)
+    extra = None if not ctx_d else ctx_d.get("vdd_extra")
+    kw = dict(rows=rows, stress=stress, guard_cycles=guard_cycles,
+              iters=iters, multibit=multibit, banks=banks, axes=axes,
+              retention=retention)
+    prev = std.expand(D, banks, len(axes))
+    timings, stales, eccs = [], [], []
+    for adder in adders_ed:
+        t_new = _profile_impl(batch, adder=adder, ctx_d=ctx_d, ctx_g=ctx_g,
+                              **kw)                              # (D, banks, n_axes)
+        timings.append(t_new)
+        if diagnostics:
+            stale = torch.zeros((D, banks), dtype=torch.bool, device=dev)
+            ecc = torch.zeros((D, banks), dtype=torch.float32, device=dev)
+            for p in range(len(PARAMS)):
+                # each subarray at ITS bank's value: the (D, banks) column
+                # spread to a (D, S) per-subarray table
+                fail_p, _ = _region_eval(batch, p, prev[:, sub_bank, p], rows,
+                                         stress, adder, iters, multibit, banks,
+                                         extra)
+                stale = stale | fail_p
+                _, lam_p = _region_eval(batch, p, t_new[:, sub_bank, p], rows,
+                                        stress, adder, iters, True, banks,
+                                        extra)
+                ecc = ecc + lam_p
+            stales.append(stale)
+            eccs.append(ecc)
+        prev = t_new
+    out = (torch.stack(timings),)
+    if diagnostics:
+        out += (torch.stack(stales), torch.stack(eccs))
+    return out
+
+
+def lifetime_population(batch: DimmBatch, ages, temps, *,
+                        refresh_ms: float = 64.0, vdd: float = VDD_STD,
+                        region="worst", guard_cycles: int = 1,
+                        multibit: bool = True, patterns=DEFAULT_PATTERNS,
+                        iters: int = DEFAULT_ITERS, diagnostics: bool = True,
+                        banks: int = 1, axes=PARAMS,
+                        retention: bool = False) -> dict:
+    """The whole online re-profiling lifecycle of every DIMM, on the batch's
+    device.
+
+    ``ages`` / ``temps`` give each profiling epoch's operating point ((E,) or
+    (E, D)); every epoch re-runs the DIVA sweep under drifted conditions —
+    the Sec 6.1 argument for *online* profiling, and the drift that makes
+    static AL-DRAM tables unsafe.  Epoch-by-epoch timing decisions are those
+    of the per-DIMM walker (``profiling.lifetime_loop``) via the shared
+    per-query hash.
+
+    Returns epoch-leading numpy arrays: ``timings`` (E, D, 4) ns in PARAMS
+    order, ``stale_fail`` (E, D) bool (previous epoch's table — standard at
+    epoch 0 — now fails the region test), ``ecc_lambda`` (E, D) expected
+    multi-bit codewords at the fresh operating point, plus the resolved
+    (E, D) ``ages``/``temps`` schedule.  ``banks > 1`` threads per-bank
+    tables through every epoch: ``timings`` becomes (E, D, banks, 4) and the
+    diagnostics (E, D, banks).  ``diagnostics=False`` skips the stale/ECC
+    evaluations (and their keys) — the timing-only mode of the ALDRAM /
+    DivaProfiler wrappers.  ``axes``/``vdd``/``retention`` extend each
+    epoch's sweep to the full operating-point space (see
+    ``profile_population_arrays``); ``timings`` then carries len(axes)
+    columns per epoch.
+    """
+    if batch.geom.subarrays % banks != 0:
+        raise ValueError(f"banks={banks} must divide "
+                         f"subarrays={batch.geom.subarrays}")
+    axes = tuple(axes)
+    dev = batch.device
+    rows = torch.as_tensor(_resolve_rows(region, batch.geom, batch.n_dimms),
+                           dtype=torch.int64, device=dev)
+    adders = lifetime_adders(batch, ages, temps, refresh_ms)     # (E, D)
+    # the per-axis context is epoch-constant: refresh deltas and vdd shifts
+    # do not depend on the age/temperature schedule
+    ctx_d, ctx_g = _axis_context(batch, axes, temp_C=85.0,
+                                 refresh_ms=refresh_ms, vdd=vdd)
+    out = _lifetime_impl(
+        batch, rows, torch.as_tensor(pattern_stress(patterns), device=dev),
+        torch.as_tensor(adders, device=dev), ctx_d, ctx_g,
+        guard_cycles=guard_cycles, iters=iters, multibit=multibit,
+        diagnostics=diagnostics, banks=banks, axes=axes, retention=retention)
+    # drop the bank axis in whole-DIMM mode (timings (E,D,1,4) -> (E,D,4))
+    out = [(v[:, :, 0] if banks == 1 else v).cpu().numpy() for v in out]
+    E, D = adders.shape
+    # the resolved schedule: ages are consumed as f32, temps as f64
+    to_ed = lambda v, dt: np.broadcast_to(
+        np.asarray(v, dt).reshape((E, -1)), (E, D)).copy()
+    res = {"timings": out[0], "ages": to_ed(ages, np.float32),
+           "temps": to_ed(temps, np.float64)}
+    if diagnostics:
+        res["stale_fail"], res["ecc_lambda"] = out[1], out[2]
+    return res
 
 
 # ------------------------------------------- operating-grid sweeps (N-axis)

@@ -68,6 +68,22 @@ from repro_torch.discovery.blind import campaign_counts
 counts, expected = campaign_counts(make_population(TINY, 4), batch)
 disc = BlindDiva().discover(counts, expected, device="cpu")
 assert disc.ext_rows.shape == (4, 2)
+import torch
+from repro_torch.core import spice
+from repro_torch.core.profiling import ALDRAM, DivaProfiler
+from repro_torch.core.substrate import lifetime_population
+from repro_torch.kernels.rc_transient import rc_transient
+res = spice.simulate([0.05, 0.95], [0.0, 0.0], t_total_ns=12.0, device="cpu")
+assert spice.sense_time(res).shape == (2,)
+out = rc_transient(torch.tensor([0.1, 0.9]), torch.tensor([0.0, 1.0]),
+                   t_total_ns=12.0)
+assert out["sense_t"].shape == (2,)
+life = lifetime_population(batch, np.array([0.0, 5.0], np.float32),
+                           np.full(2, 55.0))
+assert life["stale_fail"].shape == (2, 4)
+pop = make_population(TINY, 4)
+assert DivaProfiler(pop[0], device="cpu").timing().trcd > 0
+assert ALDRAM.install(pop[0], device="cpu").timing(55.0).trcd > 0
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LEAKED", leaked)
@@ -146,5 +162,21 @@ def test_new_entry_points_raise_without_cuda_and_without_device():
             lambda: recover_mapping_population(counts, expected),
             lambda: campaign_counts(pop),
             lambda: BlindDiva().discover(counts, expected)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+def test_slice5_entry_points_raise_without_cuda_and_without_device():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from repro_torch.core import spice
+    from repro_torch.core.geometry import TINY
+    from repro_torch.core.population import make_population
+    from repro_torch.core.profiling import ALDRAM, DivaProfiler
+    dimm = make_population(TINY, 4)[0]
+    for call in (lambda: spice.simulate([0.5], [0.5]),
+                 lambda: spice.fit_latency_coefficients(),
+                 lambda: DivaProfiler(dimm).timing(),
+                 lambda: ALDRAM.install(dimm)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()

@@ -8,7 +8,9 @@ GPU host without JAX:
 
 Tolerance: ``fail_prob`` and ``fail_prob_op`` atol 1e-6, the reference's
 kernel-against-oracle bound (the kernels perform the plain versions' float32
-operations in their order); ``fail_prob_op`` with both channels off must
+operations in their order); ``rc_transient`` ``v_probe``/``v_cell`` atol
+1e-6 and ``sense_t`` on the same Euler step, ``inf`` where the plain version
+has ``inf``; ``fail_prob_op`` with both channels off must
 equal ``fail_prob`` bit for bit; the SECDED, shuffle, bank_sched and
 bit_signature kernels are integer work and must equal their plain versions
 exactly."""
@@ -19,8 +21,10 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.bank_sched import memsim_walk, memsim_walk_ref
 from repro_torch.kernels.bit_signature import bit_signature, bit_signature_ref
+from repro_torch.core.spice import CircuitParams
 from repro_torch.kernels.fail_prob import (fail_prob, fail_prob_op,
                                            fail_prob_op_ref, fail_prob_ref)
+from repro_torch.kernels.rc_transient import rc_transient, rc_transient_ref
 from repro_torch.kernels.secded import (encode_checks, encode_checks_ref,
                                         syndrome, syndrome_ref)
 from repro_torch.kernels.shuffle import _perm_tensor, apply_shuffle, apply_shuffle_ref
@@ -311,6 +315,56 @@ def test_bit_signature_unaligned_rows_and_int32_wrap(cuda, nbits):
         bit_signature(big[:, ::2], nbits=nbits - 1)
     with pytest.raises(TypeError, match="int32"):
         bit_signature(big.long(), nbits=nbits)
+
+
+def _cells(n, dev, seed):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.as_tensor(rng.uniform(0, 1, n), dtype=torch.float32,
+                                 device=dev) for _ in range(2))
+
+
+RC_CASES = {"default": dict(cp=CircuitParams()),
+            "uncharged": dict(cp=CircuitParams(), cell_charged=False),
+            "n_seg4_tpre12": dict(cp=CircuitParams(n_seg=4), t_pre_ns=12.0),
+            # 16 segments need a shorter step for the Euler stability bound
+            "n_seg16": dict(cp=CircuitParams(n_seg=16, dt_ns=0.004),
+                            t_total_ns=20.0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 130, 100003])
+@pytest.mark.parametrize("case", sorted(RC_CASES))
+def test_rc_transient_kernel_matches_plain_version(cuda, case, n):
+    rf, cf = _cells(n, cuda, seed=n)
+    kw = RC_CASES[case]
+    before = rc_transient.launches
+    got = rc_transient(rf, cf, **kw)
+    want = rc_transient_ref(rf, cf, **kw)
+    torch.cuda.synchronize()
+    assert rc_transient.launches == before + 1
+    for k in ("v_probe", "v_cell"):
+        torch.testing.assert_close(got[k], want[k], rtol=0, atol=ATOL)
+    ts, ref_ts = got["sense_t"], want["sense_t"]
+    assert torch.equal(torch.isinf(ts), torch.isinf(ref_ts))
+    fin = torch.isfinite(ref_ts)
+    dt = kw["cp"].dt_ns
+    assert bool(((ts[fin] - ref_ts[fin]).abs() < dt / 2).all())
+    if kw.get("cell_charged", True) is False:
+        assert bool(torch.isinf(ts).all())
+
+
+@pytest.mark.cuda
+def test_rc_transient_rejects_what_the_kernel_does_not_take(cuda):
+    rf, cf = _cells(64, cuda, seed=1)
+    with pytest.raises(ValueError, match="n_seg"):
+        rc_transient(rf, cf, cp=CircuitParams(n_seg=5))
+    with pytest.raises(ValueError, match="contiguous"):
+        rc_transient(torch.stack([rf, cf], dim=1)[:, 0], cf)
+    before = rc_transient.launches
+    out = rc_transient(rf[:0], cf[:0])
+    assert out["sense_t"].shape == (0,) and rc_transient.launches == before
+    with pytest.raises(ValueError, match="device"):
+        rc_transient(rf, cf.cpu())
 
 
 # ------------------------------------------------ the slice's paths, card vs CPU
