@@ -84,11 +84,31 @@ of 512x512 mats, 16 mats and 8 subarrays — it
      ``diva_profile`` at 55/85 C and a ``DivaProfiler`` over 4 epochs; the
      lifecycle of 4 DIMMs (timings and stale decisions identical, ECC
      exposure within rtol 1e-3) and the served tables held against the CPU
-     port.
+     port;
+ 18. holds the ``wkv6`` kernel against its plain version (``y`` and the final
+     state within rtol = atol = 3e-4 for float32 inputs, 2e-3 for float16,
+     the reference's kernel-against-scan bounds) at the rwkv6-1.6b prefill
+     shape (8, 512, 32, 64) from a zero and from a nonzero state, the decode
+     shape (8, 1, 32, 64) from a nonzero state, the reference's sweep shapes
+     (1,64,1,8), (2,96,2,16), (3,130,4,32), (2,64,2,64), and float16 inputs;
+     times kernel and plain version at both serving shapes;
+ 19. RWKV-6 serving at full width: ``rwkv6-1.6b`` (24 layers, d_model 2048,
+     vocab 65536, bfloat16 compute) with random parameters from a seed,
+     ``generate`` of 8 prompts of 512 tokens (``make_batch``) and 32 new
+     tokens (``wkv6`` launched exactly 24 x 32 = 768 times, no other kernel);
+     then, on the card at full width in float32 compute, decode held against
+     teacher-forced ``forward`` (prefill 6 tokens, decode 4; the reference's
+     2e-3 / 5e-3 bounds), and the card held against the port on the CPU at
+     full width cut to 2 layers, float32 compute, one set of host parameters
+     on both: prefill and 4 decode steps' logits within 1e-4, greedy tokens
+     identical; and the same 2 layers in bfloat16 compute, teacher-forced on
+     one token sequence: the card's logits held to the CPU's by their max
+     and mean |difference| (0.07 / 0.010), and two faulty ports (the whole
+     model in float32; ``r`` in bfloat16) must fall outside those bounds.
 
 Every phase prints one JSON line.  The launch counts are set to 0 just before
-each path (phases 3-4, 6, 7, 8, 9, 12, 13, 14, 16 and 17) and read just after
-it;
+each path (phases 3-4, 6, 7, 8, 9, 12, 13, 14, 16, 17 and 19) and read just
+after it;
 every kernel of a path must have launched, and the ``kernels`` line sums the
 paths' counts.
 Any failed check raises; the last line is ``{"ok": true, "device": {...}}``
@@ -110,6 +130,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core.geometry import FULL  # noqa: E402
 from repro_torch.core.latency import (  # noqa: E402
     PATTERN_STRESS, access_vdd_shift, retention_stress)
@@ -130,6 +151,7 @@ from repro_torch.core.substrate import (  # noqa: E402
     operating_grid_arrays, operating_points_population,
     profile_population_arrays, row_error_lambda, shuffling_gain_population)
 from repro_torch.core.timing import OperatingPoint, TimingParams  # noqa: E402
+from repro_torch.data.pipeline import make_batch  # noqa: E402
 from repro_torch.discovery.blind import (  # noqa: E402
     BlindDiva, blind_vs_oracle, campaign_counts)
 from repro_torch.kernels import build, ops  # noqa: E402
@@ -144,6 +166,10 @@ from repro_torch.kernels.secded import (  # noqa: E402
     encode_checks, encode_checks_ref, syndrome, syndrome_ref)
 from repro_torch.kernels.shuffle import (  # noqa: E402
     _perm_tensor, apply_shuffle, apply_shuffle_ref, shuffle_permutation)
+from repro_torch.kernels.wkv6 import wkv6, wkv6_ref  # noqa: E402
+from repro_torch.launch.serve import generate  # noqa: E402
+from repro_torch.models import cache as model_cache  # noqa: E402
+from repro_torch.models import model  # noqa: E402
 from repro_torch.memsim import sim as memsim  # noqa: E402
 from repro_torch.memsys.codec import (  # noqa: E402
     corrupt_run, interleave_permutation, protect_blob, recover_blob)
@@ -211,6 +237,28 @@ LIFE_TEMP, LIFE_BANK_DIMMS, LIFE_CPU_DIMMS, PROFILER_EPOCHS = 55.0, 16, 4, 4
 # expm1f/log1pf are not the CPU's (card vs CPU measured up to 2.4e-4 on an
 # H100).  Timings and stale decisions stay identical.
 ECC_RTOL = 1e-3
+# RWKV-6 serving (rwkv6-1.6b): the kernel at the serving path's shapes, the
+# reference's kernel-against-scan bounds (tests/test_kernels.py:59-68)
+ARCH = "rwkv6-1.6b"
+WKV_PREFILL, WKV_DECODE = (8, 512, 32, 64), (8, 1, 32, 64)
+WKV_SWEEP = ((1, 64, 1, 8), (2, 96, 2, 16), (3, 130, 4, 32), (2, 64, 2, 64))
+WKV_TOL = {torch.float32: 3e-4, torch.float16: 2e-3}
+# fp32 operations the recurrence needs per (b, h, t), whatever the kernel
+# does: 5 per (i, j) (r.S: a product and a sum; w*S + k*v: two products and
+# a sum) and 8 per i, because the u term is rank one, v_j * sum_i r_i u_i k_i
+# (the decay's negation and two expf; r*u*k and its sum; v_j times it and
+# the add to y_j)
+WKV_FLOPS_PER_IJ, WKV_FLOPS_PER_I = 5, 8
+SERVE_SEED, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 0, 8, 512, 32
+# decode against teacher-forced forward (tests/test_models.py:69-82's bounds)
+TF_PROMPT, TF_DECODE, TF_PREFILL_TOL, TF_DECODE_TOL = 6, 4, 2e-3, 5e-3
+# the card against the port on the CPU: full width cut to 2 layers, float32
+CPU_LAYERS, CPU_BATCH, CPU_PROMPT, CPU_DECODE, CARD_CPU_TOL = 2, 2, 16, 4, 1e-4
+# the same in the config's bfloat16 compute: max and mean |card - CPU| of the
+# logits (on an H100: 0.0547 / 0.0082), bounds between that reading and two
+# faulty ports' (the whole model in float32: 0.118 / 0.0178; r in bfloat16,
+# i.e. ``wr`` cast with the other weights: 0.078 / 0.0123)
+BF16_CARD_CPU_MAX, BF16_CARD_CPU_MEAN = 0.07, 0.010
 
 
 def emit(phase: str, **kw) -> None:
@@ -1128,6 +1176,238 @@ def lifetime_phase(batch, pop) -> dict:
     return launches
 
 
+def wkv_inputs(shape, dev, dtype=torch.float32, seed=0):
+    """Seeded r, k, v, wlog (normal, std 0.5) of ``shape`` in ``dtype`` and
+    u (H, dh) float32 (std 0.1) on the card: tests/test_kernels.py's draws."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rkvw = [(torch.randn(shape, generator=gen, device=dev) * 0.5).to(dtype)
+            for _ in range(4)]
+    return (*rkvw, torch.randn(shape[2:], generator=gen, device=dev) * 0.1)
+
+
+def wkv_state(shape, dev, seed):
+    B, _, H, dh = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((B, H, dh, dh), generator=gen, device=dev) * 0.5
+
+
+def wkv_compare(args, s0, label: str) -> float:
+    """``wkv6`` against ``wkv6_ref`` on the same inputs: ``y`` and the final
+    state within the dtype's bound (rtol = atol), or raise.  Returns the
+    largest |kernel - plain|."""
+    (y, s), (yr, sr) = wkv6(*args, init_state=s0), wkv6_ref(*args, init_state=s0)
+    torch.cuda.synchronize()
+    tol = WKV_TOL[args[0].dtype]
+    err = 0.0
+    for got, want in ((y, yr), (s, sr)):
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"wkv6 ({label}) gave {tuple(got.shape)}, "
+                                 f"not finite or not {tuple(want.shape)}")
+        diff = (got - want).abs()
+        if bool((diff > tol + tol * want.abs()).any()):
+            raise AssertionError(f"wkv6 ({label}) differs from its plain "
+                                 f"version by {float(diff.max())} (bound {tol})")
+        err = max(err, float(diff.max()))
+    return err
+
+
+def wkv_work(shape, with_state: bool) -> tuple[int, int]:
+    """(bytes, fp32 operations) of one wkv6 call on float32 inputs: each
+    input read once, y and the final state written once."""
+    B, S, H, dh = shape
+    n = B * S * H * dh
+    state = B * H * dh * dh
+    n_bytes = 4 * (4 * n + H * dh + n + state + (state if with_state else 0))
+    return n_bytes, B * H * S * (WKV_FLOPS_PER_IJ * dh * dh + WKV_FLOPS_PER_I * dh)
+
+
+def wkv_kernel_vs_plain(dev) -> dict:
+    """Phase 18: ``wkv6`` against its plain version; returns its
+    ``kernels``-line fields (at the prefill shape)."""
+    cases = {}
+    pre = wkv_inputs(WKV_PREFILL, dev, seed=1)
+    cases["prefill"] = wkv_compare(pre, None, "prefill")
+    pre_s0 = wkv_state(WKV_PREFILL, dev, seed=2)
+    cases["prefill_init_state"] = wkv_compare(pre, pre_s0, "prefill, init state")
+    dec = wkv_inputs(WKV_DECODE, dev, seed=3)
+    dec_s0 = wkv_state(WKV_DECODE, dev, seed=4)
+    cases["decode_init_state"] = wkv_compare(dec, dec_s0, "decode")
+    for shape in WKV_SWEEP:
+        for dtype in (torch.float32, torch.float16):
+            label = "x".join(map(str, shape)) + f"_{str(dtype)[6:]}"
+            cases[label] = wkv_compare(wkv_inputs(shape, dev, dtype, seed=shape[1]),
+                                       None, label)
+    cases["prefill_float16"] = wkv_compare(
+        wkv_inputs(WKV_PREFILL, dev, torch.float16, seed=5), None, "prefill f16")
+    ms = cuda_ms(lambda: wkv6(*pre), 20)
+    plain_ms = cuda_ms(lambda: wkv6_ref(*pre), 5)
+    dec_ms = cuda_ms(lambda: wkv6(*dec, init_state=dec_s0), 20)
+    dec_plain_ms = cuda_ms(lambda: wkv6_ref(*dec, init_state=dec_s0), 5)
+    n_bytes, n_ops = wkv_work(WKV_PREFILL, with_state=False)
+    dec_bytes, dec_ops = wkv_work(WKV_DECODE, with_state=True)
+    bw, flops = PEAK_BYTES_PER_S, PEAK_FP32_FLOPS
+    fields = dict(ms=ms, plain_ms=plain_ms, bytes_ms=n_bytes / bw * 1e3,
+                  ops_ms=n_ops / flops * 1e3, library_ms=None,
+                  max_abs_err=max(cases.values()))
+    emit("kernel_vs_plain", kernel="wkv6", shape=list(WKV_PREFILL),
+         max_abs_err_by_case=cases,
+         bound={"float32": WKV_TOL[torch.float32],
+                "float16": WKV_TOL[torch.float16]},
+         bytes=n_bytes, flops=n_ops, decode_shape=list(WKV_DECODE),
+         decode_ms=dec_ms, decode_plain_ms=dec_plain_ms,
+         decode_bytes_ms=dec_bytes / bw * 1e3, decode_ops_ms=dec_ops / flops * 1e3,
+         library="none (no single PyTorch call computes the recurrence)",
+         **fields)
+    return fields
+
+
+def allclose_err(got, want, tol: float, what: str) -> float:
+    """max |got - want| after checking |got - want| <= tol + tol * |want|
+    (numpy's assert_allclose with rtol = atol = tol) on the host."""
+    got, want = got.float().cpu(), want.float().cpu()
+    diff = (got - want).abs()
+    if got.shape != want.shape or not torch.isfinite(got).all() \
+            or bool((diff > tol + tol * want.abs()).any()):
+        raise AssertionError(f"{what}: max |difference| {float(diff.max())}, "
+                             f"bound {tol}")
+    return float(diff.max())
+
+
+def greedy(logits):
+    return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in _leaves(v)]
+    return [tree]
+
+
+def teacher_logits(cfg, params, seq):
+    """Prefill ``seq[:, :CPU_PROMPT]`` and decode its other tokens one by one
+    on the parameters' device: every step's last logits, (B, n, V) float32
+    on the host."""
+    seq = seq.to(model.param_device(params))
+    logits, cache = model_cache.prefill(cfg, params, {"tokens": seq[:, :CPU_PROMPT]})
+    out = [logits[:, -1]]
+    for t in range(CPU_PROMPT, seq.shape[1]):
+        logits, cache = model_cache.decode_step(cfg, params, cache, seq[:, t:t + 1])
+        out.append(logits[:, -1])
+    return torch.stack(out, dim=1).float().cpu()
+
+
+def rwkv6_serving_phase(dev) -> dict:
+    """Phase 19: RWKV-6 serving at full width; returns its launches."""
+    cfg = get_config(ARCH)
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init_params(SERVE_SEED, cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    prompts = make_batch(cfg, SERVE_BATCH, SERVE_PROMPT, seed=0, step=0)
+    prompts["tokens"] = prompts["tokens"][:, :-1]
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    toks, stats = generate(cfg, params, prompts, max_new=SERVE_NEW, device=dev)
+    launches = counted({"wkv6": cfg.n_layers * SERVE_NEW})
+    peak = torch.cuda.max_memory_allocated(dev)
+    if toks.shape != (SERVE_BATCH, SERVE_NEW) or toks.dtype != torch.int32 \
+            or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"generate gave {tuple(toks.shape)} {toks.dtype}")
+
+    # decode against teacher-forced forward, full width, float32 compute
+    f32 = cfg.replace(compute_dtype="float32")
+    seq = torch.as_tensor(make_batch(cfg, 1, TF_PROMPT + TF_DECODE, seed=3,
+                                     step=0)["tokens"][:, :-1], device=dev)
+    full, _ = model.forward(f32, params, {"tokens": seq})
+    logits, cache = model_cache.prefill(f32, params, {"tokens": seq[:, :TF_PROMPT]})
+    tf_prefill = allclose_err(logits[0, -1], full[0, TF_PROMPT - 1],
+                              TF_PREFILL_TOL, "prefill against forward")
+    tf_decode = 0.0
+    for t in range(TF_PROMPT, TF_PROMPT + TF_DECODE):
+        logits, cache = model_cache.decode_step(f32, params, cache, seq[:, t:t + 1])
+        tf_decode = max(tf_decode, allclose_err(logits[0, -1], full[0, t],
+                                                TF_DECODE_TOL, "decode against forward"))
+    del params, full, cache
+    torch.cuda.empty_cache()
+    emit("rwkv6_serving", arch=ARCH, n_layers=cfg.n_layers, d_model=cfg.d_model,
+         vocab=cfg.vocab_size, compute_dtype=cfg.compute_dtype, params=n_params,
+         init_s=init_s, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+         new_tokens=SERVE_NEW, launches=launches, **stats,
+         max_memory_allocated=peak, first_tokens=toks[:2, :8].tolist(),
+         teacher_forced=dict(compute_dtype="float32", prompt=TF_PROMPT,
+                             decode=TF_DECODE, prefill_max_abs_err=tf_prefill,
+                             decode_max_abs_err=tf_decode,
+                             bounds=[TF_PREFILL_TOL, TF_DECODE_TOL]))
+
+    # the card against the port on the CPU: 2 layers, full width, float32
+    small = cfg.replace(n_layers=CPU_LAYERS, compute_dtype="float32")
+    host = model.init_params(SERVE_SEED, small, device="cpu")
+    card = model.params_to(host, dev)
+    prompts = make_batch(small, CPU_BATCH, CPU_PROMPT, seed=1, step=0)
+    prompts["tokens"] = prompts["tokens"][:, :-1]
+    tok_h = torch.as_tensor(prompts["tokens"])
+    lh, ch = model_cache.prefill(small, host, {"tokens": tok_h})
+    lg, cg = model_cache.prefill(small, card, {"tokens": tok_h.to(dev)})
+    errs = [allclose_err(lg, lh, CARD_CPU_TOL, "prefill logits, card vs CPU")]
+    for _ in range(CPU_DECODE):
+        th, tg = greedy(lh), greedy(lg)
+        if not torch.equal(tg.cpu(), th):
+            raise AssertionError(f"greedy tokens differ: card {tg.tolist()}, "
+                                 f"CPU {th.tolist()}")
+        lh, ch = model_cache.decode_step(small, host, ch, th[:, None])
+        lg, cg = model_cache.decode_step(small, card, cg, tg[:, None])
+        errs.append(allclose_err(lg, lh, CARD_CPU_TOL, "decode logits, card vs CPU"))
+    state_err = max(allclose_err(cg[k], ch[k], CARD_CPU_TOL, f"cache {k}")
+                    for k in ("shift_t", "shift_c", "wkv"))
+    gen_h, _ = generate(small, host, prompts, max_new=CPU_DECODE + 1, device="cpu")
+    gen_g, _ = generate(small, card, prompts, max_new=CPU_DECODE + 1, device=dev)
+    if not torch.equal(gen_g.cpu(), gen_h):
+        raise AssertionError(f"generate differs: card {gen_g.tolist()}, CPU "
+                             f"{gen_h.tolist()}")
+    emit("rwkv6_card_vs_cpu", n_layers=CPU_LAYERS, d_model=small.d_model,
+         vocab=small.vocab_size, compute_dtype="float32", batch=CPU_BATCH,
+         prompt_len=CPU_PROMPT, decode_steps=CPU_DECODE,
+         prefill_max_abs_err=errs[0], decode_max_abs_err=max(errs[1:]),
+         cache_max_abs_err=state_err, bound=CARD_CPU_TOL,
+         greedy_tokens_identical=True, tokens=gen_h.tolist())
+
+    # the same in bfloat16 compute, teacher-forced on one token sequence,
+    # beside two faulty ports on the card as controls
+    bf = small.replace(compute_dtype="bfloat16")
+    seq = torch.as_tensor(make_batch(small, CPU_BATCH, CPU_PROMPT + CPU_DECODE,
+                                     seed=2, step=0)["tokens"][:, :-1])
+    want = teacher_logits(bf, host, seq)
+    diff = (teacher_logits(bf, card, seq) - want).abs()
+    r_bf16 = {**card, "layers": {**card["layers"],
+                                 "wr": card["layers"]["wr"].bfloat16()}}
+    controls = {name: (teacher_logits(c, p, seq) - want).abs()
+                for name, c, p in (("float32_compute", small, card),
+                                   ("r_in_bfloat16", bf, r_bf16))}
+    bf_max, bf_mean = float(diff.max()), float(diff.mean())
+    if not torch.isfinite(diff).all() or bf_max > BF16_CARD_CPU_MAX \
+            or bf_mean > BF16_CARD_CPU_MEAN:
+        raise AssertionError(f"bfloat16 logits, card vs CPU: max {bf_max}, "
+                             f"mean {bf_mean}, bounds {BF16_CARD_CPU_MAX}, "
+                             f"{BF16_CARD_CPU_MEAN}")
+    for name, d in controls.items():
+        if float(d.max()) <= BF16_CARD_CPU_MAX and float(d.mean()) <= BF16_CARD_CPU_MEAN:
+            raise AssertionError(f"the bfloat16 bounds pass a faulty port "
+                                 f"({name}): max {float(d.max())}, mean "
+                                 f"{float(d.mean())}")
+    emit("rwkv6_card_vs_cpu_bf16", n_layers=CPU_LAYERS, d_model=bf.d_model,
+         vocab=bf.vocab_size, compute_dtype="bfloat16", batch=CPU_BATCH,
+         prompt_len=CPU_PROMPT, decode_steps=CPU_DECODE, max_abs_err=bf_max,
+         mean_abs_err=bf_mean, bounds=[BF16_CARD_CPU_MAX, BF16_CARD_CPU_MEAN],
+         logit_abs_max=float(want.abs().max()),
+         controls={k: {"max_abs_err": float(v.max()),
+                       "mean_abs_err": float(v.mean())}
+                   for k, v in controls.items()})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU host",
@@ -1136,6 +1416,10 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    # float32 products in full float32 (PyTorch's default, stated here): the
+    # card-vs-CPU checks hold float32 logits to 1e-4
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     # ---- 1. card and build
     smi = subprocess.run(
@@ -1265,6 +1549,10 @@ def main() -> int:
     # ---- 15-17. the circuit model (rc_transient) and the lifetime lifecycle
     ints["rc_transient"] = rc_kernel_vs_plain(dev)
     paths += [circuit_phase(dev), lifetime_phase(batch, pop)]
+
+    # ---- 18-19. the wkv6 kernel, and RWKV-6 serving at full width
+    ints["wkv6"] = wkv_kernel_vs_plain(dev)
+    paths.append(rwkv6_serving_phase(dev))
     total = {name: sum(p[name] for p in paths) for name in ops.KERNELS}
 
     rows = [dict(name="fail_prob",
@@ -1280,7 +1568,8 @@ def main() -> int:
             ("bank_sched", "bank_sched.cu", "bank_sched.py:138"),
             ("fail_prob_op", "fail_prob.cu", "fail_prob.py:161"),
             ("bit_signature", "bit_signature.cu", "bit_signature.py:53"),
-            ("rc_transient", "rc_transient.cu", "rc_transient.py:80")):
+            ("rc_transient", "rc_transient.cu", "rc_transient.py:80"),
+            ("wkv6", "wkv6.cu", "wkv6.py:66")):
         rows.append(dict(name=name,
                          source=f"src/repro_torch/kernels/csrc/{source}",
                          replaces=f"src/repro/kernels/{replaces}", **ints[name]))

@@ -19,6 +19,7 @@ import itertools
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels.secded import encode_checks
 from repro_torch.kernels.secded import syndrome as _syndrome_bits
 
@@ -111,7 +112,6 @@ def bits_to_bytes(bits: np.ndarray) -> np.ndarray:
 def protect_bytes(data: bytes, *, device=None) -> np.ndarray:
     """Encode a byte string into (N, 9) uint8 codeword rows (8 data + 1 ECC);
     the check bits are computed on ``device`` (default: the CUDA device)."""
-    from repro_torch.core.substrate import resolve_device
     dev = resolve_device(device)
     pad = (-len(data)) % 8
     arr = np.frombuffer(data + b"\0" * pad, np.uint8).reshape(-1, 8)
@@ -122,7 +122,6 @@ def protect_bytes(data: bytes, *, device=None) -> np.ndarray:
 def recover_bytes(protected: np.ndarray, n_bytes: int, *, device=None
                   ) -> tuple[bytes, np.ndarray]:
     """Inverse of protect_bytes; returns (data, status per codeword)."""
-    from repro_torch.core.substrate import resolve_device
     dev = resolve_device(device)
     data_bits = bytes_to_bits(np.ascontiguousarray(protected[:, :8]))
     check_bits = bytes_to_bits(np.ascontiguousarray(protected[:, 8:]))[:, :CHECK_BITS]

@@ -35,7 +35,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch.core.substrate import resolve_device
+from repro_torch.device import resolve_device
 
 
 @dataclass(frozen=True)

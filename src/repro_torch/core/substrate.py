@@ -65,24 +65,13 @@ from repro_torch.core.timing import (AXES, CYCLE_NS, EXTENDED_AXES,
                                      OP_GRID_LANE, PARAMS, STANDARD, VDD_STD,
                                      OperatingPoint, TimingParams,
                                      op_point_key)
+from repro_torch.device import resolve_device
 from repro_torch.kernels.fail_prob import fail_prob
 from repro_torch.kernels.secded import syndrome
 from repro_torch.kernels.shuffle import apply_shuffle
 
 TIMING_GRIDS = {p: AXES[p].grid for p in PARAMS}
 GRIDS = dict(TIMING_GRIDS, vdd=AXES["vdd"].grid, refresh=AXES["refresh"].grid)
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: ``device`` when given, else the
-    current CUDA device.  Raises when no device is given and CUDA is not
-    available — the port never carries on quietly on the CPU."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
-                           "port on the CPU")
-    return torch.device("cuda", torch.cuda.current_device())
 
 
 # ------------------------------------------------------------- the batch

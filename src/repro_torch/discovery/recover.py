@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.mapping import estimate_row_mapping
-from repro_torch.core.substrate import resolve_device
+from repro_torch.device import resolve_device
 from repro_torch.discovery.signatures import _nbits
 from repro_torch.kernels.bit_signature import bit_signature
 

@@ -17,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.substrate import resolve_device
+from repro_torch.device import resolve_device
 from repro_torch.kernels.bit_signature import bit_signature
 
 

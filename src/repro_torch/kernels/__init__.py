@@ -1,4 +1,4 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
 version (``fail_prob`` and ``fail_prob_op``, ``secded``, ``shuffle``,
-``bank_sched``, ``bit_signature``, ``rc_transient``); ``ops`` lists them
+``bank_sched``, ``bit_signature``, ``rc_transient``, ``wkv6``); ``ops`` lists them
 and their launch counts."""

@@ -4,8 +4,8 @@ Each entry is a hand-written CUDA kernel's public wrapper: it dispatches by
 its tensors' device (CPU -> the plain PyTorch version, CUDA -> the kernel, or
 it raises) and carries ``launches``, a count of kernel launches that nothing
 but the launch itself increments.  There is no backend switch and no
-fallback: a CUDA tensor runs the kernel.  The reference's last Pallas
-kernel, ``wkv6``, is not ported yet (ROADMAP queue 2).
+fallback: a CUDA tensor runs the kernel.  Each of the reference's nine
+Pallas kernels has its entry here.
 """
 from __future__ import annotations
 
@@ -15,11 +15,13 @@ from repro_torch.kernels.fail_prob import fail_prob, fail_prob_op
 from repro_torch.kernels.rc_transient import rc_transient
 from repro_torch.kernels.secded import encode_checks, syndrome
 from repro_torch.kernels.shuffle import apply_shuffle
+from repro_torch.kernels.wkv6 import wkv6
 
 KERNELS = {"fail_prob": fail_prob, "secded_encode": encode_checks,
            "secded_syndrome": syndrome, "diva_shuffle": apply_shuffle,
            "bank_sched": memsim_walk, "fail_prob_op": fail_prob_op,
-           "bit_signature": bit_signature, "rc_transient": rc_transient}
+           "bit_signature": bit_signature, "rc_transient": rc_transient,
+           "wkv6": wkv6}
 
 
 def reset_launches() -> None:

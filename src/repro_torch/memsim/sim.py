@@ -34,10 +34,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.hashing import mix_uniform, trace_uniform
-from repro_torch.core.substrate import resolve_device
 from repro_torch.core.timing import (CYCLE_NS, PARAMS, STANDARD, TBL_CYCLES,
                                      TCL_NS, TCWL_NS, TFAW_CYCLES, TRRD_CYCLES,
                                      TimingParams)
+from repro_torch.device import resolve_device
 from repro_torch.kernels.bank_sched import bank_maps, memsim_walk
 
 CPU_GHZ = 3.2  # Table 1

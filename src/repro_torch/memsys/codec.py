@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import ecc
-from repro_torch.core.substrate import resolve_device
+from repro_torch.device import resolve_device
 from repro_torch.kernels.secded import encode_checks, syndrome
 from repro_torch.kernels.shuffle import apply_shuffle
 

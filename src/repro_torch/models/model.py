@@ -1,0 +1,133 @@
+"""Model wiring: init / forward for the ported families (ssm: rwkv6).
+
+The counterpart of ``repro.models.model`` for the ssm family: parameters
+are nested dicts of tensors with the reference's keys and its layer-stacked
+layout (a leading ``n_layers`` axis on every leaf under ``"layers"``), so a
+reference parameter tree carries across one to one (``params_from_numpy``).
+The layer stack is a plain Python loop: the reference's ``remat``, ``unroll``
+and sequence-sharding switches belong to training and sharding, which are
+not ported.  Any other family raises ``ValueError``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import rwkv6 as rwkv
+from repro_torch.models.layers import apply_norm, dtype_of, norm_params
+
+# Param leaves kept in fp32 regardless of compute dtype (routing / SSM dynamics
+# / norm statistics are precision-sensitive).
+_FP32_KEEP = {"wr", "alog", "u", "w0", "gn_scale", "dskip", "scale", "bias"}
+PORTED_FAMILIES = ("ssm",)
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
+        raise ValueError(f"family {cfg.family!r} is not ported (ported: "
+                         f"{PORTED_FAMILIES}); see ROADMAP queue 1 #6")
+
+
+def _map_named(fn, tree, name=None):
+    """``fn(key, leaf)`` over a nested dict, with each leaf's own key."""
+    if isinstance(tree, dict):
+        return {k: _map_named(fn, v, k) for k, v in tree.items()}
+    return fn(name, tree)
+
+
+def cast_params(params, cfg: ModelConfig):
+    """Float32/bfloat16 leaves to the compute dtype, except ``_FP32_KEEP``.
+    Idempotent: a leaf already of its dtype is returned as it is (no copy)."""
+    cdt = dtype_of(cfg.compute_dtype)
+
+    def cast(name, leaf):
+        if name in _FP32_KEEP or leaf.dtype not in (torch.float32, torch.bfloat16):
+            return leaf
+        return leaf.to(cdt)
+
+    return _map_named(cast, params)
+
+
+def param_device(params) -> torch.device:
+    return params["embed"]["tok"].device
+
+
+def params_to(params, device):
+    """The same tree with every leaf copied to ``device``."""
+    return _map_named(lambda _, leaf: leaf.to(device), params)
+
+
+def params_from_numpy(tree, device=None):
+    """The reference's parameter tree (leaves through ``np.asarray``) as the
+    port's, with the same keys, shapes and dtypes, on ``device`` (default:
+    the CUDA device).  A bfloat16 leaf (ml_dtypes) goes through float32,
+    which holds it exactly."""
+    dev = resolve_device(device)
+
+    def conv(_, leaf):
+        a = np.asarray(leaf)
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.astype(np.float32)).to(dev, torch.bfloat16)
+        return torch.from_numpy(np.array(a)).to(dev)
+
+    return _map_named(conv, tree)
+
+
+# =============================================================== init
+
+def init_params(seed: int, cfg: ModelConfig, device=None):
+    """Random parameters from ``seed`` (a ``torch.Generator`` on ``device``,
+    default the CUDA device): the reference's distributions and layout, not
+    its bits (``jax.random`` and torch draw different numbers)."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pdt = dtype_of(cfg.param_dtype)
+    V, D = cfg.vocab_size, cfg.d_model
+    f32 = dict(generator=gen, dtype=torch.float32, device=dev)
+    params = {
+        "embed": {"tok": (torch.randn((V, D), **f32) * 0.02).to(pdt)},
+        "final_norm": norm_params(cfg, pdt, device=dev),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {"wlm": (torch.randn((D, V), **f32) / D ** 0.5).to(pdt)}
+    params["layers"] = rwkv.rwkv_params(gen, cfg, pdt, lead=(cfg.n_layers,))
+    return params
+
+
+# =============================================================== helpers
+
+def _embed(cfg, params, tokens):
+    tok = params["embed"]["tok"]
+    return tok[torch.as_tensor(tokens, device=tok.device).long()].to(
+        dtype_of(cfg.compute_dtype))
+
+
+def _logits(cfg, params, x):
+    if cfg.tie_embeddings:
+        return x @ params["embed"]["tok"].to(x.dtype).T
+    return x @ params["lm_head"]["wlm"].to(x.dtype)
+
+
+def _layer_slice(stacked, i: int):
+    return _map_named(lambda _, a: a[i], stacked)
+
+
+# =============================================================== forward
+
+def forward(cfg: ModelConfig, params, batch):
+    """Returns (logits (B, S, V), aux_loss 0).  ``batch["tokens"]``: (B, S)
+    integer tokens (inputs only); runs on the parameters' device."""
+    _check_family(cfg)
+    params = cast_params(params, cfg)
+    x = _embed(cfg, params, batch["tokens"])
+    for i in range(cfg.n_layers):
+        lp = _layer_slice(params["layers"], i)
+        t, _ = rwkv.rwkv_time_mix(cfg, lp, x)
+        x = x + t
+        c, _ = rwkv.rwkv_channel_mix(cfg, lp, x)
+        x = x + c
+    x = apply_norm(cfg, params["final_norm"], x)
+    return _logits(cfg, params, x), torch.zeros((), dtype=torch.float32, device=x.device)

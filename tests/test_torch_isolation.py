@@ -84,6 +84,16 @@ assert life["stale_fail"].shape == (2, 4)
 pop = make_population(TINY, 4)
 assert DivaProfiler(pop[0], device="cpu").timing().trcd > 0
 assert ALDRAM.install(pop[0], device="cpu").timing(55.0).trcd > 0
+from repro_torch.configs.registry import get_smoke_config
+from repro_torch.data.pipeline import make_batch
+from repro_torch.launch.serve import generate
+from repro_torch.models.model import init_params
+cfg = get_smoke_config("rwkv6-1.6b")
+prompts = make_batch(cfg, 2, 8, seed=0, step=0)
+prompts["tokens"] = prompts["tokens"][:, :-1]
+toks, _ = generate(cfg, init_params(0, cfg, device="cpu"), prompts, max_new=3,
+                   device="cpu")
+assert toks.shape == (2, 3)
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LEAKED", leaked)
@@ -180,3 +190,45 @@ def test_slice5_entry_points_raise_without_cuda_and_without_device():
                  lambda: ALDRAM.install(dimm)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+
+
+def test_slice6_entry_points_raise_without_cuda_and_without_device():
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.wkv6 import wkv6
+    assert ops.KERNELS["wkv6"] is wkv6
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.launch.serve import generate, main
+    from repro_torch.models.cache import init_cache
+    from repro_torch.models.model import init_params, params_from_numpy
+    from repro_torch.models.rwkv6 import rwkv_init_state
+    cfg = get_smoke_config("rwkv6-1.6b")
+    params = init_params(0, cfg, device="cpu")
+    prompts = {"tokens": np.zeros((1, 4), np.int32)}
+    for call in (lambda: init_params(0, cfg),
+                 lambda: init_cache(cfg, 1),
+                 lambda: rwkv_init_state(cfg, 1),
+                 lambda: params_from_numpy({"w": np.zeros(2)}),
+                 lambda: generate(cfg, params, prompts),
+                 lambda: main(["--smoke"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+@pytest.mark.parametrize("device", ["cpu", torch.device("cpu"), "meta"])
+def test_resolve_device_passes_other_devices_through(device):
+    from repro_torch.device import resolve_device
+    assert resolve_device(device) == torch.device(device)
+
+
+@pytest.mark.parametrize("device", [None, "cuda", "cuda:0"])
+def test_resolve_device_gives_an_indexed_cuda_device_or_raises(device):
+    from repro_torch.device import resolve_device
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            resolve_device(device)
+        return
+    dev = resolve_device(device)
+    assert dev.type == "cuda" and dev.index is not None
+    assert dev == torch.zeros(1, device=device or "cuda").device

@@ -10,7 +10,10 @@ Tolerance: ``fail_prob`` and ``fail_prob_op`` atol 1e-6, the reference's
 kernel-against-oracle bound (the kernels perform the plain versions' float32
 operations in their order); ``rc_transient`` ``v_probe``/``v_cell`` atol
 1e-6 and ``sense_t`` on the same Euler step, ``inf`` where the plain version
-has ``inf``; ``fail_prob_op`` with both channels off must
+has ``inf``; ``wkv6`` rtol = atol = 3e-4 for float32 inputs and 2e-3 for
+float16, the reference's kernel-against-scan bounds (the kernel sums over
+the head in another order than the plain version's einsum; the final
+state is held to the same bound); ``fail_prob_op`` with both channels off must
 equal ``fail_prob`` bit for bit; the SECDED, shuffle, bank_sched and
 bit_signature kernels are integer work and must equal their plain versions
 exactly."""
@@ -28,6 +31,7 @@ from repro_torch.kernels.rc_transient import rc_transient, rc_transient_ref
 from repro_torch.kernels.secded import (encode_checks, encode_checks_ref,
                                         syndrome, syndrome_ref)
 from repro_torch.kernels.shuffle import _perm_tensor, apply_shuffle, apply_shuffle_ref
+from repro_torch.kernels.wkv6 import wkv6, wkv6_ref
 from repro_torch.memsim import sim as memsim
 from repro_torch.memsys.codec import interleave_permutation
 
@@ -395,3 +399,78 @@ def test_error_summary_and_discovery_on_the_card_equal_the_cpu(cuda):
     for f in ("labels", "ext_rows", "ext_to_int", "vuln_rows", "canonical",
               "confidence"):
         assert np.array_equal(getattr(disc, f), getattr(disc_cpu, f)), f
+
+
+# ------------------------------------------------ wkv6 and the RWKV-6 serving path
+
+WKV6_TOL = {torch.float32: 3e-4, torch.float16: 2e-3}
+
+
+def _wkv6_inputs(B, S, H, dh, dev, dtype=torch.float32, seed=0):
+    rng = np.random.default_rng(seed)
+    r, k, v, w = (torch.as_tensor(rng.normal(0, 0.5, (B, S, H, dh)), dtype=dtype,
+                                  device=dev) for _ in range(4))
+    u = torch.as_tensor(rng.normal(0, 0.1, (H, dh)), dtype=torch.float32, device=dev)
+    return r, k, v, w, u
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,dh", [(1, 64, 1, 8), (2, 96, 2, 16), (3, 130, 4, 32),
+                                      (2, 64, 2, 64), (8, 1, 32, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_wkv6_kernel_matches_plain_version(cuda, B, S, H, dh, dtype, with_state):
+    args = _wkv6_inputs(B, S, H, dh, cuda, dtype, seed=S + dh)
+    s0 = None
+    if with_state:
+        gen = torch.Generator(device=cuda).manual_seed(dh)
+        s0 = torch.randn((B, H, dh, dh), generator=gen, device=cuda)
+    before = wkv6.launches
+    y, s = wkv6(*args, init_state=s0)
+    yr, sr = wkv6_ref(*args, init_state=s0)
+    torch.cuda.synchronize()
+    assert wkv6.launches == before + 1
+    assert y.dtype == s.dtype == torch.float32
+    tol = WKV6_TOL[dtype]
+    torch.testing.assert_close(y, yr, rtol=tol, atol=tol)
+    torch.testing.assert_close(s, sr, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_wkv6_rejects_what_the_kernel_does_not_take(cuda):
+    r, k, v, w, u = _wkv6_inputs(1, 4, 2, 12, cuda)
+    with pytest.raises(ValueError, match="dh in"):
+        wkv6(r, k, v, w, u)
+    r, k, v, w, u = _wkv6_inputs(1, 4, 2, 8, cuda)
+    with pytest.raises(ValueError, match="one device"):
+        wkv6(r, k, v, w, u.cpu())
+    before = wkv6.launches
+    y, s = wkv6(r[:, :0], k[:, :0], v[:, :0], w[:, :0], u)
+    assert y.shape == (1, 0, 2, 8) and not bool(s.any())
+    assert wkv6.launches == before
+    # a strided view is made contiguous by the wrapper
+    y, _ = wkv6(r[:, ::2], k[:, ::2], v[:, ::2], w[:, ::2], u)
+    yr, _ = wkv6_ref(r[:, ::2], k[:, ::2], v[:, ::2], w[:, ::2], u)
+    torch.testing.assert_close(y, yr, rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.cuda
+def test_rwkv6_serving_on_the_card_equals_the_cpu(cuda):
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import cache, model
+    cfg = get_smoke_config("rwkv6-1.6b")
+    cpu_params = model.init_params(0, cfg, device="cpu")
+    card_params = model.params_to(cpu_params, cuda)
+    batch = make_batch(cfg, 2, 16, seed=1, step=0)
+    batch["tokens"] = batch["tokens"][:, :-1]
+    before = wkv6.launches
+    got, _ = generate(cfg, card_params, batch, max_new=5, device=cuda)
+    assert wkv6.launches == before + cfg.n_layers * 5
+    want, _ = generate(cfg, cpu_params, batch, max_new=5, device="cpu")
+    assert torch.equal(got.cpu(), want)
+    toks = torch.as_tensor(batch["tokens"])
+    lg, _ = cache.prefill(cfg, card_params, {"tokens": toks.to(cuda)})
+    lc, _ = cache.prefill(cfg, cpu_params, {"tokens": toks})
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)

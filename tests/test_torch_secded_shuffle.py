@@ -134,4 +134,5 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     assert ops.launch_counts() == {"fail_prob": 0, "secded_encode": 0,
                                    "secded_syndrome": 0, "diva_shuffle": 0,
                                    "bank_sched": 0, "fail_prob_op": 0,
-                                   "bit_signature": 0, "rc_transient": 0}
+                                   "bit_signature": 0, "rc_transient": 0,
+                                   "wkv6": 0}
