@@ -8,9 +8,13 @@ of 512x512 mats, 16 mats and 8 subarrays — it
   1. prints the card (nvidia-smi name and power limit) and builds every CUDA
      kernel from ``src/repro_torch/kernels/csrc`` (one nvcc per source,
      started together);
-  2. holds each kernel against its plain PyTorch version on the card at the
-     main path's shapes, a ragged shape and ``open_bitline=False``
-     (max |kernel - plain| <= 1e-6), and times both;
+  2. holds the ``fail_prob`` kernel against its plain PyTorch version on the
+     card bit for bit (``torch.equal``) at the main path's shape, with
+     ``open_bitline=False``, at a ragged shape and at shapes on the edges of
+     the kernel's tiling (R not a multiple of 32 rows, C in {5, 7, 96,
+     1000}, D = 1, M = 1); checks the kernel's fast divisions against IEEE
+     division on every float32 operand of their ranges for the population's
+     divisors; times kernel and plain version;
   3. characterizes the population (``row_error_lambda``, tRP at 7.5 ns; one
      kernel launch per subarray and pattern) and holds the first 4 DIMMs
      against the port run on the CPU (rtol 1e-5: the card sums in another
@@ -46,12 +50,12 @@ of 512x512 mats, 16 mats and 8 subarrays — it
      ``speedup_summary`` at 1/2/4/8 cores (4 ``bank_sched`` launches) — and
      holds the integer totals of base + 8 whole-DIMM and base + 4 per-bank
      tables, and the in-order grid, against the port run on the CPU;
- 10. holds the ``fail_prob_op`` kernel against its plain version for all four
-     (voltage, retention) flag pairs at (96, 16, 512, 512) on the Fig 7
-     operating point's coefficients, a ragged shape and
-     ``open_bitline=False`` (max |kernel - plain| <= 1e-6), and with both
-     flags off against the ``fail_prob`` kernel (``torch.equal``); times
-     kernel and plain version with both flags on;
+ 10. holds the ``fail_prob_op`` kernel against its plain version bit for bit
+     (``torch.equal``) for all four (voltage, retention) flag pairs at (96,
+     16, 512, 512) on the Fig 7 operating point's coefficients, at a ragged
+     shape, at phase 2's tiling-edge shapes and with ``open_bitline=False``,
+     and with both flags off against the ``fail_prob`` kernel; times kernel
+     and plain version with both flags on;
  11. holds the ``bit_signature`` kernel against its plain version
      (``torch.equal``) at the blind-discovery shape (768, 512), at nbits 1
      and 12 and N in {1, 100,003}; times kernel, plain version and the
@@ -90,8 +94,12 @@ of 512x512 mats, 16 mats and 8 subarrays — it
      the reference's kernel-against-scan bounds) at the rwkv6-1.6b prefill
      shape (8, 512, 32, 64) from a zero and from a nonzero state, the decode
      shape (8, 1, 32, 64) from a nonzero state, the reference's sweep shapes
-     (1,64,1,8), (2,96,2,16), (3,130,4,32), (2,64,2,64), and float16 inputs;
-     times kernel and plain version at both serving shapes;
+     (1,64,1,8), (2,96,2,16), (3,130,4,32), (2,64,2,64), float16 inputs,
+     sequence lengths around the kernel's 12-step chunk (11, 12, 13, 25) and
+     the serving path's dtypes (``k``/``v`` bfloat16, ``r``/``wlog``
+     float32); times kernel and plain version at both serving shapes, and at
+     the decode shape also the kernel alone (200 launches queued back to back
+     between one pair of CUDA events) and the wrapper's host time per call;
  19. RWKV-6 serving at full width: ``rwkv6-1.6b`` (24 layers, d_model 2048,
      vocab 65536, bfloat16 compute) with random parameters from a seed,
      ``generate`` of 8 prompts of 512 tokens (``make_batch``) and 32 new
@@ -159,7 +167,7 @@ from repro_torch.kernels.bank_sched import memsim_walk, memsim_walk_ref  # noqa:
 from repro_torch.kernels.bit_signature import (  # noqa: E402
     bit_signature, bit_signature_ref)
 from repro_torch.kernels.fail_prob import (  # noqa: E402
-    fail_prob, fail_prob_op, fail_prob_op_ref, fail_prob_ref)
+    division_check, fail_prob, fail_prob_op, fail_prob_op_ref, fail_prob_ref)
 from repro_torch.kernels.rc_transient import (  # noqa: E402
     rc_transient, rc_transient_ref)
 from repro_torch.kernels.secded import (  # noqa: E402
@@ -182,7 +190,18 @@ LAMBDA_RTOL = 1e-5
 # H100 SXM (NVIDIA's data sheet): HBM3 rate, fp32 rate outside the tensor
 # cores; int32 rate: 64 int32 lanes per SM per clock x 132 SMs x 1.98 GHz
 PEAK_BYTES_PER_S, PEAK_FP32_FLOPS, PEAK_INT32_OPS = 3.35e12, 67e12, 16.7e12
-FAIL_PROB_FLOPS_PER_CELL = 61   # counted from csrc/fail_prob.cu (exp = 1 op)
+# fp32 operations fail_prob needs per cell, whatever the kernel does: the
+# terms of t that depend only on the row, the column or the mat are paid per
+# row, column or mat, so a cell costs its 3 adds of t and the two-channel
+# mixture, 54 (each channel 25: the subtraction, 2 divisions, |x|, the
+# reciprocal's product, sum and division, 9 for the polynomial, x*x, the
+# negation, exp (one op), its product, 1 - ..., the sign's select and
+# product, 1 + ..., 0.5*...; then t + outlier_ns and the two weighted terms)
+FAIL_PROB_FLOPS_PER_CELL = 57
+# shapes at the edges of the kernel's tiling (32-row tiles, 4 x 128 columns
+# a block): (D, M, R, C, open_bitline)
+FP_EDGES = ((1, 1, 33, 5, True), (1, 2, 70, 96, False), (2, 1, 40, 1000, True),
+            (2, 3, 31, 1000, False), (1, 1, 65, 7, True))
 # DIVA Shuffling path (Fig 17) and codec
 N_ACCESSES = 2000                 # accesses per DIMM, profiled population
 PROB_RTOL, PROB_ATOL = 1e-5, 1e-7
@@ -204,9 +223,11 @@ PAPER_SPEEDUP = {1: 0.092, 2: 0.147, 4: 0.137, 8: 0.138}   # Sec 6.3, Fig 19
 # activation window on: per queued candidate (21 + 5 for tRRD/tFAW + 2 for the
 # bus) and per step (the winner's reductions, the state update, output, refill)
 BANK_SCHED_CANDIDATE_OPS, BANK_SCHED_STEP_OPS = 28, 48
-# operating points: fp32 operations counted from csrc/fail_prob.cu that the
-# voltage shift and the retention mixture add to fail_prob's per cell
-OP_VOLTAGE_FLOPS, OP_RETENTION_FLOPS = 1, 67
+# operating points: fp32 operations the voltage shift (t + shift) and the
+# retention channel add to fail_prob's per cell: the slowness's 3 adds,
+# margin = ret_base - ret_k*slow (2), its negation, the mixture (54) and the
+# add to p
+OP_VOLTAGE_FLOPS, OP_RETENTION_FLOPS = 1, 61
 OP_FLAGS = ((False, False), (True, False), (False, True), (True, True))
 OP_PARAM, OP_T, OP_TEMP, OP_REFRESH, OP_VDD = "tras", 25.0, 85.0, 256.0, 1.20
 OP_CHUNK, OP_CPU_DIMMS, OP_CPU_CHUNK = 40, 8, 5
@@ -243,6 +264,10 @@ ARCH = "rwkv6-1.6b"
 WKV_PREFILL, WKV_DECODE = (8, 512, 32, 64), (8, 1, 32, 64)
 WKV_SWEEP = ((1, 64, 1, 8), (2, 96, 2, 16), (3, 130, 4, 32), (2, 64, 2, 64))
 WKV_TOL = {torch.float32: 3e-4, torch.float16: 2e-3}
+# sequence lengths around the kernel's chunk of 12 steps (kT, csrc/wkv6.cu)
+WKV_CHUNK = 12
+WKV_AROUND_CHUNK = (WKV_CHUNK - 1, WKV_CHUNK, WKV_CHUNK + 1, 2 * WKV_CHUNK + 1)
+WKV_DECODE_RUN = 200   # decode-shape launches timed back to back
 # fp32 operations the recurrence needs per (b, h, t), whatever the kernel
 # does: 5 per (i, j) (r.S: a product and a sum; w*S + k*v: two products and
 # a sum) and 8 per i, because the u term is rank one, v_j * sum_i r_i u_i k_i
@@ -283,19 +308,31 @@ def cuda_ms(fn, reps: int, warm_up: bool = True) -> float:
     return statistics.median(times)
 
 
-def max_abs_err(row_src, d_mat, coeffs, cols, open_bitline=True) -> float:
-    k = fail_prob(row_src, d_mat, coeffs, cols=cols, open_bitline=open_bitline)
-    r = fail_prob_ref(row_src, d_mat, coeffs, cols=cols,
-                      open_bitline=open_bitline)
+def grid_exact(kernel_fn, plain_fn, row_src, d_mat, coeffs, **kw) -> float:
+    """A fail_prob or fail_prob_op grid against its plain version on the same
+    inputs: finite and equal bit for bit, or raise.  Returns max |kernel -
+    plain| (0.0)."""
+    k = kernel_fn(row_src, d_mat, coeffs, **kw)
+    r = plain_fn(row_src, d_mat, coeffs, **kw)
     torch.cuda.synchronize()
-    if k.shape != r.shape or not torch.isfinite(k).all():
-        raise AssertionError(f"kernel output {tuple(k.shape)} not finite or "
-                             f"not of shape {tuple(r.shape)}")
-    err = float((k - r).abs().max())
-    if err > KERNEL_ATOL:
-        raise AssertionError(f"fail_prob differs from fail_prob_ref by {err} "
-                             f"at {tuple(k.shape)}, open_bitline={open_bitline}")
-    return err
+    if k.shape != r.shape or not torch.isfinite(k).all() or not torch.equal(k, r):
+        raise AssertionError(
+            f"{kernel_fn.__name__} differs from its plain version at "
+            f"{tuple(k.shape)} ({kw}): max |diff| "
+            f"{float((k - r).abs().max()) if k.shape == r.shape else None}")
+    return float((k - r).abs().max())
+
+
+def edge_inputs(D, M, R, coeffs, d_mat, seed):
+    """Seeded row sources (D, R) in [0, R), the first D coefficient rows with
+    the t terms jittered, and the first M mat delays, on the card."""
+    rng = np.random.default_rng(seed)
+    dev = coeffs.device
+    rows = torch.as_tensor(rng.integers(0, R, (D, R)), dtype=torch.int32, device=dev)
+    cf = coeffs[:D].clone()
+    cf[:, :6] += torch.as_tensor(rng.normal(0, 0.05, (D, 6)), dtype=torch.float32,
+                                 device=dev)
+    return rows, d_mat[:M].contiguous(), cf
 
 
 def bits(rows: int, width: int, dev, seed: int) -> torch.Tensor:
@@ -659,24 +696,19 @@ def op_kernel_vs_plain(batch) -> dict:
     errs = {}
 
     def check(rs, dm, cf, cols, open_bitline, voltage, retention):
-        kw = dict(cols=cols, open_bitline=open_bitline, voltage=voltage,
-                  retention=retention)
-        k, r = fail_prob_op(rs, dm, cf, **kw), fail_prob_op_ref(rs, dm, cf, **kw)
-        torch.cuda.synchronize()
-        if k.shape != r.shape or not torch.isfinite(k).all():
-            raise AssertionError(f"fail_prob_op output {tuple(k.shape)} not "
-                                 f"finite or not of shape {tuple(r.shape)}")
-        err = float((k - r).abs().max())
-        if err > KERNEL_ATOL:
-            raise AssertionError(f"fail_prob_op differs from its plain version "
-                                 f"by {err} ({kw}, {tuple(k.shape)})")
-        return err
+        return grid_exact(fail_prob_op, fail_prob_op_ref, rs, dm, cf, cols=cols,
+                          open_bitline=open_bitline, voltage=voltage,
+                          retention=retention)
 
     for voltage, retention in OP_FLAGS:
         key = f"voltage={voltage},retention={retention}"
         errs[key] = check(row_src, d_mat, coeffs, C, True, voltage, retention)
         errs[key + ",ragged"] = check(rag_rows, d_mat[:5], rag_cf, 96, True,
                                       voltage, retention)
+        for i, (De, Me, Re, Ce, ob) in enumerate(FP_EDGES):
+            rs, dm, cf = edge_inputs(De, Me, Re, coeffs, d_mat, seed=20 + i)
+            errs[key + f",{De}x{Me}x{Re}x{Ce}" + ("" if ob else "_closed")] = check(
+                rs, dm, cf, Ce, ob, voltage, retention)
     errs["closed_bitline"] = check(row_src, d_mat, coeffs, C, False, True, True)
     off = fail_prob_op(row_src, d_mat, coeffs, cols=C)
     if not torch.equal(off, fail_prob(row_src, d_mat,
@@ -699,7 +731,8 @@ def op_kernel_vs_plain(batch) -> dict:
     emit("kernel_vs_plain", kernel="fail_prob_op",
          shape=[batch.n_dimms, g.mats_x, g.rows_per_mat, C],
          max_abs_err_by_case=errs, ragged_shape=[3, 5, 100, 96],
-         flags_off_equal_fail_prob=True, atol=KERNEL_ATOL,
+         edge_shapes=[list(e) for e in FP_EDGES], equal="torch.equal",
+         flags_off_equal_fail_prob=True,
          timed_flags=dict(voltage=True, retention=True), bytes=n_bytes,
          flops=n_ops, **fields)
     return fields
@@ -1221,6 +1254,31 @@ def wkv_work(shape, with_state: bool) -> tuple[int, int]:
     return n_bytes, B * H * S * (WKV_FLOPS_PER_IJ * dh * dh + WKV_FLOPS_PER_I * dh)
 
 
+def serving_dtypes(args):
+    """r, k, v, wlog, u as the serving path passes them: k and v in bfloat16,
+    r, wlog and u in float32."""
+    r, k, v, w, u = args
+    return r, k.bfloat16(), v.bfloat16(), w, u
+
+
+def decode_run(fn, n: int) -> tuple[float, float]:
+    """``n`` calls of ``fn`` queued behind a sleeping kernel, so that the
+    card runs their launches back to back: (device ms per launch over one
+    pair of CUDA events around the n launches, host us per call)."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(4e7))   # ~20 ms of the card's clock: longer than the enqueue
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    h0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host_us = (time.perf_counter() - h0) / n * 1e6
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n, host_us
+
+
 def wkv_kernel_vs_plain(dev) -> dict:
     """Phase 18: ``wkv6`` against its plain version; returns its
     ``kernels``-line fields (at the prefill shape)."""
@@ -1239,10 +1297,23 @@ def wkv_kernel_vs_plain(dev) -> dict:
                                        None, label)
     cases["prefill_float16"] = wkv_compare(
         wkv_inputs(WKV_PREFILL, dev, torch.float16, seed=5), None, "prefill f16")
+    for S in WKV_AROUND_CHUNK:
+        for dh in (8, 64):
+            shape = (2, S, 3, dh)
+            label = f"S{S}_dh{dh}_init_state"
+            cases[label] = wkv_compare(wkv_inputs(shape, dev, seed=100 + S),
+                                       wkv_state(shape, dev, seed=200 + S), label)
+    # the serving path's dtypes, held to the plain version on the same tensors
+    pre_mix, dec_mix = serving_dtypes(pre), serving_dtypes(dec)
+    cases["prefill_serving_dtypes"] = wkv_compare(pre_mix, pre_s0, "prefill, serving dtypes")
+    cases["decode_serving_dtypes"] = wkv_compare(dec_mix, dec_s0, "decode, serving dtypes")
     ms = cuda_ms(lambda: wkv6(*pre), 20)
     plain_ms = cuda_ms(lambda: wkv6_ref(*pre), 5)
+    mix_ms = cuda_ms(lambda: wkv6(*pre_mix, init_state=pre_s0), 20)
     dec_ms = cuda_ms(lambda: wkv6(*dec, init_state=dec_s0), 20)
     dec_plain_ms = cuda_ms(lambda: wkv6_ref(*dec, init_state=dec_s0), 5)
+    dec_run_ms, dec_host_us = decode_run(lambda: wkv6(*dec_mix, init_state=dec_s0),
+                                         WKV_DECODE_RUN)
     n_bytes, n_ops = wkv_work(WKV_PREFILL, with_state=False)
     dec_bytes, dec_ops = wkv_work(WKV_DECODE, with_state=True)
     bw, flops = PEAK_BYTES_PER_S, PEAK_FP32_FLOPS
@@ -1253,8 +1324,10 @@ def wkv_kernel_vs_plain(dev) -> dict:
          max_abs_err_by_case=cases,
          bound={"float32": WKV_TOL[torch.float32],
                 "float16": WKV_TOL[torch.float16]},
-         bytes=n_bytes, flops=n_ops, decode_shape=list(WKV_DECODE),
-         decode_ms=dec_ms, decode_plain_ms=dec_plain_ms,
+         bytes=n_bytes, flops=n_ops, serving_dtypes_ms=mix_ms,
+         decode_shape=list(WKV_DECODE), decode_ms=dec_ms,
+         decode_kernel_ms_per_launch=dec_run_ms, decode_launches_timed=WKV_DECODE_RUN,
+         decode_wrapper_host_us_per_call=dec_host_us, decode_plain_ms=dec_plain_ms,
          decode_bytes_ms=dec_bytes / bw * 1e3, decode_ops_ms=dec_ops / flops * 1e3,
          library="none (no single PyTorch call computes the recurrence)",
          **fields)
@@ -1445,8 +1518,9 @@ def main() -> int:
     row_src = batch.row_src[:, 0].contiguous()
     d_mat = torch.as_tensor(_geom_consts(g)[1], device=dev)
     C = g.cols_per_mat
-    err_main = max_abs_err(row_src, d_mat, coeffs, C)
-    err_closed = max_abs_err(row_src, d_mat, coeffs, C, open_bitline=False)
+    errs = {"main": grid_exact(fail_prob, fail_prob_ref, row_src, d_mat, coeffs, cols=C),
+            "closed_bitline": grid_exact(fail_prob, fail_prob_ref, row_src, d_mat,
+                                         coeffs, cols=C, open_bitline=False)}
     rng = np.random.default_rng(0)
     rag_rows = torch.as_tensor(rng.integers(0, 100, (3, 100)), dtype=torch.int32,
                                device=dev)
@@ -1454,7 +1528,24 @@ def main() -> int:
         np.array([3.9, 2.1, 0.4, 0.8, 0.4, 7.5, 0.15, 3e-6, 3.5], np.float32)
         + (rng.normal(0, 0.05, (3, 9)) * (np.arange(9) < 6)).astype(np.float32),
         device=dev)
-    err_ragged = max_abs_err(rag_rows, d_mat[:5], rag_cf, 96)
+    errs["ragged"] = grid_exact(fail_prob, fail_prob_ref, rag_rows, d_mat[:5], rag_cf,
+                                cols=96)
+    for i, (De, Me, Re, Ce, ob) in enumerate(FP_EDGES):
+        rs, dm, cf = edge_inputs(De, Me, Re, coeffs, d_mat, seed=10 + i)
+        errs[f"{De}x{Me}x{Re}x{Ce}" + ("" if ob else "_closed")] = grid_exact(
+            fail_prob, fail_prob_ref, rs, dm, cf, cols=Ce, open_bitline=ob)
+    # the kernel's divisions by sigma, sqrt 2 and 1 + p|x| against IEEE
+    # division on every operand of the ranges where it takes them, for the
+    # population's divisors (csrc/fail_prob.cu)
+    divisors = torch.cat([batch.sigma, batch.ret_sigma]).float().clamp_min(1e-6).unique()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    div_bad = division_check(divisors)
+    div_s = time.perf_counter() - t0
+    if any(div_bad):
+        raise AssertionError(f"fast divisions differ from IEEE division on "
+                             f"{div_bad} operands (x / sigma, z / sqrt 2, 1 / d)")
+    emit("division_check", divisors=len(divisors), mismatches=div_bad, seconds=div_s)
     kernel_ms = cuda_ms(lambda: fail_prob(row_src, d_mat, coeffs, cols=C), 20)
     plain_ms = cuda_ms(lambda: fail_prob_ref(row_src, d_mat, coeffs, cols=C), 5)
     D, M, R = batch.n_dimms, g.mats_x, g.rows_per_mat
@@ -1465,9 +1556,9 @@ def main() -> int:
     bytes_ms, ops_ms = n_bytes / bw * 1e3, cells * FAIL_PROB_FLOPS_PER_CELL / flops * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     emit("kernel_vs_plain", kernel="fail_prob", shape=[D, M, R, C],
-         max_abs_err=err_main, max_abs_err_closed_bitline=err_closed,
-         max_abs_err_ragged=err_ragged, ragged_shape=[3, 5, 100, 96],
-         atol=KERNEL_ATOL, kernel_ms=kernel_ms, plain_ms=plain_ms,
+         max_abs_err_by_case=errs, ragged_shape=[3, 5, 100, 96],
+         edge_shapes=[list(e) for e in FP_EDGES], equal="torch.equal",
+         kernel_ms=kernel_ms, plain_ms=plain_ms,
          bound_ms=bound_ms, bytes_ms=bytes_ms, ops_ms=ops_ms,
          bytes=n_bytes, flops=cells * FAIL_PROB_FLOPS_PER_CELL,
          peak_bytes_per_s=bw, peak_fp32_flops=flops,
@@ -1558,7 +1649,7 @@ def main() -> int:
     rows = [dict(name="fail_prob",
                  source="src/repro_torch/kernels/csrc/fail_prob.cu",
                  replaces="src/repro/kernels/fail_prob.py:114",
-                 max_abs_err=max(err_main, err_closed, err_ragged),
+                 max_abs_err=max(errs.values()),
                  ms=kernel_ms, plain_ms=plain_ms, bytes_ms=bytes_ms,
                  ops_ms=ops_ms, library_ms=None)]
     for name, source, replaces in (

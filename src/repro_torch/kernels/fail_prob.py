@@ -19,6 +19,7 @@ count kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -106,11 +107,24 @@ def _check(row_src, d_mat, coeffs, cols: int, n_coeffs: int):
         raise ValueError("the grid needs at least one row and one column")
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+@functools.cache
+def _entry(entry: str, argtypes: tuple):
+    """``entry`` of the fail_prob library, built if needed, with its ctypes
+    signature set once."""
+    from repro_torch.kernels.build import load
+    fn = getattr(load("fail_prob"), entry)
+    fn.restype = ctypes.c_int
+    fn.argtypes = list(argtypes)
+    return fn
+
+
 def _launch(entry: str, row_src, d_mat, coeffs, cols: int, flags: tuple):
     """Launch ``entry`` of the fail_prob library with the trailing int
     ``flags`` (open_bitline, then voltage and retention for the
     operating-point entry).  Returns the grid, or raises."""
-    from repro_torch.kernels.build import load
     rs = row_src if row_src.dim() == 2 else row_src[None]
     cf = coeffs if coeffs.dim() == 2 else coeffs[None]
     for name, t in (("row_src", rs), ("d_mat", d_mat), ("coeffs", cf)):
@@ -121,10 +135,7 @@ def _launch(entry: str, row_src, d_mat, coeffs, cols: int, flags: tuple):
     M = d_mat.shape[0]
     out = torch.empty((D, M, R, cols), dtype=torch.float32, device=rs.device)
     if out.numel():
-        fn = getattr(load("fail_prob"), entry)
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * (4 + len(flags)) \
-            + [ctypes.c_void_p]
+        fn = _entry(entry, (_P,) * 4 + (_I,) * (4 + len(flags)) + (_P,))
         with torch.cuda.device(rs.device):
             stream = torch.cuda.current_stream(rs.device).cuda_stream
             err = fn(rs.data_ptr(), d_mat.data_ptr(), cf.data_ptr(),
@@ -174,6 +185,25 @@ def fail_prob_op(row_src, d_mat, coeffs, *, cols: int,
     if out.numel():
         fail_prob_op.launches += 1
     return out
+
+
+def division_check(divisors) -> list[int]:
+    """On the card: how many float32 operands give other bits through the
+    kernel's fast divisions than through IEEE division, for each of its three
+    (x / sigma for each of ``divisors``, z / sqrt 2, 1 / d), over every
+    operand of the ranges where the kernel takes them (``csrc/fail_prob.cu``).
+    ``divisors``: a CUDA tensor of at most 256 clamped sigmas."""
+    if divisors.device.type != "cuda" or divisors.dim() != 1 or len(divisors) > 256:
+        raise ValueError("division_check takes at most 256 divisors on a CUDA device")
+    y = divisors.to(torch.float32).contiguous()
+    bad = torch.zeros(3, dtype=torch.int64, device=y.device)
+    fn = _entry("fail_prob_div_check", (_P, _I, _P, _P))
+    with torch.cuda.device(y.device):
+        err = fn(y.data_ptr(), len(y), bad.data_ptr(),
+                 torch.cuda.current_stream(y.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fail_prob_div_check failed: CUDA error {err}")
+    return bad.tolist()
 
 
 fail_prob.launches = 0

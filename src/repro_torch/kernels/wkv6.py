@@ -13,8 +13,9 @@ like the reference's sequence scan ``repro/models/rwkv6.py::wkv6_scan``, which
 the model consumes: unlike the Pallas kernel (a zero start state, ``y`` only,
 in the input dtype), it takes an optional ``init_state`` and gives back the
 final one, so that prefill can store it and a decode step (S = 1) start from
-it.  Inputs may be float32, float16 or bfloat16; both versions compute in
-float32.
+it.  Inputs may be float32, float16 or bfloat16, each its own; both versions
+compute in float32, and the kernel reads each input in its own dtype (the
+serving path passes bfloat16 ``k``/``v`` and float32 ``r``/``wlog``).
 
 Dispatch is by the tensors' device alone: CPU tensors go to ``wkv6_ref``,
 CUDA tensors to the kernel in ``csrc/wkv6.cu`` (its header states the bound
@@ -24,11 +25,13 @@ launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 DH = (8, 16, 32, 64)   # the kernel's instantiations of the head width
-_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
+# the input dtypes, with their codes in csrc/wkv6.cu
+_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 
 def wkv6_ref(r, k, v, wlog, u, init_state=None):
@@ -53,15 +56,16 @@ def _check(r, k, v, wlog, u, init_state):
     for name, t in (("r", r), ("k", k), ("v", v), ("wlog", wlog), ("u", u)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
-        if t.dtype not in _DTYPES:
+        if t.dtype not in _CODE:
             raise ValueError(f"{name} must be float32, float16 or bfloat16, "
                              f"got {t.dtype}")
     if r.dim() != 4:
         raise ValueError(f"r must be (B, S, H, dh), got {tuple(r.shape)}")
-    B, S, H, dh = r.shape
+    shape = r.shape
+    B, S, H, dh = shape
     for name, t in (("k", k), ("v", v), ("wlog", wlog)):
-        if t.shape != r.shape:
-            raise ValueError(f"{name} is {tuple(t.shape)}, r is {tuple(r.shape)}")
+        if t.shape != shape:
+            raise ValueError(f"{name} is {tuple(t.shape)}, r is {tuple(shape)}")
     if u.shape != (H, dh):
         raise ValueError(f"u must be (H, dh) = {(H, dh)}, got {tuple(u.shape)}")
     tensors = [k, v, wlog, u]
@@ -71,27 +75,51 @@ def _check(r, k, v, wlog, u, init_state):
                              f"{(B, H, dh, dh)} float32, got "
                              f"{tuple(init_state.shape)} {init_state.dtype}")
         tensors.append(init_state)
-    if any(t.device != r.device for t in tensors):
+    dev = r.device
+    if any(t.device != dev for t in tensors):
         raise ValueError("r, k, v, wlog, u and init_state must share one device")
 
 
-def _launch(r, k, v, wlog, u, init_state):
+@functools.cache
+def _entry():
+    """``wkv6_launch`` of the kernel library, built if needed, with its ctypes
+    signature set once."""
     from repro_torch.kernels.build import load
+    fn = load("wkv6").wkv6_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    return fn
+
+
+def _launch(r, k, v, wlog, u, init_state):
+    """Launch the kernel on r, k, v, wlog in their own dtypes (no cast, and no
+    copy of a contiguous tensor); returns ``(y, final state)`` or raises."""
     B, S, H, dh = r.shape
     if dh not in DH:
         raise ValueError(f"the wkv6 kernel is built for dh in {DH}, got {dh}")
-    r, k, v, wlog, u = (t.float().contiguous() for t in (r, k, v, wlog, u))
-    y = torch.empty((B, S, H, dh), dtype=torch.float32, device=r.device)
-    state = torch.empty((B, H, dh, dh), dtype=torch.float32, device=r.device)
-    s0 = None if init_state is None else init_state.contiguous()
-    fn = load("wkv6").wkv6_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    with torch.cuda.device(r.device):
-        stream = torch.cuda.current_stream(r.device).cuda_stream
-        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), wlog.data_ptr(),
-                 u.data_ptr(), 0 if s0 is None else s0.data_ptr(),
-                 y.data_ptr(), state.data_ptr(), B, S, H, dh, stream)
+    r, k, v, wlog = (t.contiguous() for t in (r, k, v, wlog))
+    u = u.float().contiguous()
+    s0 = init_state
+    if s0 is not None:
+        s0 = s0.contiguous()
+        if s0.data_ptr() % 16:   # the kernel reads a thread's state 16 bytes at a time
+            s0 = s0.clone()
+    y = r.new_empty((B, S, H, dh), dtype=torch.float32)
+    state = r.new_empty((B, H, dh, dh), dtype=torch.float32)
+    index = r.device.index
+    args = (r.data_ptr(), k.data_ptr(), v.data_ptr(), wlog.data_ptr(),
+            _CODE[r.dtype], _CODE[k.dtype], _CODE[v.dtype], _CODE[wlog.dtype],
+            u.data_ptr(), 0 if s0 is None else s0.data_ptr(), y.data_ptr(),
+            state.data_ptr(), B, S, H, dh,
+            # the current stream's handle, as torch.cuda.current_stream(index)
+            # .cuda_stream gives it, without building a Stream object
+            torch._C._cuda_getCurrentRawStream(index))
+    if index == torch.cuda.current_device():
+        err = _entry()(*args)
+    else:
+        with torch.cuda.device(index):
+            err = _entry()(*args)
     if err != 0:
         raise RuntimeError(f"wkv6 failed: CUDA error {err}")
     return y, state

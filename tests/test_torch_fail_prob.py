@@ -1,6 +1,7 @@
 """The fail_prob kernel's plain version against the reference's jnp oracle and
-its Pallas kernel (interpret mode), and the wrapper's device dispatch.  The
-CUDA kernel against the plain version is in test_torch_kernels_cuda.py.
+its Pallas kernel (interpret mode), the CUDA kernel's regrouped order of
+operations against the plain version, and the wrapper's device dispatch.  The
+CUDA kernel itself against the plain version is in test_torch_kernels_cuda.py.
 
 Tolerance: atol 1e-6, the reference's own kernel-against-oracle bound
 (tests/test_fail_prob_substrate.py), against the reference's eager jnp
@@ -9,7 +10,9 @@ is 1e-6 plus the gap between that kernel and its own oracle on the same
 inputs: jit-compiled XLA multiplies by the float32 reciprocal of a constant
 divisor and contracts FMAs, which moves t by an ulp and p by more than
 1e-6 on some of these inputs (the reference's own test meets 1e-6 at its
-one fixed coefficient row)."""
+one fixed coefficient row).  The kernel's regrouped order (per-row, per-column
+and per-mat terms of t computed once) must equal the plain version bit for
+bit (``torch.equal``): it keeps every rounding of the plain version."""
 import numpy as np
 import pytest
 
@@ -17,6 +20,12 @@ torch = pytest.importorskip("torch")
 
 from repro.kernels import ref as jref
 from repro.kernels.fail_prob import fail_prob as pallas_fail_prob
+from repro_torch.core.geometry import FULL
+from repro_torch.core.latency import (PATTERN_STRESS, div_t, fail_mixture_t,
+                                      retention_fail_mixture_t)
+from repro_torch.core.population import make_population
+from repro_torch.core.substrate import (DimmBatch, _geom_consts, _pack_coeffs,
+                                        condition_adders)
 from repro_torch.kernels.fail_prob import fail_prob, fail_prob_ref
 from repro_torch.kernels.ops import launch_counts
 
@@ -92,3 +101,65 @@ def test_wrapper_rejects_bad_inputs(bad):
         row_src = row_src[0]
     with pytest.raises((TypeError, ValueError)):
         fail_prob(row_src, d_mat, coeffs, cols=16)
+
+
+def regrouped_grid(row_src, d_mat, coeffs, cols, open_bitline=True,
+                   voltage=False, retention=False):
+    """csrc/fail_prob.cu's order of operations in float32 torch: per row
+    A[par] = cf0 + cf1*d_bl[par], P[par] = cf1*d_bl[par] and E = cf4*d_row,
+    per column W = cf2*d_wl, per (DIMM, mat) B = cf3*d_mat, then
+    t = ((A + W) + B) + E and slow = ((P + W) + B) + E.  (D, R) rows and
+    (D, 9 or 15) coefficients; returns (D, M, R, C)."""
+    D, R = row_src.shape
+    rf = row_src.to(torch.float32)
+    cf = [coeffs[:, i] for i in range(coeffs.shape[1])]
+    col = lambda x: x[:, None, None, None]                  # noqa: E731
+    d_row = div_t(rf, R - 1.0)
+    d_odd = div_t((R - 1.0) - rf, R - 1.0) if open_bitline else div_t(rf, R - 1.0)
+    par = torch.arange(cols) % 2                              # column parity
+    a = torch.stack([cf[0][:, None] + cf[1][:, None] * d_row,
+                     cf[0][:, None] + cf[1][:, None] * d_odd], -1)[:, :, par]
+    p = torch.stack([cf[1][:, None] * d_row, cf[1][:, None] * d_odd], -1)[:, :, par]
+    e = (cf[4][:, None] * d_row)[:, None, :, None]            # (D, 1, R, 1)
+    w = (cf[2][:, None] * div_t(torch.arange(cols, dtype=torch.float32),
+                                cols - 1.0))[:, None, None, :]
+    b = (cf[3][:, None] * d_mat.to(torch.float32))[:, :, None, None]
+    t = ((a[:, None] + w) + b) + e
+    if voltage:
+        t = t + col(cf[9])
+    out = fail_mixture_t(t, col(cf[5]), col(cf[6]), col(cf[7]), col(cf[8]))
+    if retention:
+        slow = ((p[:, None] + w) + b) + e
+        out = out + retention_fail_mixture_t(slow, col(cf[10]), col(cf[11]),
+                                             col(cf[12]), col(cf[13]),
+                                             col(cf[7]), col(cf[14]))
+    return out
+
+
+def full_population_inputs(n_dimms=2):
+    """Row sources, mat delays and tRP 7.5 ns coefficient rows of
+    ``make_population(FULL, n_dimms)``: chip_smoke.py's phase-2 inputs."""
+    batch = DimmBatch.from_population(make_population(FULL, n_dimms), "cpu")
+    adder = torch.as_tensor(condition_adders(batch, 85.0, 64.0))
+    coeffs = _pack_coeffs(batch, 2, 7.5, PATTERN_STRESS["0101"], adder, 0, 0)
+    return (batch, batch.row_src[:, 0].contiguous(),
+            torch.as_tensor(_geom_consts(batch.geom)[1]), coeffs)
+
+
+@pytest.mark.parametrize("open_bitline", [True, False])
+def test_kernel_order_equals_plain_at_full_geometry(open_bitline):
+    _, row_src, d_mat, coeffs = full_population_inputs()
+    got = regrouped_grid(row_src, d_mat, coeffs, 512, open_bitline)
+    want = fail_prob_ref(row_src, d_mat, coeffs, cols=512, open_bitline=open_bitline)
+    assert got.shape == (2, 16, 512, 512)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("D,M,R,C,open_bitline",
+                         [(3, 5, 100, 96, True), (1, 1, 33, 5, True),
+                          (2, 3, 31, 1000, False), (1, 2, 65, 7, True)])
+def test_kernel_order_equals_plain_at_ragged_shapes(D, M, R, C, open_bitline):
+    row_src, d_mat, coeffs = _t(*_inputs(R, M, D=D, seed=R + C))
+    got = regrouped_grid(row_src, d_mat, coeffs, C, open_bitline)
+    want = fail_prob_ref(row_src, d_mat, coeffs, cols=C, open_bitline=open_bitline)
+    assert torch.equal(got, want)

@@ -1,13 +1,16 @@
 """The fail_prob_op kernel's plain version against the reference's jnp oracle
 and its Pallas kernel (interpret mode), for every pair of channel flags and
-both bitline layouts.  The CUDA kernel against the plain version is in
-test_torch_kernels_cuda.py.
+both bitline layouts, and the CUDA kernel's regrouped order of operations
+against the plain version.  The CUDA kernel itself against the plain version
+is in test_torch_kernels_cuda.py.
 
 Tolerance: as tests/test_torch_fail_prob.py — atol 1e-6 (the reference's
 kernel-against-oracle bound) against the reference's eager jnp oracle, and
 1e-6 plus the measured gap between the Pallas kernel and that oracle on the
 same inputs against the kernel (jit-compiled XLA multiplies by the float32
-reciprocal of a constant divisor and contracts FMAs)."""
+reciprocal of a constant divisor and contracts FMAs).  The kernel's regrouped
+order (test_torch_fail_prob.regrouped_grid) must equal the plain version bit
+for bit (``torch.equal``)."""
 import numpy as np
 import pytest
 
@@ -18,7 +21,11 @@ from repro.kernels.fail_prob import fail_prob_op as pallas_fail_prob_op
 from repro_torch.kernels.fail_prob import (N_OP_COEFFS, fail_prob,
                                            fail_prob_op, fail_prob_op_ref,
                                            fail_prob_ref)
+from repro_torch.core.latency import (PATTERN_STRESS, access_vdd_shift,
+                                      retention_stress)
+from repro_torch.core.substrate import _pack_op_coeffs, condition_adders
 from repro_torch.kernels.ops import launch_counts
+from test_torch_fail_prob import full_population_inputs, regrouped_grid
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -113,3 +120,33 @@ def test_wrapper_rejects_bad_inputs(bad):
         row_src, d_mat, coeffs = (t.to("meta") for t in (row_src, d_mat, coeffs))
     with pytest.raises((TypeError, ValueError)):
         fail_prob_op(row_src, d_mat, coeffs, cols=C)
+
+
+@pytest.mark.parametrize("voltage,retention", FLAGS)
+def test_kernel_order_equals_plain_at_full_geometry(voltage, retention):
+    """chip_smoke.py's phase-10 coefficients (tRAS 25 ns, 85 C, 256 ms,
+    1.20 V) on 2 DIMMs of the FULL geometry."""
+    batch, row_src, d_mat, _ = full_population_inputs()
+    adder = torch.as_tensor(condition_adders(batch, 85.0, 256.0))
+    shift = access_vdd_shift(batch.vdd_coef.numpy(), 1.20)
+    coeffs = _pack_op_coeffs(batch, 1, 25.0, PATTERN_STRESS["0101"], adder, 0, 0,
+                             shift, retention_stress(85.0, 256.0, 1.20))
+    kw = dict(voltage=voltage, retention=retention)
+    got = regrouped_grid(row_src, d_mat, coeffs, 512, **kw)
+    want = fail_prob_op_ref(row_src, d_mat, coeffs, cols=512, **kw)
+    assert got.shape == (2, 16, 512, 512)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("voltage,retention", FLAGS)
+@pytest.mark.parametrize("D,R,C,open_bitline",
+                         [(3, 100, 96, True), (1, 33, 5, False), (2, 31, 1000, True)])
+def test_kernel_order_equals_plain_at_ragged_shapes(voltage, retention, D, R, C,
+                                                    open_bitline):
+    _, d_mat, coeffs = map(torch.as_tensor, _inputs(D=D, seed=R + C))
+    row_src = torch.as_tensor(np.random.default_rng(R).integers(0, R, (D, R)),
+                              dtype=torch.int32)
+    kw = dict(open_bitline=open_bitline, voltage=voltage, retention=retention)
+    got = regrouped_grid(row_src, d_mat, coeffs, C, **kw)
+    want = fail_prob_op_ref(row_src, d_mat, coeffs, cols=C, **kw)
+    assert torch.equal(got, want)

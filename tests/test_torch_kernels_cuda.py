@@ -6,14 +6,16 @@ GPU host without JAX:
 
     python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerance: ``fail_prob`` and ``fail_prob_op`` atol 1e-6, the reference's
-kernel-against-oracle bound (the kernels perform the plain versions' float32
-operations in their order); ``rc_transient`` ``v_probe``/``v_cell`` atol
+Tolerance: ``fail_prob`` and ``fail_prob_op`` equal their plain versions bit
+for bit (``torch.equal``: the kernels keep every rounding of the plain
+versions' float32 operations, and their fast divisions give IEEE division's
+bits, checked over every operand of their ranges); ``rc_transient`` ``v_probe``/``v_cell`` atol
 1e-6 and ``sense_t`` on the same Euler step, ``inf`` where the plain version
 has ``inf``; ``wkv6`` rtol = atol = 3e-4 for float32 inputs and 2e-3 for
 float16, the reference's kernel-against-scan bounds (the kernel sums over
 the head in another order than the plain version's einsum; the final
-state is held to the same bound); ``fail_prob_op`` with both channels off must
+state is held to the same bound), also at sequence lengths around its 12-step
+chunk and for the serving path's mix of dtypes; ``fail_prob_op`` with both channels off must
 equal ``fail_prob`` bit for bit; the SECDED, shuffle, bank_sched and
 bit_signature kernels are integer work and must equal their plain versions
 exactly."""
@@ -25,7 +27,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels.bank_sched import memsim_walk, memsim_walk_ref
 from repro_torch.kernels.bit_signature import bit_signature, bit_signature_ref
 from repro_torch.core.spice import CircuitParams
-from repro_torch.kernels.fail_prob import (fail_prob, fail_prob_op,
+from repro_torch.kernels.fail_prob import (division_check, fail_prob, fail_prob_op,
                                            fail_prob_op_ref, fail_prob_ref)
 from repro_torch.kernels.rc_transient import rc_transient, rc_transient_ref
 from repro_torch.kernels.secded import (encode_checks, encode_checks_ref,
@@ -55,10 +57,14 @@ def _inputs(D, M, R, dev, seed=3):
             torch.as_tensor((COEFFS + noise).astype(np.float32), device=dev))
 
 
+# shapes at the edges of the kernel's tiling: 32-row tiles, 4 x 128 columns
+FP_SHAPES = [(4, 16, 512, 512, True), (3, 5, 100, 96, True), (2, 3, 7, 5, False),
+             (1, 1, 33, 5, True), (2, 1, 40, 1000, True), (1, 2, 65, 7, True),
+             (2, 3, 31, 1000, False)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("D,M,R,C,open_bitline",
-                         [(4, 16, 512, 512, True), (3, 5, 100, 96, True),
-                          (2, 3, 7, 5, False)])
+@pytest.mark.parametrize("D,M,R,C,open_bitline", FP_SHAPES)
 def test_fail_prob_kernel_matches_plain_version(cuda, D, M, R, C,
                                                 open_bitline):
     row_src, d_mat, coeffs = _inputs(D, M, R, cuda)
@@ -69,10 +75,17 @@ def test_fail_prob_kernel_matches_plain_version(cuda, D, M, R, C,
     torch.cuda.synchronize()
     assert fail_prob.launches == before + 1
     assert got.shape == (D, M, R, C)
-    torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+    assert torch.equal(got, want)
     one = fail_prob(row_src[0], d_mat, coeffs[0], cols=C,
                     open_bitline=open_bitline)
-    torch.testing.assert_close(one, want[0], rtol=0, atol=ATOL)
+    assert torch.equal(one, want[0])
+
+
+@pytest.mark.cuda
+def test_fail_prob_fast_divisions_give_ieee_bits(cuda):
+    sigmas = torch.tensor([1e-6, 0.05, 0.13, 0.15, 0.25, 1.0, 3.7, 2.0 ** 30],
+                          device=cuda)
+    assert division_check(sigmas) == [0, 0, 0]
 
 
 @pytest.mark.cuda
@@ -238,9 +251,7 @@ def _op_inputs(D, M, R, dev, seed=3):
 @pytest.mark.parametrize("voltage,retention",
                          [(False, False), (True, False), (False, True),
                           (True, True)])
-@pytest.mark.parametrize("D,M,R,C,open_bitline",
-                         [(4, 16, 512, 512, True), (3, 5, 100, 96, True),
-                          (2, 3, 7, 5, False)])
+@pytest.mark.parametrize("D,M,R,C,open_bitline", FP_SHAPES)
 def test_fail_prob_op_kernel_matches_plain_version(cuda, D, M, R, C,
                                                    open_bitline, voltage,
                                                    retention):
@@ -253,9 +264,9 @@ def test_fail_prob_op_kernel_matches_plain_version(cuda, D, M, R, C,
     torch.cuda.synchronize()
     assert fail_prob_op.launches == before + 1
     assert got.shape == (D, M, R, C)
-    torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+    assert torch.equal(got, want)
     one = fail_prob_op(row_src[0], d_mat, coeffs[0], **kw)
-    torch.testing.assert_close(one, want[0], rtol=0, atol=ATOL)
+    assert torch.equal(one, want[0])
 
 
 @pytest.mark.cuda
@@ -434,6 +445,44 @@ def test_wkv6_kernel_matches_plain_version(cuda, B, S, H, dh, dtype, with_state)
     tol = WKV6_TOL[dtype]
     torch.testing.assert_close(y, yr, rtol=tol, atol=tol)
     torch.testing.assert_close(s, sr, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [11, 12, 13, 25])   # around the kernel's 12-step chunk
+@pytest.mark.parametrize("dh", [8, 16, 32, 64])
+def test_wkv6_kernel_around_its_chunk_length(cuda, S, dh):
+    args = _wkv6_inputs(2, S, 3, dh, cuda, seed=S * dh)
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    s0 = torch.randn((2, 3, dh, dh), generator=gen, device=cuda)
+    y, s = wkv6(*args, init_state=s0)
+    yr, sr = wkv6_ref(*args, init_state=s0)
+    torch.testing.assert_close(y, yr, rtol=3e-4, atol=3e-4)
+    torch.testing.assert_close(s, sr, rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,dh", [(8, 1, 32, 64), (2, 100, 4, 64), (3, 37, 2, 16)])
+def test_wkv6_kernel_reads_the_serving_dtypes(cuda, B, S, H, dh):
+    """r and wlog float32, k and v bfloat16 (the serving path's), read as they
+    are and held to the plain version on the same tensors."""
+    r, k, v, w, u = _wkv6_inputs(B, S, H, dh, cuda, seed=B + S)
+    k, v = k.bfloat16(), v.bfloat16()
+    y, s = wkv6(r, k, v, w, u)
+    yr, sr = wkv6_ref(r, k, v, w, u)
+    torch.testing.assert_close(y, yr, rtol=3e-4, atol=3e-4)
+    torch.testing.assert_close(s, sr, rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.cuda
+def test_wkv6_start_state_off_16_byte_alignment(cuda):
+    args = _wkv6_inputs(2, 5, 2, 64, cuda, seed=9)
+    flat = torch.randn(1 + 2 * 2 * 64 * 64, device=cuda)
+    s0 = flat[1:].view(2, 2, 64, 64)                  # 4 bytes past an alignment
+    assert s0.data_ptr() % 16
+    y, s = wkv6(*args, init_state=s0)
+    yr, sr = wkv6_ref(*args, init_state=s0)
+    torch.testing.assert_close(y, yr, rtol=3e-4, atol=3e-4)
+    torch.testing.assert_close(s, sr, rtol=3e-4, atol=3e-4)
 
 
 @pytest.mark.cuda
