@@ -40,16 +40,21 @@ of 512x512 mats, 16 mats and 8 subarrays — it
   8. protects a 64 MiB blob with the codec, flips 1,000 8-bit runs, recovers
      it: the data must come back exactly with every flipped bit corrected,
      and the first 1 MiB's lanes must equal the CPU port's;
-  9. the Fig 19 memory system: holds the ``bank_sched`` walk kernel against
-     its plain walk (``torch.equal`` on latency and hit in service order) on
-     base + the 96 DIVA tables x 12 workloads at n = 2,000 for four
-     configurations, and at n = 1, 5 and Q = 32; times it at n = 20,000;
-     then drives Fig 19 at n = 20,000 — FR-FCFS on the whole-DIMM tables,
+  9. the Fig 19 memory system: holds both ``bank_sched`` walk kernels (the
+     fast one the wrapper picks for memsim's traces, and the general one)
+     against the plain walk (``torch.equal`` on latency and hit in service
+     order) on base + the 96 DIVA tables x 12 workloads at n = 2,000 for four
+     configurations, and at n = 1, 5 and Q = 32, and the general one, which
+     the wrapper picks there, on a trace with a decreasing arrival and on 40
+     banks; times the fast one at n = 20,000 (ns and SM cycles a step, the
+     SM clock from nvidia-smi), in order (Q = 1) and the general one at the
+     same shape; then drives Fig 19 at n = 20,000 — FR-FCFS on the whole-DIMM tables,
      FR-FCFS on 4-bank-group tables profiled from the same 96 DIMMs, the
      in-order walker on the whole-DIMM tables, and the in-order grid behind
      ``speedup_summary`` at 1/2/4/8 cores (4 ``bank_sched`` launches) — and
      holds the integer totals of base + 8 whole-DIMM and base + 4 per-bank
-     tables, and the in-order grid, against the port run on the CPU;
+     tables, and the in-order grid, against the port run on the CPU; all 4
+     launches must take the fast kernel;
  10. holds the ``fail_prob_op`` kernel against its plain version bit for bit
      (``torch.equal``) for all four (voltage, retention) flag pairs at (96,
      16, 512, 512) on the Fig 7 operating point's coefficients, at a ragged
@@ -73,11 +78,15 @@ of 512x512 mats, 16 mats and 8 subarrays — it
      launches) and ``blind_vs_oracle``; the expectations of 4 DIMMs, every
      discovery decision on the same counts and the blind tables of 8 DIMMs
      held against the CPU port;
- 15. holds the ``rc_transient`` kernel against its plain version on the sense
-     map of one 512x512 mat (262,144 cells), at ragged N in {1, 130,
-     100,003}, with uncharged cells (``sense_t`` all ``inf``) and with
-     ``n_seg=4``, ``t_pre_ns=12``: ``v_probe``/``v_cell`` within 1e-6,
-     ``sense_t`` on the same Euler step; times kernel and plain version;
+ 15. checks the ``rc_transient`` kernel's fast divisions against IEEE
+     division on every float32 operand of their ranges, for the divisors of
+     each circuit the port launches it with (8 segments, 4, and 16 at dt
+     0.004 ns); holds the kernel against its plain version bit for bit
+     (``torch.equal``) on the sense map of one 512x512 mat (262,144 cells,
+     every warp on one shared tap), at ragged N in {1, 130, 100,003} (mixed
+     taps), with uncharged cells (``sense_t`` all ``inf``), with ``n_seg=4``,
+     ``t_pre_ns=12`` and with 16 segments; prints the cells rerun with IEEE
+     divisions and each case's tap route; times kernel and plain version;
  16. the Appendix B circuit path: ``fit_latency_coefficients``, the
      ``appB_spice`` restore run and the mat's sense map (1 ``rc_transient``
      launch), held against the CPU port (coefficients and sense times on the
@@ -163,13 +172,18 @@ from repro_torch.data.pipeline import make_batch  # noqa: E402
 from repro_torch.discovery.blind import (  # noqa: E402
     BlindDiva, blind_vs_oracle, campaign_counts)
 from repro_torch.kernels import build, ops  # noqa: E402
-from repro_torch.kernels.bank_sched import memsim_walk, memsim_walk_ref  # noqa: E402
+from repro_torch.kernels.bank_sched import (  # noqa: E402
+    ROUTES, memsim_walk, memsim_walk_ref, walk_route)
+from repro_torch.kernels.bank_sched import _launch as bank_sched_launch  # noqa: E402
 from repro_torch.kernels.bit_signature import (  # noqa: E402
     bit_signature, bit_signature_ref)
 from repro_torch.kernels.fail_prob import (  # noqa: E402
     division_check, fail_prob, fail_prob_op, fail_prob_op_ref, fail_prob_ref)
 from repro_torch.kernels.rc_transient import (  # noqa: E402
-    rc_transient, rc_transient_ref)
+    launch_divisors, rc_transient, rc_transient_ref, reset_route_counts,
+    route_counts)
+from repro_torch.kernels.rc_transient import (  # noqa: E402
+    division_check as rc_division_check)
 from repro_torch.kernels.secded import (  # noqa: E402
     encode_checks, encode_checks_ref, syndrome, syndrome_ref)
 from repro_torch.kernels.shuffle import (  # noqa: E402
@@ -244,6 +258,10 @@ BLIND_CPU_EXPECTED_DIMMS, BLIND_CPU_TABLE_DIMMS = 4, 8
 MAT = 512
 RC_RAGGED = (1, 130, 100003)
 RC_CPU_STRIDE = 64                # every 64th map cell re-derived on the CPU
+# every circuit the port's paths and tests launch rc_transient with (16
+# segments need the shorter step for the Euler stability bound)
+RC_CIRCUITS = {"n_seg8": CircuitParams(), "n_seg4": CircuitParams(n_seg=4),
+               "n_seg16_dt004": CircuitParams(n_seg=16, dt_ns=0.004)}
 # repro.core.spice on a CPU (fit_latency_coefficients and the appB_spice
 # restore run; tests/test_torch_spice.py holds the CPU port to repro's)
 APPB_REFERENCE = dict(t0_ns=7.63, k_bl_ns=1.044, k_wl_ns=0.180,
@@ -537,18 +555,34 @@ def codec_blob(dev) -> dict:
     return launches
 
 
-def walk_vs_plain(traces, tc, cfg, what: str) -> float:
-    """The bank_sched kernel against the plain walk: equal, or raise.
-    Returns max |kernel - plain| over latency and hit (0.0)."""
+def walk_vs_plain(traces, tc, cfg, what: str, routes=ROUTES) -> float:
+    """The bank_sched kernels against the plain walk: the wrapper's choice and
+    each of ``routes`` forced, equal, or raise.  Returns max |kernel - plain|
+    over latency and hit (0.0)."""
     kw = memsim._walk_kw(cfg)
-    got, want = memsim_walk(traces, tc, **kw), memsim_walk_ref(traces, tc, **kw)
+    want = memsim_walk_ref(traces, tc, **kw)
+    runs = {"wrapper": memsim_walk(traces, tc, **kw)}
+    args = {k: v for k, v in kw.items() if k != "queue"}
+    for route in routes:
+        runs[route] = bank_sched_launch(traces, tc, min(cfg.queue, traces.shape[1]),
+                                        route=route, **args)
     torch.cuda.synchronize()
-    for g, w, name in zip(got, want, ("latency", "hit")):
-        if g.shape != w.shape or not torch.equal(g, w):
-            raise AssertionError(f"bank_sched {name} differs from the plain "
-                                 f"walk ({what}, {tuple(traces.shape)})")
-    return max(float((g - w).abs().max()) if g.numel() else 0.0
-               for g, w in zip(got, want))
+    err = 0.0
+    for label, got in runs.items():
+        for g, w, name in zip(got, want, ("latency", "hit")):
+            if g.shape != w.shape or not torch.equal(g, w):
+                raise AssertionError(f"bank_sched ({label}) {name} differs from "
+                                     f"the plain walk ({what}, {tuple(traces.shape)})")
+            err = max(err, float((g - w).abs().max()) if g.numel() else 0.0)
+    return err
+
+
+def sm_clock_mhz() -> float:
+    """The SM clock nvidia-smi reads now (MHz)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    return float(out.strip().splitlines()[0])
 
 
 def memsim_phase(dev, batch, diva) -> tuple[dict, dict]:
@@ -573,8 +607,32 @@ def memsim_phase(dev, batch, diva) -> tuple[dict, dict]:
                                      cfgs["default"], f"n = {n}"))
     err = max(err, walk_vs_plain(memsim._stack_traces(500, 16, 0, dev), tc,
                                  memsim.MemSimConfig(queue=32), "Q = 32"))
+    # what only the general kernel takes: a decreasing arrival, 40 banks
+    dec = memsim._stack_traces(500, 16, 0, dev).clone()
+    dec[:, 250, 3] = dec[:, 249, 3] - 7
+    tc40 = torch.as_tensor(np.stack([memsim.timing_cycles_banks(t, 40)
+                                     for t in [base, *diva[:3]]]), device=dev)
+    general_cases = {
+        "decreasing_arrival": (dec, tc, cfgs["default"]),
+        "banks_40": (memsim._stack_traces(500, 40, 0, dev), tc40,
+                     memsim.MemSimConfig(banks=40))}
+    for label, (tr, tcx, cfg) in general_cases.items():
+        if walk_route(tr, tcx.shape[1], cfg.ranks, cfg.channels) != "general":
+            raise AssertionError(f"bank_sched: {label} did not take the general "
+                                 f"kernel")
+        err = max(err, walk_vs_plain(tr, tcx, cfg, label, routes=("general",)))
     full = memsim._stack_traces(MEMSIM_N, 16, 0, dev)
+    if walk_route(full, 16, cfgs["default"].ranks,
+                  cfgs["default"].channels) != "fast":
+        raise AssertionError("bank_sched: the Fig 19 traces did not take the "
+                             "fast kernel")
     ms = cuda_ms(lambda: memsim_walk(full, tc, **kw), 20)
+    mhz = sm_clock_mhz()
+    kw1 = memsim._walk_kw(cfgs["inorder"])
+    inorder_ms = cuda_ms(lambda: memsim_walk(full, tc, **kw1), 20)
+    general_ms = cuda_ms(lambda: bank_sched_launch(
+        full, tc, 8, route="general",
+        **{k: v for k, v in kw.items() if k != "queue"}), 5)
     T, W = tc.shape[0], full.shape[0]
     Q = cfgs["default"].queue
     n_ops = T * W * MEMSIM_N * (Q * BANK_SCHED_CANDIDATE_OPS
@@ -583,10 +641,16 @@ def memsim_phase(dev, batch, diva) -> tuple[dict, dict]:
     fields = dict(ms=ms, plain_ms=plain_ms, bytes_ms=n_bytes / PEAK_BYTES_PER_S * 1e3,
                   ops_ms=n_ops / PEAK_INT32_OPS * 1e3, library_ms=None,
                   max_abs_err=err)
+    step_ns = ms * 1e6 / MEMSIM_N
     emit("kernel_vs_plain", kernel="bank_sched", grid=[T, W],
          configurations=sorted(cfgs), n=MEMSIM_PLAIN_N, ragged_n=[1, 5],
-         ragged_queue=32, equal=True, kernel_n=MEMSIM_N,
-         kernel_ms_at_plain_n=kernel_ms_plain_n, plain_n=MEMSIM_PLAIN_N,
+         ragged_queue=32, routes_checked=list(ROUTES),
+         general_only_cases=sorted(general_cases), equal=True,
+         kernel_n=MEMSIM_N, kernel_ms_at_plain_n=kernel_ms_plain_n,
+         plain_n=MEMSIM_PLAIN_N, ns_per_step=step_ns, sm_clock_mhz=mhz,
+         cycles_per_step=step_ns * mhz * 1e-3, inorder_ms=inorder_ms,
+         inorder_ns_per_step=inorder_ms * 1e6 / MEMSIM_N,
+         general_kernel_ms=general_ms,
          bytes=n_bytes, operations=n_ops, peak_int32_ops=PEAK_INT32_OPS,
          **fields)
 
@@ -617,6 +681,9 @@ def memsim_phase(dev, batch, diva) -> tuple[dict, dict]:
              for c in PAPER_SPEEDUP}
     secs["inorder_summary"] = time.perf_counter() - t0
     launches = counted({"bank_sched": 4})
+    routes = dict(memsim_walk.route_launches)
+    if routes != {"fast": 4, "general": 0}:
+        raise AssertionError(f"the Fig 19 paths' bank_sched routes: {routes}")
 
     # ---- checks against the port on the CPU
     D = len(diva)
@@ -657,7 +724,7 @@ def memsim_phase(dev, batch, diva) -> tuple[dict, dict]:
         "mean_speedup", "median_speedup", "min_speedup", "max_speedup")}
     emit("fig19_memsim", dimms=D, workloads=W, n_requests=MEMSIM_N,
          config=dataclasses.asdict(cfgs["default"]),
-         seconds=secs, launches=launches,
+         seconds=secs, launches=launches, bank_sched_route_launches=routes,
          frfcfs_whole=stat(whole), frfcfs_per_bank=stat(per_bank),
          inorder_whole=stat(inorder),
          per_bank_dimms_with_bank_slack=slack,
@@ -1018,21 +1085,44 @@ def rc_compare(got: dict, want: dict, dt: float, what: str) -> dict:
 
 
 def rc_kernel_vs_plain(dev) -> dict:
-    """Phase 15: ``rc_transient`` against its plain version; returns its
-    ``kernels``-line fields."""
+    """Phase 15: ``rc_transient`` against its plain version, bit for bit, with
+    the kernel's fast divisions checked for every ``CircuitParams`` the port
+    launches with; returns its ``kernels``-line fields."""
     cp = CircuitParams()
+    # the fast divisions against IEEE division on every operand of their
+    # ranges, for the divisors of each circuit the paths and tests launch
+    t0 = time.perf_counter()
+    checks = {}
+    for label, c in RC_CIRCUITS.items():
+        bad = rc_division_check(torch.as_tensor(launch_divisors(c), device=dev))
+        checks[label] = dict(divisors=launch_divisors(c).tolist(), mismatches=bad)
+        if any(bad):
+            raise AssertionError(f"rc_transient's fast divisions differ from IEEE "
+                                 f"division on {bad} operands ({label})")
+    div_s = time.perf_counter() - t0
+    emit("division_check", kernel="rc_transient", circuits=checks, seconds=div_s)
+
     rf, cf = mat_cells(dev)
     cases = {}
 
     def check(label, r, c, **kw):
-        got, want = rc_transient(r, c, **kw), rc_transient_ref(r, c, **kw)
+        reset_route_counts(dev)
+        got = rc_transient(r, c, **kw)
+        routes = route_counts(dev)
+        want = rc_transient_ref(r, c, **kw)
         torch.cuda.synchronize()
         cases[label] = rc_compare(got, want, kw.get("cp", cp).dt_ns, label)
+        if not all(torch.equal(got[k], want[k]) for k in want):
+            raise AssertionError(f"rc_transient ({label}) differs from its plain "
+                                 f"version bit for bit")
+        cases[label].update(equal=True, routes=routes)
         return got
 
     mat = check("mat", rf, cf)
     if not torch.isfinite(mat["sense_t"]).all():
         raise AssertionError("a charged cell of the mat never sensed")
+    if cases["mat"]["routes"]["mixed_tap_warps"]:
+        raise AssertionError("a warp of the mat did not share a tap")
     for n in RC_RAGGED:
         rng = np.random.default_rng(n)
         r, c = (torch.as_tensor(rng.uniform(0, 1, n), dtype=torch.float32,
@@ -1041,10 +1131,21 @@ def rc_kernel_vs_plain(dev) -> dict:
     check("uncharged", rf, cf, cell_charged=False)
     if cases["uncharged"]["inf_cells"] != rf.numel():
         raise AssertionError("an uncharged cell reached v_ready")
-    check("n_seg4_tpre12", rf, cf, cp=CircuitParams(n_seg=4), t_pre_ns=12.0)
+    check("n_seg4_tpre12", rf, cf, cp=RC_CIRCUITS["n_seg4"], t_pre_ns=12.0)
+    rng = np.random.default_rng(16)
+    r, c = (torch.as_tensor(rng.uniform(0, 1, 4096), dtype=torch.float32, device=dev)
+            for _ in range(2))
+    check("n_seg16_dt004", r, c, cp=RC_CIRCUITS["n_seg16_dt004"], t_total_ns=20.0)
+    ieee_cells = sum(c["routes"]["ieee_cells"] for c in cases.values())
     ms = cuda_ms(lambda: rc_transient(rf, cf), 20)
+    mhz = sm_clock_mhz()
     plain_ms = cuda_ms(lambda: rc_transient_ref(rf, cf), 3)
     N = rf.numel()
+    # a warp's issue slots a step: each of the card's 4 x SMs schedulers
+    # issues at most one instruction a cycle, shared by its resident warps
+    steps = n_steps(cp, 45.0)
+    schedulers = 4 * torch.cuda.get_device_properties(0).multi_processor_count
+    warp_step_cycles = ms * 1e-3 * mhz * 1e6 * schedulers / (-(-N // 32) * steps)
     n_bytes = N * (2 + 3) * 4
     n_ops = N * rc_flops_per_cell(cp)
     err = max(max(c["max_abs_err"]["v_probe"], c["max_abs_err"]["v_cell"])
@@ -1054,9 +1155,11 @@ def rc_kernel_vs_plain(dev) -> dict:
                   ops_ms=n_ops / PEAK_FP32_FLOPS * 1e3, library_ms=None,
                   max_abs_err=err)
     emit("kernel_vs_plain", kernel="rc_transient", shape=[N],
-         mat=[MAT, MAT], n_seg=cp.n_seg, steps=n_steps(cp, 45.0),
-         ragged=list(RC_RAGGED), cases=cases, atol=KERNEL_ATOL,
+         mat=[MAT, MAT], n_seg=cp.n_seg, steps=steps,
+         ragged=list(RC_RAGGED), cases=cases, equal="torch.equal",
          all_maxima_zero=all(c["all_zero"] for c in cases.values()),
+         ieee_rerun_cells=ieee_cells, division_check_s=div_s,
+         sm_clock_mhz=mhz, scheduler_cycles_per_warp_step=warp_step_cycles,
          bytes=n_bytes, flops=n_ops, flops_per_cell=n_ops // N,
          library="none (no single PyTorch call computes it)", **fields)
     return fields

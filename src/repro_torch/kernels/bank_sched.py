@@ -23,9 +23,15 @@ takes either the reference's unbatched shapes or a leading walk axis.
 
 Dispatch is by the tensors' device alone: CPU tensors go to the plain walk
 ``memsim_walk_ref`` (a Python loop over the steps, the walks as a batch
-axis), CUDA tensors to the kernel in ``csrc/bank_sched.cu`` (one warp walks
-one trace, the whole loop inside the kernel); anything else raises.
-``memsim_walk.launches`` counts kernel launches.
+axis), CUDA tensors to a kernel in ``csrc/bank_sched.cu`` (a warp, or half
+of one, walks one trace, the whole loop inside the kernel); anything else
+raises.  Two
+hand-written kernels share the work, chosen by ``walk_route`` from the
+inputs: the fast one (bank state in registers, one reduction a step) where
+banks, ranks and channels are at most 32, arrivals never decrease along a
+trace and n < 2^25 — every trace ``memsim`` builds — and the general one
+otherwise.  ``memsim_walk.launches`` counts kernel launches, and
+``memsim_walk.route_launches`` each route's.
 """
 from __future__ import annotations
 
@@ -40,6 +46,10 @@ OUTPUTS = ("key", "hit", "t_act", "t_col", "done", "new_pre", "latency")
 MAX_QUEUE = 32
 #: shared-memory bank state of one walk: 11 ints a bank, 1 a channel, 5 a rank
 MAX_BANKS, MAX_RANKS, MAX_CHANNELS = 512, 64, 64
+#: the fast kernel keeps a bank, rank and channel per lane, and packs a trace
+#: index into 25 bits
+FAST_MAX_UNITS, FAST_MAX_N = 32, 2 ** 25
+ROUTES = ("fast", "general")
 
 _BIG = 2 ** 30
 _NEG = -(10 ** 6)
@@ -199,9 +209,25 @@ def memsim_walk_ref(traces, tc, *, queue: int, ranks: int, channels: int,
     return out[..., 0], out[..., 1]
 
 
-def _launch(traces, tc, Q, *, ranks, channels, tbl, trrd, tfaw, use_bus,
+def walk_route(traces, banks: int, ranks: int, channels: int) -> str:
+    """The kernel that walks ``traces`` (W, n, 4): "fast" where banks, ranks
+    and channels are at most 32, n < 2^25 and the arrivals (the last field)
+    never decrease along a trace — then the lexicographic winner is the
+    queued request of max key and then min trace index — else "general".
+    Reads the arrivals only when the sizes allow the fast kernel."""
+    if max(banks, ranks, channels) > FAST_MAX_UNITS or traces.shape[1] >= FAST_MAX_N:
+        return "general"
+    arrive = traces[..., 3]
+    return "fast" if bool((arrive[:, 1:] >= arrive[:, :-1]).all()) else "general"
+
+
+def _launch(traces, tc, Q, *, route, ranks, channels, tbl, trrd, tfaw, use_bus,
             use_act):
+    """Launch the ``route`` kernel ("fast" or "general"; ``walk_route``
+    chooses) on CUDA tensors; returns (latency, hit)."""
     from repro_torch.kernels.build import load
+    if route not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
     if not (traces.is_contiguous() and tc.is_contiguous()):
         raise ValueError("bank_sched: traces and timing rows must be "
                          "contiguous")
@@ -210,7 +236,9 @@ def _launch(traces, tc, Q, *, ranks, channels, tbl, trrd, tfaw, use_bus,
     lat = torch.empty((T, W, n), dtype=torch.int32, device=traces.device)
     hit = torch.empty_like(lat)
     if lat.numel():
-        fn = load("bank_sched").bank_sched_walk_launch
+        entry = "bank_sched_fast_launch" if route == "fast" \
+            else "bank_sched_walk_launch"
+        fn = getattr(load("bank_sched"), entry)
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 \
             + [ctypes.c_void_p]
@@ -220,8 +248,9 @@ def _launch(traces, tc, Q, *, ranks, channels, tbl, trrd, tfaw, use_bus,
                      hit.data_ptr(), T, W, n, Q, B, ranks, channels, tbl,
                      trrd, tfaw, int(use_bus), int(use_act), stream)
         if err != 0:
-            raise RuntimeError(f"bank_sched failed: CUDA error {err}")
+            raise RuntimeError(f"bank_sched ({route}) failed: CUDA error {err}")
         memsim_walk.launches += 1
+        memsim_walk.route_launches[route] += 1
     return lat, hit
 
 
@@ -262,7 +291,9 @@ def memsim_walk(traces, tc, *, queue: int, ranks: int, channels: int,
               use_bus=use_bus, use_act=use_act)
     if traces.device.type == "cpu":
         return memsim_walk_ref(traces, tc, queue=queue, **kw)
-    return _launch(traces, tc, min(queue, traces.shape[1]), **kw)
+    return _launch(traces, tc, min(queue, traces.shape[1]),
+                   route=walk_route(traces, B, ranks, channels), **kw)
 
 
 memsim_walk.launches = 0
+memsim_walk.route_launches = dict.fromkeys(ROUTES, 0)

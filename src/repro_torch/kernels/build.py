@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C entry point and compiles on its own
 into ``_build/lib<name>-<digest>.so`` (the directory is git-ignored; the
-digest covers the source and the flags, so an edit rebuilds).  Nothing here
+digest covers the source, the ``csrc/`` headers it includes and the flags, so
+an edit to any of them rebuilds).  Nothing here
 runs at import time: this module imports on hosts without ``nvcc``, and only
 a launch on a CUDA tensor builds.
 
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -35,10 +37,29 @@ def _nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every ``csrc/`` header it includes with quotes,
+    directly or through another header, in the order first reached."""
+    todo, seen = [CSRC / f"{name}.cu"], []
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [CSRC / inc.decode() for inc in _INCLUDE.findall(path.read_bytes())
+                 if (CSRC / inc.decode()).exists()]
+    return seen
+
+
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256()
+    for path in _sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_all(names=None) -> dict[str, str]:

@@ -1,4 +1,5 @@
-// FR-FCFS memory-system walk (Fig 19) for Hopper: one warp walks one trace.
+// FR-FCFS memory-system walk (Fig 19) for Hopper: a warp, or half of one,
+// walks one trace.
 //
 // Replaces the Pallas TPU kernel repro/kernels/bank_sched.py::bank_sched
 // (:138, pl.pallas_call at :172) and the walk around it,
@@ -18,20 +19,49 @@
 // sets the time: the work of a whole Fig 19 grid is ~6e9 int32 operations
 // (under 0.4 ms at the card's int32 rate) and ~190 MB of output.
 // The parallelism is the walks: one per (table, workload), 97 x 12 = 1,164 on
-// the whole-DIMM grid, one warp each.  Lane q < Q owns queue slot q; the bank
-// state (open row, ready, precharge-ready, the (B, 6) cycle rows, bank->rank
-// and bank->channel maps, bus per channel, last ACT and tFAW ring per rank)
-// sits in shared memory, under 1 KB at B = 16.  The winner comes from three
-// warp reductions (__reduce_max_sync / __reduce_min_sync) and a ballot; the
-// trace index is unique per slot, so the order is total.  What the design
-// does about the chain: the refill request does not depend on the winner
-// (it is always request Q + step), so each lane holds requests a chunk of 32
-// ahead in registers, loaded two chunks before use, and no device-memory load
-// sits on the per-step chain; per-request (latency, hit) outputs are buffered
-// one per lane and written 32 at a time, coalesced.  All arithmetic is int32,
-// as in the reference: the kernel equals the plain walk bit for bit.
+// the whole-DIMM grid, about 9 an SM.  So the design shortens the latency of
+// one step, and the instructions the walks sharing an SM issue.  Two kernels:
+//
+// fast_walk_kernel, for B, R, C <= 32, arrivals nondecreasing along each
+// trace and n < 2^25 (the wrapper checks; memsim's traces always qualify):
+// - One reduction picks the winner.  With arrivals nondecreasing in the
+//   trace index, the slot of max key and then min index also has the min
+//   arrival among those, so the lexicographic winner is the max of one
+//   packed word: key (2 bits), 2^25 - 1 - index (25 bits), lane (5 bits).
+//   Invalid slots pack to 0 and never win (a valid slot exists at every
+//   step).  In-order walks (Q = 1) have their own instantiation with no
+//   reduction: slot 0 always wins.
+// - The bank state lives in registers: lane b holds bank b's open row,
+//   ready and precharge-ready times and its cycle row, lane r rank r's last
+//   ACT and sorted tFAW ring, lane c channel c's bus time.  A slot reads its
+//   bank's state with independent __shfl_syncs; the winner's (bank, rank,
+//   channel, hit), row, done, new_pre, t_act, t_col and latency reach every
+//   lane in one round of shuffles, and the owning lanes update in place: no
+//   shared-memory store, __syncwarp and reload on the chain.
+// - A request's static terms (its bank's tRP/tRCD/tRAS/tWR cycles, tCL or
+//   tCWL by write, its rank and channel) are looked up once, when the chunk
+//   of 32 prefetched requests that holds it moves into shared memory; a step
+//   reads its refill, which does not depend on the winner, with two 16-byte
+//   broadcast loads.
+// - The configuration (bus, activation window, Q == 1) is a template
+//   argument: no run-time branch on it sits on the chain.
+// - Where Q, B, R and C are at most 16 (Fig 19's configurations), 16 lanes
+//   walk a trace and a warp walks two: the shuffles take width 16, each walk
+//   has its own reduction, and the warps issue half the instructions.
+//
+// walk_kernel, the general one, for what the fast one does not take (B up to
+// 512, R and C up to 64, arrivals that decrease, n >= 2^25): lane q < Q owns
+// queue slot q; the bank state sits in shared memory (under 1 KB at B = 16);
+// the winner comes from three warp reductions and a ballot.
+//
+// Both load the refill requests in chunks of 32 into registers, two chunks
+// before use, so no device-memory load sits on the per-step chain, and
+// buffer the per-request (latency, hit) outputs one per lane, written 32 at a
+// time, coalesced.  All arithmetic is int32, as in the reference: each kernel
+// equals the plain walk bit for bit.
 
 #include <cuda_runtime.h>
+#include <climits>
 #include <stdint.h>
 
 namespace {
@@ -52,6 +82,8 @@ __device__ __forceinline__ Req load_req(const int* __restrict__ tr, long long i,
   const int* p = tr + 4 * (i < n ? i : n - 1);  // the reference clamps at n - 1
   return Req{__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3)};
 }
+
+// ---- the general kernel
 
 __global__ void __launch_bounds__(32) walk_kernel(const int* __restrict__ traces,
                                                   const int* __restrict__ tc,
@@ -185,6 +217,199 @@ __global__ void __launch_bounds__(32) walk_kernel(const int* __restrict__ traces
   }
 }
 
+// ---- the fast kernel
+
+constexpr int kIdxBits = 25;                       // trace indices below 2^25
+constexpr unsigned kIdxTop = (1u << kIdxBits) - 1u;
+
+struct FastCfg {
+  int n, Q, B, R, C, tbl, trrd, tfaw;
+};
+
+// A queued request with its bank's static terms.  meta packs bank (bits 0-4),
+// rank (5-9), channel (10-14) and write (15).
+struct __align__(16) Slot {
+  int meta, row, arrive, trp, trcd, tras, twr, tcol;
+};
+
+// Slot of request r, whose bank's cycle row, rank and channel lane r.bank of
+// the walk's kWidth lanes holds; every lane of the warp calls it.
+template <int kWidth>
+__device__ __forceinline__ Slot promote(const Req& r, const int (&b_tc)[6], int b_rank,
+                                        int b_chan) {
+  const int b = r.bank;
+  const bool is_wr = r.write == 1;
+  const int rank = __shfl_sync(kFull, b_rank, b, kWidth);
+  const int chan = __shfl_sync(kFull, b_chan, b, kWidth);
+  const int tcl = __shfl_sync(kFull, b_tc[4], b, kWidth);
+  const int tcwl = __shfl_sync(kFull, b_tc[5], b, kWidth);
+  return Slot{b | (rank << 5) | (chan << 10) | (static_cast<int>(is_wr) << 15), r.row,
+              r.arrive, __shfl_sync(kFull, b_tc[2], b, kWidth),
+              __shfl_sync(kFull, b_tc[0], b, kWidth), __shfl_sync(kFull, b_tc[1], b, kWidth),
+              __shfl_sync(kFull, b_tc[3], b, kWidth), is_wr ? tcwl : tcl};
+}
+
+// kWidth lanes walk one trace: 32 (one walk a warp) or 16 (two walks a warp,
+// for Q, B, R, C <= 16, which halves the instructions the walks issue).
+template <int kWidth, bool kBus, bool kAct, bool kOne>
+__global__ void __launch_bounds__(32) fast_walk_kernel(const int* __restrict__ traces,
+                                                       const int* __restrict__ tc,
+                                                       int* __restrict__ lat_out,
+                                                       int* __restrict__ hit_out, int W,
+                                                       int walks, FastCfg cfg) {
+  constexpr int kWalks = 32 / kWidth;   // walks a warp
+  const int n = cfg.n, Q = cfg.Q;
+  const int lane = threadIdx.x % kWidth;
+  const int half = kWalks == 1 ? 0 : static_cast<int>(threadIdx.x) / kWidth;
+  const long long walk0 = static_cast<long long>(blockIdx.x) * kWalks + half;
+  const bool live = walk0 < walks;          // a walk past the last repeats it, storing nothing
+  const long long walk = live ? walk0 : walks - 1;   // t * W + w
+  const int t = static_cast<int>(walk / W), w = static_cast<int>(walk % W);
+  const int* tr = traces + 4LL * w * n;
+  const int* tct = tc + 6LL * t * cfg.B;
+
+  // lane b: bank b; lane r: rank r; lane c: channel c (lanes past B, R, C
+  // hold state nobody reads)
+  int b_tc[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) b_tc[k] = lane < cfg.B ? __ldg(tct + 6 * lane + k) : 0;
+  const int b_rank = (lane / cfg.C) % cfg.R, b_chan = lane % cfg.C;
+  int b_open = -1, b_ready = 0, b_pre = kNeg;
+  int r_last = kNeg, f0 = kNeg, f1 = kNeg, f2 = kNeg, f3 = kNeg;  // ring, ascending
+  int c_bus = 0;
+
+  // this lane's queue slot
+  Slot q = promote<kWidth>(load_req(tr, lane < Q ? lane : 0, n), b_tc, b_rank, b_chan);
+  int q_idx = lane;
+  bool q_valid = lane < Q;
+  // refill requests Q + step, a chunk of kWidth Slots in shared memory (two
+  // buffers), the next chunk prefetched in registers: lane j loads request
+  // Q + kWidth * k + j of chunk k
+  __shared__ Slot s_chunk[kWalks][2][kWidth];
+  s_chunk[half][0][lane] = promote<kWidth>(load_req(tr, static_cast<long long>(Q) + lane, n),
+                                           b_tc, b_rank, b_chan);
+  __syncwarp();
+  Req nxt = load_req(tr, static_cast<long long>(Q) + kWidth + lane, n);
+  int t_now = 0, buf_lat = 0, buf_hit = 0;
+  const long long out0 = walk * n;
+
+  for (int s = 0; s < n; ++s) {
+    const int j = s % kWidth, chunk = s / kWidth;
+    // the refill (request Q + s) does not depend on the winner: two 16-byte
+    // broadcast loads
+    const Slot refill = s_chunk[half][chunk & 1][j];
+
+    // ---- candidate_times for this lane's slot
+    const int bank = q.meta & 31;
+    const int orow = __shfl_sync(kFull, b_open, bank, kWidth);
+    const int rdy = __shfl_sync(kFull, b_ready, bank, kWidth);
+    const int prer = __shfl_sync(kFull, b_pre, bank, kWidth);
+    int la = 0, fo = 0, bus = 0;
+    if (kAct) {
+      const int rank = (q.meta >> 5) & 31;
+      la = __shfl_sync(kFull, r_last, rank, kWidth);
+      fo = __shfl_sync(kFull, f0, rank, kWidth);
+    }
+    if (kBus) bus = __shfl_sync(kFull, c_bus, (q.meta >> 10) & 31, kWidth);
+    const int start = max(q.arrive, rdy);
+    const int hit = orow == q.row;
+    int t_act = max(start, prer) + q.trp;
+    if (kAct) t_act = max(t_act, max(la + cfg.trrd, fo + cfg.tfaw));
+    const int t_col = hit ? start : t_act + q.trcd;
+    const int data_av = t_col + q.tcol;
+    const int done = kBus ? max(data_av, bus) + cfg.tbl : data_av;
+    const int lat = done - q.arrive;
+    const int base_pre = hit ? prer : t_act + q.tras;
+    const int new_pre = (q.meta >> 15) ? max(base_pre, done + q.twr) : base_pre;
+
+    // ---- the winner: max key, then min trace index (= min arrive, then
+    // min index, for nondecreasing arrivals)
+    int wl = 0;
+    if (!kOne) {
+      const unsigned key = 1u + (q.arrive <= t_now) * (1u + hit);
+      const unsigned packed =
+          q_valid ? (key << 30) | ((kIdxTop - static_cast<unsigned>(q_idx)) << 5) | lane : 0u;
+      unsigned m;
+      if (kWalks == 1) {
+        m = __reduce_max_sync(kFull, packed);
+      } else {   // each walk's own maximum: one reduction a walk
+        const unsigned m0 = __reduce_max_sync(kFull, half == 0 ? packed : 0u);
+        const unsigned m1 = __reduce_max_sync(kFull, half == 1 ? packed : 0u);
+        m = half ? m1 : m0;
+      }
+      wl = static_cast<int>(m & 31u);
+    }
+    const int wm = __shfl_sync(kFull, (q.meta & 0x7fff) | (hit << 15), wl, kWidth);
+    const int wrow = __shfl_sync(kFull, q.row, wl, kWidth);
+    const int wdone = __shfl_sync(kFull, done, wl, kWidth);
+    const int wpre = __shfl_sync(kFull, new_pre, wl, kWidth);
+    const int wcol = __shfl_sync(kFull, t_col, wl, kWidth);
+    const int wlat = __shfl_sync(kFull, lat, wl, kWidth);
+    const int wact = kAct ? __shfl_sync(kFull, t_act, wl, kWidth) : 0;
+    const int whit = wm >> 15;
+
+    // ---- the owning lanes update
+    if (lane == (wm & 31)) {
+      b_open = wrow;
+      b_ready = wdone;
+      b_pre = wpre;
+    }
+    if (kBus && lane == ((wm >> 10) & 31)) c_bus = wdone;
+    if (kAct && !whit && lane == ((wm >> 5) & 31)) {
+      r_last = max(r_last, wact);
+      // drop the oldest ACT, insert t_act into the sorted ring[1..3]
+      const int v3 = max(f3, wact);
+      int y = min(f3, wact);
+      const int v2 = max(f2, y);
+      y = min(f2, y);
+      f0 = min(f1, y);
+      f1 = max(f1, y);
+      f2 = v2;
+      f3 = v3;
+    }
+    t_now = max(t_now, wcol);
+
+    // ---- outputs, one per lane, written kWidth at a time
+    if (lane == j) {
+      buf_lat = wlat;
+      buf_hit = whit;
+    }
+    if ((j == kWidth - 1 || s == n - 1) && lane <= j && live) {
+      lat_out[out0 + s - j + lane] = buf_lat;
+      hit_out[out0 + s - j + lane] = buf_hit;
+    }
+
+    // ---- refill the winner's slot with request Q + s
+    if (lane == wl) {
+      q = refill;
+      q_idx = Q + s;
+      q_valid = Q + s < n;
+    }
+    if (j == kWidth - 1) {
+      __syncwarp();   // every lane has read the buffer it overwrites
+      s_chunk[half][(chunk + 1) & 1][lane] = promote<kWidth>(nxt, b_tc, b_rank, b_chan);
+      __syncwarp();
+      nxt = load_req(tr, static_cast<long long>(Q) + s + kWidth + 1 + lane, n);
+    }
+  }
+}
+
+template <bool kBus, bool kAct>
+void launch_fast(const int* traces, const int* tc, int* lat, int* hit, int walks, int W,
+                 const FastCfg& cfg, cudaStream_t stream) {
+  const bool narrow = cfg.Q <= 16 && cfg.B <= 16 && cfg.R <= 16 && cfg.C <= 16;
+  const unsigned blocks = static_cast<unsigned>(narrow ? (walks + 1) / 2 : walks);
+#define WALK(kWidth, kOne)                                                        \
+  fast_walk_kernel<kWidth, kBus, kAct, kOne><<<blocks, 32, 0, stream>>>(traces, tc, lat, hit, \
+                                                                        W, walks, cfg)
+  if (narrow) {
+    if (cfg.Q == 1) WALK(16, true); else WALK(16, false);
+  } else {
+    if (cfg.Q == 1) WALK(32, true); else WALK(32, false);
+  }
+#undef WALK
+}
+
 }  // namespace
 
 // Plain C entry point for ctypes.  `traces` is (W, n, 4) contiguous int32
@@ -205,5 +430,27 @@ extern "C" int bank_sched_walk_launch(const int* traces, const int* tc, int* lat
   const size_t smem = static_cast<size_t>(11 * B + C + 5 * R) * sizeof(int);
   walk_kernel<<<static_cast<unsigned>(T) * static_cast<unsigned>(W), 32, smem,
                 static_cast<cudaStream_t>(stream)>>>(traces, tc, lat, hit, W, cfg);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The fast kernel's entry point: the same arguments, for B, R, C <= 32,
+// arrivals nondecreasing along each trace and n < 2^25 (the wrapper checks
+// the arrivals; here the sizes).
+extern "C" int bank_sched_fast_launch(const int* traces, const int* tc, int* lat, int* hit,
+                                      int T, int W, int n, int Q, int B, int R, int C, int tbl,
+                                      int trrd, int tfaw, int use_bus, int use_act,
+                                      void* stream) {
+  if (T <= 0 || W <= 0 || n <= 0) return 0;
+  if (Q < 1 || Q > 32 || Q > n || B < 1 || R < 1 || C < 1 || B > 32 || R > 32 || C > 32 ||
+      n > static_cast<int>(kIdxTop))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (static_cast<long long>(T) * W > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const FastCfg cfg{n, Q, B, R, C, tbl, trrd, tfaw};
+  const int walks = T * W;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (use_bus && use_act) launch_fast<true, true>(traces, tc, lat, hit, walks, W, cfg, s);
+  else if (use_bus) launch_fast<true, false>(traces, tc, lat, hit, walks, W, cfg, s);
+  else if (use_act) launch_fast<false, true>(traces, tc, lat, hit, walks, W, cfg, s);
+  else launch_fast<false, false>(traces, tc, lat, hit, walks, W, cfg, s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -25,9 +25,12 @@ KERNELS = {"fail_prob": fail_prob, "secded_encode": encode_checks,
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch count to 0, and its routes' where it has
+    more than one kernel (``bank_sched``)."""
     for fn in KERNELS.values():
         fn.launches = 0
+        if hasattr(fn, "route_launches"):
+            fn.route_launches = dict.fromkeys(fn.route_launches, 0)
 
 
 def launch_counts() -> dict[str, int]:

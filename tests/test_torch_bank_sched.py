@@ -19,8 +19,9 @@ from repro.kernels.bank_sched import candidate_times as ref_candidate_times
 from repro.memsim import reference as ref_reference
 from repro.memsim import sim as ref_sim
 from repro_torch.kernels import ops
-from repro_torch.kernels.bank_sched import (OUTPUTS, candidate_times,
-                                            memsim_walk, memsim_walk_ref)
+from repro_torch.kernels.bank_sched import (OUTPUTS, _launch, candidate_times,
+                                            memsim_walk, memsim_walk_ref,
+                                            walk_route)
 from repro_torch.memsim import reference, sim
 
 Q, B, R, C = 8, 16, 2, 2
@@ -170,3 +171,64 @@ def test_walk_wrapper_rejects_what_the_kernel_does_not_take(bad, err, match):
         traces, tc = traces.to("meta"), tc.to("meta")
     with pytest.raises(err, match=match):
         memsim_walk(traces, tc, **kw)
+
+
+# ------------------------------------------------------------ route choice
+
+@pytest.mark.parametrize("banks", [4, 16, 32])
+@pytest.mark.parametrize("n", [1, 5, 300])
+def test_memsim_traces_take_the_fast_route(banks, n):
+    traces = sim._stack_traces(n, banks, 0, "cpu")
+    assert walk_route(traces, banks, 2, 2) == "fast"
+    assert walk_route(traces, banks, 32, 32) == "fast"
+
+
+@pytest.mark.parametrize("seed", [0, 1, 7])
+@pytest.mark.parametrize("banks", [8, 16, 40])
+def test_every_stacked_trace_has_strictly_increasing_arrivals(banks, seed):
+    """The fast kernel's precondition holds for every trace memsim builds:
+    arrivals are a cumsum of gaps >= 1."""
+    arrive = sim._stack_traces(2000, banks, seed, "cpu")[..., 3]
+    assert arrive.shape == (len(sim.WORKLOADS), 2000)
+    assert bool((arrive[:, 1:] > arrive[:, :-1]).all())
+    assert bool((arrive[:, 0] >= 1).all())
+
+
+def test_a_decreasing_arrival_takes_the_general_route():
+    traces = sim._stack_traces(300, 16, 0, "cpu").clone()
+    tied = traces.clone()
+    tied[:, 1::2, 3] = tied[:, 0::2, 3]
+    assert walk_route(tied, 16, 2, 2) == "fast"      # ties keep the order
+    traces[3, 150, 3] = traces[3, 149, 3] - 1
+    assert walk_route(traces, 16, 2, 2) == "general"
+
+
+@pytest.mark.parametrize("banks,ranks,channels",
+                         [(33, 2, 2), (16, 33, 2), (16, 2, 33), (512, 64, 64)])
+def test_more_than_32_banks_ranks_or_channels_take_the_general_route(
+        banks, ranks, channels):
+    traces = sim._stack_traces(50, min(banks, 16), 0, "cpu")
+    assert walk_route(traces, banks, ranks, channels) == "general"
+
+
+def test_n_of_2_to_the_25_takes_the_general_route_on_the_shape_alone():
+    """The trace index packs into 25 bits; the route is decided from the
+    shape, without reading the (here stride-0, unmaterialised) arrivals."""
+    big = torch.zeros((1, 1, 4), dtype=torch.int32).expand(1, 2 ** 25, 4)
+    assert walk_route(big, 16, 2, 2) == "general"
+    assert walk_route(big[:, :2 ** 25 - 1], 16, 2, 2) == "fast"
+
+
+def test_reset_launches_zeroes_each_route_count():
+    memsim_walk.route_launches["fast"] += 3
+    memsim_walk.route_launches["general"] += 1
+    ops.reset_launches()
+    assert memsim_walk.route_launches == {"fast": 0, "general": 0}
+    assert ops.launch_counts()["bank_sched"] == 0
+
+
+def test_launch_rejects_an_unknown_route():
+    traces, tc, kw = _walk_args()
+    kw.pop("queue")
+    with pytest.raises(ValueError, match="route"):
+        _launch(traces, tc, 8, route="scan", **kw)

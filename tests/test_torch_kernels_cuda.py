@@ -9,9 +9,9 @@ GPU host without JAX:
 Tolerance: ``fail_prob`` and ``fail_prob_op`` equal their plain versions bit
 for bit (``torch.equal``: the kernels keep every rounding of the plain
 versions' float32 operations, and their fast divisions give IEEE division's
-bits, checked over every operand of their ranges); ``rc_transient`` ``v_probe``/``v_cell`` atol
-1e-6 and ``sense_t`` on the same Euler step, ``inf`` where the plain version
-has ``inf``; ``wkv6`` rtol = atol = 3e-4 for float32 inputs and 2e-3 for
+bits, checked over every operand of their ranges); so does ``rc_transient``,
+on its shared-tap and mixed-tap routes and for cells rerun with IEEE
+divisions; ``wkv6`` rtol = atol = 3e-4 for float32 inputs and 2e-3 for
 float16, the reference's kernel-against-scan bounds (the kernel sums over
 the head in another order than the plain version's einsum; the final
 state is held to the same bound), also at sequence lengths around its 12-step
@@ -24,12 +24,17 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels.bank_sched import memsim_walk, memsim_walk_ref
+from repro_torch.kernels import ops
+from repro_torch.kernels.bank_sched import _launch as bank_sched_launch
+from repro_torch.kernels.bank_sched import memsim_walk, memsim_walk_ref, walk_route
 from repro_torch.kernels.bit_signature import bit_signature, bit_signature_ref
 from repro_torch.core.spice import CircuitParams
 from repro_torch.kernels.fail_prob import (division_check, fail_prob, fail_prob_op,
                                            fail_prob_op_ref, fail_prob_ref)
-from repro_torch.kernels.rc_transient import rc_transient, rc_transient_ref
+from repro_torch.kernels.rc_transient import division_check as rc_division_check
+from repro_torch.kernels.rc_transient import (fast_route, launch_divisors, rc_transient,
+                                              rc_transient_ref, reset_route_counts,
+                                              route_counts)
 from repro_torch.kernels.secded import (encode_checks, encode_checks_ref,
                                         syndrome, syndrome_ref)
 from repro_torch.kernels.shuffle import _perm_tensor, apply_shuffle, apply_shuffle_ref
@@ -37,7 +42,6 @@ from repro_torch.kernels.wkv6 import wkv6, wkv6_ref
 from repro_torch.memsim import sim as memsim
 from repro_torch.memsys.codec import interleave_permutation
 
-ATOL = 1e-6
 COEFFS = np.array([3.9, 2.1, 0.4, 0.8, 0.4, 7.5, 0.15, 3e-6, 3.5], np.float32)
 
 
@@ -175,6 +179,9 @@ MEMSIM_CONFIGS = {
     "queue4_no_bus": memsim.MemSimConfig(queue=4, bus=False),
     "inorder": memsim.inorder_config(16),
     "queue32": memsim.MemSimConfig(queue=32),
+    # the fast kernel walks two traces a warp up to 16 slots, one above
+    "queue16": memsim.MemSimConfig(queue=16),
+    "queue17": memsim.MemSimConfig(queue=17),
 }
 MEMSIM_TABLES = [memsim.STANDARD, np.array([8.75, 23.75, 8.75, 6.25]),
                  np.array([[8.75, 23.75, 8.75, 6.25], [10.0, 27.5, 10.0, 7.5],
@@ -192,15 +199,80 @@ def _walk_inputs(cfg, n, dev):
 @pytest.mark.parametrize("n", [1, 5, 33, 700])
 @pytest.mark.parametrize("name", sorted(MEMSIM_CONFIGS))
 def test_bank_sched_kernel_equals_plain_walk(cuda, name, n):
+    """The fast kernel, which the wrapper takes for memsim's traces."""
     traces, tc, kw = _walk_inputs(MEMSIM_CONFIGS[name], n, cuda)
     before = memsim_walk.launches
+    fast = memsim_walk.route_launches["fast"]
     lat, hit = memsim_walk(traces, tc, **kw)
     want_lat, want_hit = memsim_walk_ref(traces, tc, **kw)
     torch.cuda.synchronize()
     assert memsim_walk.launches == before + 1
+    assert memsim_walk.route_launches["fast"] == fast + 1
     assert lat.shape == (len(MEMSIM_TABLES), len(memsim.WORKLOADS), n)
     assert lat.dtype == hit.dtype == torch.int32
     assert torch.equal(lat, want_lat) and torch.equal(hit, want_hit)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tables,workloads", [(1, 1), (1, 3), (13, 1)])
+@pytest.mark.parametrize("name", ["default", "inorder", "queue32"])
+def test_bank_sched_fast_kernel_on_odd_walk_counts(cuda, name, tables, workloads):
+    """An odd number of walks leaves half of the last warp without a walk
+    of its own: it must store nothing."""
+    traces, tc, kw = _walk_inputs(MEMSIM_CONFIGS[name], 100, cuda)
+    tr = traces[:workloads].contiguous()
+    tcx = tc.repeat(5, 1, 1)[:tables].contiguous()
+    got = memsim_walk(tr, tcx, **kw)
+    want = memsim_walk_ref(tr, tcx, **kw)
+    torch.cuda.synchronize()
+    assert got[0].shape[:2] == (tables, workloads)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def _general_case(case, dev):
+    """Inputs of a case for the general kernel: one decreasing arrival, tied
+    arrivals (pairs of requests arriving together), or 40 banks."""
+    cfg = memsim.MemSimConfig(banks=40 if case == "banks_40" else 16)
+    traces, tc, kw = _walk_inputs(cfg, 400, dev)
+    traces = traces.clone()
+    if case == "decreasing":
+        traces[:, 200, 3] = traces[:, 199, 3] - 7
+    if case == "tied":
+        traces[:, 1::2, 3] = traces[:, 0::2, 3]
+    return traces, tc, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["decreasing", "tied", "banks_40"])
+def test_bank_sched_general_kernel_equals_plain_walk(cuda, case):
+    traces, tc, kw = _general_case(case, cuda)
+    want = memsim_walk_ref(traces, tc, **kw)
+    route = walk_route(traces, tc.shape[1], kw["ranks"], kw["channels"])
+    assert route == ("fast" if case == "tied" else "general")
+    before = dict(memsim_walk.route_launches)
+    got = memsim_walk(traces, tc, **kw)
+    assert memsim_walk.route_launches[route] == before[route] + 1
+    forced = bank_sched_launch(traces, tc, kw["queue"], route="general",
+                               **{k: v for k, v in kw.items() if k != "queue"})
+    torch.cuda.synchronize()
+    for run in (got, forced):
+        assert all(torch.equal(g, w) for g, w in zip(run, want))
+
+
+@pytest.mark.cuda
+def test_bank_sched_route_launch_counters(cuda):
+    """Each route's counter moves with its own launches only, and their sum
+    is the wrapper's count."""
+    ops.reset_launches()
+    traces, tc, kw = _walk_inputs(MEMSIM_CONFIGS["default"], 64, cuda)
+    memsim_walk(traces, tc, **kw)
+    dec, dec_tc, dec_kw = _general_case("decreasing", cuda)
+    memsim_walk(dec, dec_tc, **dec_kw)
+    memsim_walk(traces, tc, **kw)
+    assert memsim_walk.route_launches == {"fast": 2, "general": 1}
+    assert ops.launch_counts()["bank_sched"] == 3
+    ops.reset_launches()
+    assert memsim_walk.route_launches == {"fast": 0, "general": 0}
 
 
 @pytest.mark.cuda
@@ -357,15 +429,66 @@ def test_rc_transient_kernel_matches_plain_version(cuda, case, n):
     want = rc_transient_ref(rf, cf, **kw)
     torch.cuda.synchronize()
     assert rc_transient.launches == before + 1
-    for k in ("v_probe", "v_cell"):
-        torch.testing.assert_close(got[k], want[k], rtol=0, atol=ATOL)
-    ts, ref_ts = got["sense_t"], want["sense_t"]
-    assert torch.equal(torch.isinf(ts), torch.isinf(ref_ts))
-    fin = torch.isfinite(ref_ts)
-    dt = kw["cp"].dt_ns
-    assert bool(((ts[fin] - ref_ts[fin]).abs() < dt / 2).all())
+    for k in ("v_probe", "v_cell", "sense_t"):
+        assert torch.equal(got[k], want[k]), k
     if kw.get("cell_charged", True) is False:
-        assert bool(torch.isinf(ts).all())
+        assert bool(torch.isinf(got["sense_t"]).all())
+
+
+def _mat(rows, cols, dev):
+    """A sense map's cells in row-major order: 32 consecutive cells share a
+    row, and so a tap."""
+    r = (np.arange(rows) / (rows - 1)).astype(np.float32)
+    c = (np.arange(cols) / (cols - 1)).astype(np.float32)
+    return (torch.as_tensor(np.repeat(r, cols), device=dev),
+            torch.as_tensor(np.tile(c, rows), device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(RC_CASES))
+def test_rc_transient_shared_tap_route_matches_plain_version(cuda, case):
+    """The mat layout: every warp runs the loop instantiated for its tap."""
+    rf, cf = _mat(64, 64, cuda)
+    kw = RC_CASES[case]
+    reset_route_counts(cuda)
+    got = rc_transient(rf, cf, **kw)
+    routes = route_counts(cuda)
+    want = rc_transient_ref(rf, cf, **kw)
+    assert routes == {"ieee_cells": 0, "shared_tap_warps": 64 * 64 // 32,
+                      "mixed_tap_warps": 0}
+    for k in ("v_probe", "v_cell", "sense_t"):
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.cuda
+def test_rc_transient_reruns_cells_outside_the_fast_ranges(cuda):
+    """A cell whose wordline delay could drive the sigmoid's 1 + e past the
+    fast reciprocal's range, and a whole launch whose voltages leave the
+    fast divisions' bound, run with IEEE divisions and are counted."""
+    rf, cf = _cells(256, cuda, seed=3)
+    cf[::5] = 5.0                       # t_wl = 12.5 ns > 32 x 0.3 ns
+    reset_route_counts(cuda)
+    got = rc_transient(rf, cf)
+    assert route_counts(cuda)["ieee_cells"] == len(cf[::5])
+    want = rc_transient_ref(rf, cf)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    cp = CircuitParams(vdd=2.0 ** 40, v_half=0.6)
+    assert not fast_route(cp, 10.0)
+    reset_route_counts(cuda)
+    got = rc_transient(rf, cf, cp=cp, t_total_ns=10.0)
+    assert route_counts(cuda) == {"ieee_cells": 256, "shared_tap_warps": 0,
+                                  "mixed_tap_warps": 0}
+    want = rc_transient_ref(rf, cf, cp=cp, t_total_ns=10.0)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(RC_CASES))
+def test_rc_transient_fast_divisions_give_ieee_bits(cuda, case):
+    divisors = torch.as_tensor(launch_divisors(RC_CASES[case]["cp"]), device=cuda)
+    assert rc_division_check(divisors) == [0, 0]
 
 
 @pytest.mark.cuda

@@ -24,9 +24,12 @@ torch = pytest.importorskip("torch")
 from repro.core.spice import CircuitParams as RefCircuitParams
 from repro.kernels import ref as jref
 from repro.kernels.rc_transient import rc_transient as pallas_rc_transient
-from repro_torch.core.spice import CircuitParams
+from repro_torch.core.spice import (CircuitParams, divisors, n_steps,
+                                    step_phases, step_times)
 from repro_torch.kernels import ops
-from repro_torch.kernels.rc_transient import rc_transient, rc_transient_ref
+from repro_torch.kernels.rc_transient import (fast_route, launch_divisors,
+                                              phase_bounds, rc_transient,
+                                              rc_transient_ref)
 
 V_ATOL = 1e-6
 MID_RESTORE_ATOL = 3e-6
@@ -151,3 +154,47 @@ def test_cpu_tensors_launch_nothing_and_ops_lists_the_kernel():
     assert ops.launch_counts()["rc_transient"] == 0
     empty = rc_transient(torch.zeros(0), torch.zeros(0), t_total_ns=1.0)
     assert all(v.shape == (0,) for v in empty.values())
+
+
+# ------------------------------------------------ the kernel's host-side set-up
+
+PHASE_CASES = {"default": (CircuitParams(), 45.0, 30.0),
+               "n_seg4_tpre12": (CircuitParams(n_seg=4), 45.0, 12.0),
+               "n_seg16_dt004": (CircuitParams(n_seg=16, dt_ns=0.004), 45.0, 30.0),
+               "n_seg16_dt004_20ns": (CircuitParams(n_seg=16, dt_ns=0.004), 20.0, 30.0),
+               "precharge_from_0": (CircuitParams(), 5.0, 0.0),
+               "sense_after_precharge": (CircuitParams(sa_enable_ns=40.0), 45.0, 30.0)}
+
+
+@pytest.mark.parametrize("case", sorted(PHASE_CASES))
+def test_phase_bounds_equal_step_phases_step_for_step(case):
+    """The kernel's step ranges [0, i_sa), [i_sa, i_pre), [i_pre, steps) give
+    every step the phases core/spice.step_phases gives its float32 time."""
+    cp, t_total, t_pre = PHASE_CASES[case]
+    i_sa, i_pre, steps = phase_bounds(cp, t_total, t_pre)
+    assert 0 <= i_sa <= i_pre <= steps == n_steps(cp, t_total)
+    for i, t in enumerate(step_times(cp, t_total)):
+        assert step_phases(t, cp, t_pre) == (i < i_pre, i_sa <= i < i_pre,
+                                             i >= i_pre), i
+
+
+def test_launch_divisors_are_the_plain_versions_divisors():
+    for cp in (CircuitParams(), CircuitParams(n_seg=4),
+               CircuitParams(n_seg=16, dt_ns=0.004)):
+        div = divisors(cp, "cpu")
+        want = [div[k].item() for k in ("tau_seg", "wl_slope", "tau_acc_cell",
+                                        "tau_acc_node", "precharge_tau")]
+        got = launch_divisors(cp)
+        assert got.dtype == np.float32 and got.tolist() == want
+
+
+def test_fast_route_holds_for_the_launched_circuits_only():
+    for cp, t_total in ((CircuitParams(), 45.0), (CircuitParams(n_seg=4), 45.0),
+                        (CircuitParams(n_seg=16, dt_ns=0.004), 20.0)):
+        assert fast_route(cp, t_total)
+    assert not fast_route(CircuitParams(vdd=2.0 ** 40), 45.0)
+    assert not fast_route(CircuitParams(v_half=-0.1), 45.0)
+    assert not fast_route(CircuitParams(v_half=2.0), 45.0)   # above vdd
+    tiny_tau = CircuitParams(r_bl_kohm=1e-3, c_bl_fF=1e-3, dt_ns=1e-12)
+    assert launch_divisors(tiny_tau)[0] < 2.0 ** -20   # tau_seg
+    assert not fast_route(tiny_tau, 1e-10)
