@@ -121,11 +121,38 @@ of 512x512 mats, 16 mats and 8 subarrays — it
      identical; and the same 2 layers in bfloat16 compute, teacher-forced on
      one token sequence: the card's logits held to the CPU's by their max
      and mean |difference| (0.07 / 0.010), and two faulty ports (the whole
-     model in float32; ``r`` in bfloat16) must fall outside those bounds.
+     model in float32; ``r`` in bfloat16) must fall outside those bounds;
+ 20. the DIMM-fleet timing-table service (``FleetServer``, Sec 6.1's online
+     DIVA Profiling as a service) on ``synthetic_fleet(512, FULL)`` in chunks
+     of 128: ingest (the campaign's row lambdas, 32 ``fail_prob`` launches a
+     campaign point, plus as many in a chunk that founds generations;
+     ``bit_signature`` for signatures and scramble recovery), 100,000
+     queries, the serve bench's oracle gate (the HIT / DISCOVER tables of
+     the first 64 DIMMs equal to the dense DIVA sweep, up to 8 CONVENTIONAL
+     ones to the every-row sweep, bit for bit), a tick at the fleet's
+     smallest re-profile horizon, and a checkpoint (``secded_encode`` and
+     ``diva_shuffle`` a leaf) with one 8-bit run flipped in a leaf's lanes,
+     restored into a fresh server (``diva_shuffle`` and ``secded_syndrome``
+     a leaf) that must serve identical tables, labels, paths and deadlines;
+ 21. the service on the reference test's fleet (128 TINY DIMMs, chunks of
+     64) on the card and on the CPU, both fed the card's campaign counts:
+     stats, state and founding stats identical; the draws that differ when
+     each host samples its own lambdas are counted; then the serving CLI
+     (``launch.serve.main --fleet 256 --chunk 128`` with a checkpoint, a
+     metrics file and a trace) on the card;
+ 22. the streamed scans over the 96 DIMMs in chunks of 40 (the last one
+     ragged) against the dense card results: ``stream_profile_population``
+     against phase 4's DIVA tables, ``stream_operating_grid`` against phase
+     12's grid, ``stream_lifetime_population`` against phase 17's lifecycle,
+     ``stream_shuffling_gain`` against phase 6's counts,
+     ``stream_bit_signature`` against the dense signatures of phase 14's
+     counts, ``stream_secded_scrub`` over phase 8's flipped codewords
+     against its decode, and ``stream_discover_generations`` on
+     ``synthetic_fleet(512, FULL)`` at chunk sizes 128 and 100.
 
 Every phase prints one JSON line.  The launch counts are set to 0 just before
-each path (phases 3-4, 6, 7, 8, 9, 12, 13, 14, 16, 17 and 19) and read just
-after it;
+each path (phases 3-4, 6, 7, 8, 9, 12, 13, 14, 16, 17, 19, 20 (ingest; tick
+and checkpoint), 21 and each scan of 22) and read just after it;
 every kernel of a path must have launched, and the ``kernels`` line sums the
 paths' counts.
 Any failed check raises; the last line is ``{"ok": true, "device": {...}}``
@@ -139,6 +166,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -148,11 +176,12 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs.registry import get_config  # noqa: E402
-from repro_torch.core.geometry import FULL  # noqa: E402
+from repro_torch.core.geometry import FULL, TINY  # noqa: E402
 from repro_torch.core.latency import (  # noqa: E402
-    PATTERN_STRESS, access_vdd_shift, retention_stress)
+    DEFAULT_PATTERNS, PATTERN_STRESS, access_vdd_shift, retention_stress)
 from repro_torch.core.packing import unpack_bool  # noqa: E402
-from repro_torch.core.population import make_population  # noqa: E402
+from repro_torch.core.population import (  # noqa: E402
+    make_population, synthetic_fleet)
 from repro_torch.core.profiling import (  # noqa: E402
     ALDRAM, DivaProfiler, conventional_profile, diva_profile,
     latency_reduction)
@@ -161,7 +190,10 @@ from repro_torch.core.spice import (  # noqa: E402
     CircuitParams, fit_latency_coefficients, n_steps, restored_voltage,
     sense_time, simulate, step_phases, step_times)
 from repro_torch.core.streaming import (  # noqa: E402
-    PopulationStream, stream_error_summary)
+    PopulationStream, hash_poisson_counts, stream_bit_signature,
+    stream_discover_generations, stream_error_summary,
+    stream_lifetime_population, stream_operating_grid,
+    stream_profile_population, stream_secded_scrub, stream_shuffling_gain)
 from repro_torch.core.substrate import (  # noqa: E402
     DimmBatch, _geom_consts, _pack_coeffs, _pack_op_coeffs,
     burst_bit_profile_population, condition_adders, lifetime_population,
@@ -171,6 +203,8 @@ from repro_torch.core.timing import OperatingPoint, TimingParams  # noqa: E402
 from repro_torch.data.pipeline import make_batch  # noqa: E402
 from repro_torch.discovery.blind import (  # noqa: E402
     BlindDiva, blind_vs_oracle, campaign_counts)
+from repro_torch.discovery.signatures import (  # noqa: E402
+    bit_signature_population)
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels.bank_sched import (  # noqa: E402
     ROUTES, memsim_walk, memsim_walk_ref, walk_route)
@@ -190,11 +224,15 @@ from repro_torch.kernels.shuffle import (  # noqa: E402
     _perm_tensor, apply_shuffle, apply_shuffle_ref, shuffle_permutation)
 from repro_torch.kernels.wkv6 import wkv6, wkv6_ref  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
+from repro_torch.launch.serve import main as serve_main  # noqa: E402
 from repro_torch.models import cache as model_cache  # noqa: E402
 from repro_torch.models import model  # noqa: E402
 from repro_torch.memsim import sim as memsim  # noqa: E402
 from repro_torch.memsys.codec import (  # noqa: E402
     corrupt_run, interleave_permutation, protect_blob, recover_blob)
+from repro_torch.serve import (  # noqa: E402
+    PATH_CONVENTIONAL, PATH_DISCOVER, PATH_HIT, FleetConfig, FleetServer,
+    take_batch)
 
 N_DIMMS = 96
 N_CONVENTIONAL = 8
@@ -302,6 +340,21 @@ CPU_LAYERS, CPU_BATCH, CPU_PROMPT, CPU_DECODE, CARD_CPU_TOL = 2, 2, 16, 4, 1e-4
 # faulty ports' (the whole model in float32: 0.118 / 0.0178; r in bfloat16,
 # i.e. ``wr`` cast with the other weights: 0.078 / 0.0123)
 BF16_CARD_CPU_MAX, BF16_CARD_CPU_MEAN = 0.07, 0.010
+# the DIMM-fleet timing-table service (serve/server.py: Sec 6.1's online DIVA
+# Profiling as a service) on a synthetic fleet at the benchmark geometry
+FLEET_GEOM, FLEET_DIMMS, FLEET_CHUNK = FULL, 512, 128
+FLEET_ORACLE_DIMMS, FLEET_ORACLE_CONV = 64, 8   # serve_bench.py:54's gate
+FLEET_QUERIES = 100_000
+FLEET_FLIP_LEAF, FLEET_FLIP_LANE, FLEET_FLIP_BITS = "fleet_table", 100, 8
+# the service on the card against the CPU port: tests/test_serve.py:24's fleet
+TWIN_GEOM, TWIN_DIMMS, TWIN_CHUNK = TINY, 128, 64
+CLI_FLEET, CLI_CHUNK = 256, 128   # launch/serve.py --fleet, its CI leg
+# the streamed scans against the dense results of phases 4-17
+SCAN_CHUNK = 40                   # 96 = 40 + 40 + 16: a ragged last chunk
+SCRUB_CHUNK = 1 << 20             # codewords a scrub chunk
+DISCOVER_DIMMS, DISCOVER_CHUNKS = 512, (128, 100)
+# phases 4-17 keep the dense results that phase 22 holds the scans to
+DENSE: dict = {}
 
 
 def emit(phase: str, **kw) -> None:
@@ -487,6 +540,7 @@ def fig17_profiled(batch, pop) -> dict:
         device="cpu")
     same_counts({key: v[:k] for key, v in gain.items()}, gain_cpu,
                 "Fig 17 (profiled)")
+    DENSE.update(fig17_probs=probs, fig17_gain=gain)
     emit("fig17_profiled", dimms=batch.n_dimms, param="trp", t_op=7.5,
          refresh_ms=256.0, n_accesses=N_ACCESSES, profile_seconds=profile_s,
          shuffling_seconds=gain_s, launches=launches,
@@ -547,6 +601,8 @@ def codec_blob(dev) -> dict:
     if not np.array_equal(lanes[:head], protect_blob(data[:CHECK_BYTES],
                                                      device="cpu")):
         raise AssertionError("codec lanes differ on the card and the CPU")
+    DENSE.update(codec_lanes=lanes, codec_bad=bad, codec_bursts=bursts,
+                 codec_corrected=stats.corrected)
     emit("codec", blob_bytes=BLOB_BYTES, bursts=int(lanes.shape[0]),
          codewords=stats.codewords, runs=N_RUNS, run_bits=RUN_BITS,
          corrected=stats.corrected, uncorrectable=stats.uncorrectable,
@@ -883,6 +939,7 @@ def op_points_phase(batch, pop) -> dict:
                              f"non-finite?")
     lam_rel = float(np.max(np.abs(grid["lam"][:k] - grid_cpu["lam"])
                            / np.maximum(np.abs(grid_cpu["lam"]), 1e-30)))
+    DENSE["op_grid"] = grid
     emit("operating_points", dimms=batch.n_dimms, temp_C=55.0,
          multibit_only=True, seconds=pts_s, grid_seconds=grid_s,
          launches=launches,
@@ -994,6 +1051,7 @@ def blind_phase(batch, pop) -> dict:
     disc = BlindDiva().discover(counts, expected, serials=serials,
                                 device=batch.device)
     secs["discover"] = time.perf_counter() - t0
+    DENSE["campaign_counts"] = counts
     t0 = time.perf_counter()
     bvo = blind_vs_oracle(batch, disc, temp_C=55.0, multibit_only=True)
     secs["blind_vs_oracle"] = time.perf_counter() - t0
@@ -1291,6 +1349,7 @@ def lifetime_phase(batch, pop) -> dict:
         raise AssertionError("DivaProfiler tables differ on the card and the "
                              "CPU")
     secs["cpu_check"] = time.perf_counter() - t0
+    DENSE["lifetime"] = life
     read = t[:, :, :3].sum(axis=2)                       # tRCD + tRAS + tRP
     emit("lifetime", dimms=D, epochs=E, ages=LIFE_AGES.tolist(),
          temp_C=LIFE_TEMP, seconds=secs, launches=launches,
@@ -1584,6 +1643,354 @@ def rwkv6_serving_phase(dev) -> dict:
     return launches
 
 
+def _flip_lanes(step_dir: Path, leaf: int) -> None:
+    """Flip FLEET_FLIP_BITS contiguous stored lanes of one leaf's ECC
+    sidecar (the checkpoint layout: packed (G, 576) lanes a leaf)."""
+    path = step_dir / f"leaf_{leaf}.ecc.npy"
+    lanes = np.unpackbits(np.load(path), axis=1)
+    lanes[0, FLEET_FLIP_LANE:FLEET_FLIP_LANE + FLEET_FLIP_BITS] ^= 1
+    np.save(path, np.packbits(lanes, axis=1))
+
+
+def fleet_phase(dev) -> dict:
+    """Phase 20: the fleet timing-table service at the benchmark geometry;
+    returns its launches (ingest, and tick + checkpoint save and load)."""
+    n, chunk = FLEET_DIMMS, FLEET_CHUNK
+    cfg = FleetConfig(chunk_size=chunk)
+    fleet = synthetic_fleet(n, FLEET_GEOM, seed=0, device=dev)
+    g = fleet.geom
+    T = len(cfg.campaign_t_ops)
+    per_point = g.subarrays * len(DEFAULT_PATTERNS)   # row_error_lambda
+    secs = {}
+    with tempfile.TemporaryDirectory() as ckpt:
+        server = FleetServer(fleet, cfg, checkpoint_dir=ckpt)
+        # ingest chunk by chunk: a chunk founds generations iff the count
+        # of generations grows (every new leader is discovered at once)
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        chunk_s, founding, gens = [], 0, 0
+        stats = dict(hits=0, misses=0, conventional=0)
+        for _ in range(0, n, chunk):
+            t0 = time.perf_counter()
+            st = server.ingest(chunk, now=0.0)
+            chunk_s.append(time.perf_counter() - t0)
+            founding += st["n_generations"] > gens
+            gens = st["n_generations"]
+            for key in stats:
+                stats[key] += st[key]
+        secs["ingest"] = sum(chunk_s)
+        n_chunks = len(chunk_s)
+        ingest_launches = counted({
+            "fail_prob": per_point * T * (n_chunks + founding),
+            "bit_signature": T * (n_chunks + founding)})
+        if sum(stats.values()) != n or len(server.state) != n:
+            raise AssertionError(f"fleet service ingested {stats} of {n}")
+        path = server.state.view("path")
+        if not ((path == PATH_HIT).sum() == stats["hits"]
+                and (path == PATH_DISCOVER).sum() == stats["misses"]
+                and (path == PATH_CONVENTIONAL).sum() == stats["conventional"]):
+            raise AssertionError("fleet paths disagree with the ingest stats")
+
+        # queries: 100,000 random serials, then every DIMM
+        serials = np.random.default_rng(20).integers(0, n, FLEET_QUERIES)
+        t0 = time.perf_counter()
+        tables = server.query_batch(serials)
+        secs["queries"] = time.perf_counter() - t0
+        every = server.query_batch(np.arange(n))
+        if tables.shape != (FLEET_QUERIES, 4) or every.shape != (n, 4) \
+                or not np.isfinite(every).all() \
+                or not np.array_equal(tables, every[serials]):
+            raise AssertionError("fleet queries: bad shape, non-finite or "
+                                 "inconsistent tables")
+
+        # the serve bench's oracle gate on the first DIMMs, before the tick
+        t0 = time.perf_counter()
+        k = FLEET_ORACLE_DIMMS
+        first = fleet.chunk(0, k)
+        kw = dict(temp_C=cfg.profile_temp_C,
+                  refresh_ms=cfg.profile_refresh_ms,
+                  guard_cycles=cfg.guard_cycles,
+                  multibit_only=cfg.multibit_only)
+        conv = path[:k] == PATH_CONVENTIONAL
+        diva = profile_population_arrays(first, region="worst", **kw)[:, :4]
+        if not np.array_equal(every[:k][~conv], diva[~conv]):
+            raise AssertionError("a HIT or DISCOVER table differs from the "
+                                 "dense DIVA oracle")
+        conv_idx = np.flatnonzero(conv)[:FLEET_ORACLE_CONV]
+        if len(conv_idx):
+            full = profile_population_arrays(take_batch(first, conv_idx),
+                                             region="all", **kw)[:, :4]
+            if not np.array_equal(every[conv_idx], full):
+                raise AssertionError("a CONVENTIONAL table differs from the "
+                                     "every-row oracle")
+        secs["oracle"] = time.perf_counter() - t0
+
+        # re-profile at the fleet's smallest horizon, then checkpoint
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        now = float(server.state.view("horizon").min())
+        due = int((server.state.view("due_at") <= now).sum())
+        t0 = time.perf_counter()
+        tick = server.tick(now)
+        secs["tick"] = time.perf_counter() - t0
+        if tick["reprofiled"] != due or due == 0:
+            raise AssertionError(f"tick re-profiled {tick}, {due} were due")
+        t0 = time.perf_counter()
+        saved = server.save(step=0)
+        secs["save"] = time.perf_counter() - t0
+        state = server.state_dict()
+        _flip_lanes(saved, sorted(state).index(FLEET_FLIP_LEAF))
+        fresh = FleetServer(fleet, cfg, checkpoint_dir=ckpt)
+        t0 = time.perf_counter()
+        info = fresh.load()
+        secs["load"] = time.perf_counter() - t0
+        leaves = sum(1 for v in state.values() if v.nbytes)
+        ckpt_launches = counted({"secded_encode": leaves,
+                                 "diva_shuffle": 2 * leaves,
+                                 "secded_syndrome": leaves})
+        if info["corrected_codewords"] < 1:
+            raise AssertionError("the flipped run was not corrected")
+        if not np.array_equal(fresh.query_batch(np.arange(n)),
+                              server.query_batch(np.arange(n))):
+            raise AssertionError("the restored server serves other tables")
+        for field in ("label", "path", "due_at", "profiled_at", "horizon"):
+            if not np.array_equal(fresh.state.view(field),
+                                  server.state.view(field)):
+                raise AssertionError(f"the restored server's {field} differs")
+    launches = {name: ingest_launches[name] + ckpt_launches[name]
+                for name in ingest_launches}
+    verified = sum(st["verified"] for st in server.founding_stats.values())
+    emit("fleet_service", dimms=n, chunk_size=chunk,
+         geometry=dataclasses.asdict(g),
+         paths={"hit": stats["hits"], "discover": stats["misses"],
+                "conventional": stats["conventional"]},
+         generations=gens, verified_generations=verified,
+         founding_chunks=founding, chunks=n_chunks,
+         ingest_seconds=secs["ingest"], chunk_seconds=chunk_s,
+         dimms_per_s=n / secs["ingest"], queries=FLEET_QUERIES,
+         query_seconds=secs["queries"],
+         queries_per_s=FLEET_QUERIES / secs["queries"],
+         oracle_dimms=k, oracle_conventional_dimms=len(conv_idx),
+         oracle_equal=True, oracle_seconds=secs["oracle"],
+         tick_now_years=now, reprofiled=tick["reprofiled"],
+         tick_seconds=secs["tick"], save_seconds=secs["save"],
+         load_seconds=secs["load"], checkpoint_leaves=leaves,
+         flipped_leaf=FLEET_FLIP_LEAF, flipped_bits=FLEET_FLIP_BITS,
+         corrected_codewords=info["corrected_codewords"],
+         restored_equal=True, ingest_launches=ingest_launches,
+         checkpoint_launches=ckpt_launches, launches=launches)
+    return launches
+
+
+def serve_twin_phase(dev) -> dict:
+    """Phase 21: the service on the card against the CPU port (both fed the
+    card's counts), each host's own draws compared, and the serving CLI on
+    the card; returns the card's launches."""
+    cfg = FleetConfig(chunk_size=TWIN_CHUNK)
+    recorded = {}
+
+    def key(batch, t_op):
+        return int(batch.serial[0]), batch.n_dimms, float(t_op)
+
+    def card_counts(batch, param, t_op, **kw):
+        counts = hash_poisson_counts(batch, param, t_op, **kw)
+        recorded[key(batch, t_op)] = (param, kw, counts)
+        return counts
+
+    def replay(batch, param, t_op, **kw):
+        return recorded[key(batch, t_op)][2]
+
+    secs = {}
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = FleetServer(synthetic_fleet(TWIN_DIMMS, TWIN_GEOM, seed=0,
+                                       device=dev), cfg,
+                       counts_fn=card_counts)
+    card_stats = card.ingest(now=0.0)
+    secs["card"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as d:
+        metrics, trace = Path(d) / "metrics.prom", Path(d) / "trace.json"
+        t0 = time.perf_counter()
+        cli = serve_main(["--fleet", str(CLI_FLEET), "--chunk",
+                          str(CLI_CHUNK), "--ckpt-dir", str(Path(d) / "ck"),
+                          "--metrics-out", str(metrics),
+                          "--trace-out", str(trace)])
+        secs["cli"] = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        text = metrics.read_text()
+        spans = [e for e in json.loads(trace.read_text())["traceEvents"]
+                 if e["name"] == "serve.ingest_chunk"]
+    used = ("fail_prob", "bit_signature", "secded_encode", "diva_shuffle")
+    if any(launches[k] == 0 for k in used) \
+            or any(v for k, v in launches.items() if k not in used):
+        raise AssertionError(f"phase 21 launches {launches}")
+    sid = cli["metrics"]["server"]
+    for path, stat in (("hit", "hits"), ("discover", "misses"),
+                       ("conventional", "conventional")):
+        line = f'repro_serve_ingest_total{{server="{sid}",path="{path}"}} '
+        if line + f"{cli[stat]}\n" not in text:
+            raise AssertionError(f"the metrics file lacks {line}{cli[stat]}")
+    if len(spans) != -(-CLI_FLEET // CLI_CHUNK):
+        raise AssertionError(f"the trace holds {len(spans)} ingest chunks")
+
+    t0 = time.perf_counter()
+    cpu = FleetServer(synthetic_fleet(TWIN_DIMMS, TWIN_GEOM, seed=0,
+                                      device="cpu"), cfg, counts_fn=replay)
+    cpu_stats = cpu.ingest(now=0.0)
+    secs["cpu"] = time.perf_counter() - t0
+    if cpu_stats != card_stats:
+        raise AssertionError(f"ingest stats: card {card_stats}, CPU "
+                             f"{cpu_stats}")
+    a, b = card.state_dict(), cpu.state_dict()
+    for k in a:
+        if not np.array_equal(a[k], b[k]):
+            raise AssertionError(f"the card's and the CPU's {k} differ")
+    if card.founding_stats != cpu.founding_stats:
+        raise AssertionError("founding stats differ on the card and the CPU")
+    # each host sampling its own lambdas: the +-1 kind of ROADMAP queue 3
+    own = synthetic_fleet(TWIN_DIMMS, TWIN_GEOM, seed=0, device="cpu")
+    n_draws = n_diff = max_diff = 0
+    for (lo, c, t_op), (param, kw, counts) in recorded.items():
+        mine = hash_poisson_counts(own.chunk(lo, lo + c), param, t_op, **kw)
+        diff = np.abs(mine - counts)
+        n_draws += diff.size
+        n_diff += int((diff > 0).sum())
+        max_diff = max(max_diff, int(diff.max()))
+    emit("fleet_service_vs_cpu", dimms=TWIN_DIMMS, chunk_size=TWIN_CHUNK,
+         geometry="TINY", stats=card_stats, equal_cpu=True,
+         compared=sorted(a) + ["founding_stats"],
+         draws=n_draws, draws_differing_own_lambdas=n_diff,
+         max_draw_diff=max_diff, seconds=secs,
+         cli=dict(fleet=CLI_FLEET, chunk=CLI_CHUNK, ingest_s=cli["ingest_s"],
+                  hits=cli["hits"], misses=cli["misses"],
+                  conventional=cli["conventional"],
+                  generations=cli["n_generations"], ingest_chunk_spans=len(spans)),
+         launches=launches)
+    return launches
+
+
+def _scan(name: str, fn, used: tuple, secs: dict, launches: dict):
+    """One streamed scan, counted: every kernel of ``used`` must launch and
+    no other."""
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs[name] = time.perf_counter() - t0
+    got = ops.launch_counts()
+    if any(got[k] == 0 for k in used) \
+            or any(v for k, v in got.items() if k not in used):
+        raise AssertionError(f"{name} launched {got}, expected {used}")
+    launches[name] = {k: v for k, v in got.items() if v}
+    return out
+
+
+def stream_scans_phase(batch, diva) -> dict:
+    """Phase 22: the streamed scans in ragged chunks against the dense card
+    results of phases 4-17; returns their launches, summed."""
+    dev = batch.device
+    D = batch.n_dimms
+    stream = PopulationStream.from_batch(batch)
+    secs, launches, checks = {}, {}, {}
+
+    out = _scan("profile", lambda: stream_profile_population(
+        stream, chunk_size=SCAN_CHUNK, collect=True, multibit_only=True),
+        (), secs, launches)
+    if not np.array_equal(out["tables"], diva):
+        raise AssertionError("streamed DIVA tables differ from phase 4's")
+
+    out = _scan("operating_grid", lambda: stream_operating_grid(
+        stream, OP_POINTS, chunk_size=SCAN_CHUNK, collect=True),
+        (), secs, launches)
+    dense = DENSE["op_grid"]
+    if not np.array_equal(out["fails"], dense["fails"]):
+        raise AssertionError("streamed grid decisions differ from phase 12's")
+    np.testing.assert_allclose(out["lam"], dense["lam"], rtol=LAMBDA_RTOL)
+    checks["grid_lam_max_rel"] = float(np.max(
+        np.abs(out["lam"] - dense["lam"])
+        / np.maximum(np.abs(dense["lam"]), 1e-30)))
+
+    temps = np.full(len(LIFE_AGES), LIFE_TEMP)
+    out = _scan("lifetime", lambda: stream_lifetime_population(
+        stream, LIFE_AGES, temps, chunk_size=SCAN_CHUNK, collect=True),
+        (), secs, launches)
+    life = DENSE["lifetime"]
+    for k in ("timings", "stale_fail"):
+        if not np.array_equal(out[k], np.moveaxis(life[k], 0, 1)):
+            raise AssertionError(f"streamed lifetime {k} differs from "
+                                 f"phase 17's")
+    np.testing.assert_allclose(out["ecc_lambda"],
+                               np.moveaxis(life["ecc_lambda"], 0, 1),
+                               rtol=ECC_RTOL)
+
+    gain = DENSE["fig17_gain"]
+    out = _scan("shuffling", lambda: stream_shuffling_gain(
+        DENSE["fig17_probs"], chunk_size=SCAN_CHUNK, seed=0,
+        n_accesses=N_ACCESSES, collect=True, device=dev),
+        ("diva_shuffle", "secded_syndrome"), secs, launches)
+    for k in ("total", "uncorrectable_no_shuffle", "uncorrectable_shuffle",
+              "undetected_no_shuffle", "undetected_shuffle"):
+        if not np.array_equal(out[k], gain[k]):
+            raise AssertionError(f"streamed Fig 17 {k} differs from phase 6's")
+    denom = np.maximum(out["total"], 1)
+    for mode in ("no_shuffle", "shuffle"):
+        if not np.array_equal(np.where(out["total"] == 0, 1.0,
+                                       out[f"corrected_{mode}"] / denom),
+                              gain[f"frac_{mode}"]):
+            raise AssertionError(f"streamed Fig 17 corrected ({mode}) differs")
+
+    counts = DENSE["campaign_counts"][1]              # tRP 7.5 ns
+    dense_sig = bit_signature_population(counts.astype(np.int32), device=dev)
+    out = _scan("bit_signature", lambda: stream_bit_signature(
+        lambda lo, hi: counts[lo:hi], D, chunk_size=SCAN_CHUNK, device=dev),
+        ("bit_signature",), secs, launches)
+    if not np.array_equal(out, dense_sig):
+        raise AssertionError("streamed signatures differ from the dense ones")
+
+    # phase 8's flipped lanes, de-interleaved on the host into codewords
+    inv = np.argsort(interleave_permutation())
+    bad, lanes = DENSE["codec_bad"], DENSE["codec_lanes"]
+    code = bad[:, inv].reshape(-1, 72)
+    out = _scan("secded_scrub", lambda: stream_secded_scrub(
+        lambda lo, hi: code[lo:hi], len(code), chunk_size=SCRUB_CHUNK,
+        device=dev), ("secded_syndrome",), secs, launches)
+    if out["corrected"] != DENSE["codec_corrected"] or out["uncorrectable"] \
+            or out["clean"] != len(code) - out["corrected"]:
+        raise AssertionError(f"streamed scrub {out} against the dense "
+                             f"decode's {DENSE['codec_corrected']} corrected")
+    bursts = np.sort(DENSE["codec_bursts"])
+    flipped = stream_secded_scrub(bad[bursts][:, inv].reshape(-1, 72),
+                                  chunk_size=SCRUB_CHUNK, collect=True,
+                                  device=dev)
+    if not np.array_equal(flipped["codewords"],
+                          lanes[bursts][:, inv].reshape(-1, 72)):
+        raise AssertionError("scrubbed codewords differ from the clean ones")
+    checks.update(scrub_words=len(code), scrub_corrected=out["corrected"],
+                  scrub_donated=out["donated"],
+                  scrub_collected_words=len(flipped["codewords"]))
+    del code
+
+    fleet = synthetic_fleet(DISCOVER_DIMMS, FLEET_GEOM, seed=0, device=dev)
+    runs = [_scan(f"discover_chunk{c}", lambda c=c: stream_discover_generations(
+        fleet, chunk_size=c), ("fail_prob", "bit_signature"), secs, launches)
+        for c in DISCOVER_CHUNKS]
+    for k in ("labels", "canonical", "members"):
+        if not np.array_equal(runs[0][k], runs[1][k]):
+            raise AssertionError(f"streamed generations' {k} differ between "
+                                 f"chunk sizes {DISCOVER_CHUNKS}")
+    total = {name: sum(l.get(name, 0) for l in launches.values())
+             for name in ops.KERNELS}
+    emit("stream_scans", dimms=D, chunk_size=SCAN_CHUNK,
+         n_chunks=-(-D // SCAN_CHUNK), seconds=secs, launches=launches,
+         equal_dense=["profile", "operating_grid", "lifetime", "shuffling",
+                      "bit_signature", "secded_scrub"],
+         discover_dimms=DISCOVER_DIMMS, discover_chunks=list(DISCOVER_CHUNKS),
+         generations=runs[0]["n_generations"], **checks)
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU host",
@@ -1747,6 +2154,10 @@ def main() -> int:
     # ---- 18-19. the wkv6 kernel, and RWKV-6 serving at full width
     ints["wkv6"] = wkv_kernel_vs_plain(dev)
     paths.append(rwkv6_serving_phase(dev))
+
+    # ---- 20-22. the fleet service, its CPU twin and CLI, the streamed scans
+    paths += [fleet_phase(dev), serve_twin_phase(dev),
+              stream_scans_phase(batch, diva)]
     total = {name: sum(p[name] for p in paths) for name in ops.KERNELS}
 
     rows = [dict(name="fail_prob",

@@ -1,0 +1,194 @@
+"""ECC-protected checkpointing (the counterpart of
+``repro.checkpoint.manager``).
+
+Every leaf is serialized, cut into DIVA-codec bursts (SECDED + bit
+interleave, ``memsys/codec.protect_blob``: the ``secded_encode`` and
+``diva_shuffle`` kernels on a card) and written atomically (tmp + rename).
+Restore verifies and corrects every burst (scrubbing: ``diva_shuffle`` and
+``secded_syndrome``).
+
+A state is a flat ``dict[str, array]`` of numpy arrays or tensors, flattened
+in sorted-key order — the order ``jax.tree_util`` gives a dict — so the
+on-disk layout matches the reference's leaf for leaf and either package
+restores the other's checkpoints:
+
+    <dir>/step_<k>/meta.json + leaf_<i>.npy (+ leaf_<i>.ecc.npy: packed lanes)
+
+``meta.json`` carries a ``treedef`` string so the reference's reader finds
+every key it expects; ``restore`` here ignores it.  The reference's
+``shardings=`` (re-sharding onto another mesh) is left out (ROADMAP queue 1
+#5).
+"""
+from __future__ import annotations
+
+import json
+import shutil
+from dataclasses import dataclass
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.memsys import codec
+from repro_torch.obs import REGISTRY as _OBS_REGISTRY
+from repro_torch.obs import span as _span
+
+# Counters and duration histograms at the save/restore boundaries (host
+# I/O), including the scrubbing signal: corrected codewords per restore.
+_M_SAVES = _OBS_REGISTRY.counter(
+    "repro_checkpoint_saves_total", "checkpoint steps written")
+_M_RESTORES = _OBS_REGISTRY.counter(
+    "repro_checkpoint_restores_total", "checkpoint steps restored")
+_M_CORRECTED = _OBS_REGISTRY.counter(
+    "repro_checkpoint_corrected_codewords_total",
+    "SECDED-corrected codewords across restores (scrubbing signal)")
+_M_SAVE_S = _OBS_REGISTRY.histogram(
+    "repro_checkpoint_save_seconds", "checkpoint save wall time")
+_M_RESTORE_S = _OBS_REGISTRY.histogram(
+    "repro_checkpoint_restore_seconds", "checkpoint restore wall time")
+
+
+def _flatten(state: dict) -> tuple[list[str], list]:
+    """Keys and leaves in sorted-key order (jax's order for a dict)."""
+    if not isinstance(state, dict):
+        raise TypeError(f"a checkpoint state is a dict of arrays, got "
+                        f"{type(state).__name__}")
+    keys = sorted(state)
+    return keys, [state[k] for k in keys]
+
+
+def _host(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
+@dataclass
+class CheckpointManager:
+    directory: str
+    keep: int = 3
+    protect: bool = True  # SECDED + DIVA interleave sidecars
+
+    def __post_init__(self):
+        # keep=0 would make _gc slice steps[:-0] == [] and silently retain
+        # every step forever — reject it up front
+        if self.keep < 1:
+            raise ValueError(f"keep must be >= 1, got {self.keep}")
+        self.dir = Path(self.directory)
+        self.dir.mkdir(parents=True, exist_ok=True)
+        # a save() killed between mkdir and the atomic rename leaves a
+        # .tmp_step_* behind; nothing ever publishes it, so sweep on init
+        for orphan in self.dir.glob(".tmp_step_*"):
+            shutil.rmtree(orphan, ignore_errors=True)
+
+    # ----------------------------------------------------------------- save
+
+    def save(self, step: int, state: dict, *, device=None) -> Path:
+        """Write ``state`` as step ``step``; the codec runs on ``device``
+        (default: the CUDA device)."""
+        with _span("checkpoint.save", _M_SAVE_S, step=step):
+            out = self._save(step, state, device)
+        _M_SAVES.inc()
+        return out
+
+    def _save(self, step: int, state: dict, device) -> Path:
+        keys, flat = _flatten(state)
+        dev = resolve_device(device) if self.protect else None
+        tmp = self.dir / f".tmp_step_{step}"
+        if tmp.exists():
+            shutil.rmtree(tmp)
+        tmp.mkdir(parents=True)
+        meta = {"step": step,
+                "treedef": "PyTreeDef({%s})" % ", ".join(f"{k!r}: *"
+                                                         for k in keys),
+                "leaves": []}
+        for i, leaf in enumerate(flat):
+            arr = _host(leaf)
+            meta["leaves"].append({"shape": list(arr.shape),
+                                   "dtype": str(arr.dtype),
+                                   "nbytes": int(arr.nbytes)})
+            np.save(tmp / f"leaf_{i}.npy", arr, allow_pickle=False)
+            if self.protect:
+                lanes = codec.protect_blob(arr.tobytes(), device=dev)
+                np.save(tmp / f"leaf_{i}.ecc.npy",
+                        np.packbits(lanes.astype(np.uint8), axis=1))
+        (tmp / "meta.json").write_text(json.dumps(meta))
+        final = self.dir / f"step_{step}"
+        if final.exists():
+            shutil.rmtree(final)
+        tmp.rename(final)  # atomic publish
+        self._gc()
+        return final
+
+    def _gc(self):
+        steps = sorted(self.steps())
+        for s in steps[:-self.keep]:
+            shutil.rmtree(self.dir / f"step_{s}", ignore_errors=True)
+
+    def steps(self) -> list[int]:
+        return sorted(int(p.name.split("_")[1]) for p in self.dir.glob("step_*"))
+
+    def meta(self, step: int | None = None) -> dict:
+        """The saved leaf metadata (shapes/dtypes in sorted-key order) of
+        one step — what a restorer with a known key set but unknown array
+        sizes needs to build its ``example_state``."""
+        steps = self.steps()
+        if not steps:
+            raise FileNotFoundError(f"no checkpoints under {self.dir}")
+        step = steps[-1] if step is None else step
+        return json.loads((self.dir / f"step_{step}" / "meta.json").read_text())
+
+    # -------------------------------------------------------------- restore
+
+    def restore(self, example_state: dict, step: int | None = None, *,
+                device=None, verify: bool = True):
+        """Restore into the keys, shapes and dtypes of ``example_state``
+        (step: the newest by default).  The codec runs on ``device``
+        (default: the CUDA device); a leaf whose example is a tensor comes
+        back as a tensor on ``device``, any other as numpy.  Returns
+        ``(state, {"step", "corrected_codewords"})``."""
+        with _span("checkpoint.restore", _M_RESTORE_S) as sp:
+            state, info = self._restore(example_state, step, device, verify)
+            sp.set(step=info["step"])
+        _M_RESTORES.inc()
+        _M_CORRECTED.inc(info["corrected_codewords"])
+        return state, info
+
+    def _restore(self, example_state: dict, step: int | None, device,
+                 verify: bool):
+        keys, flat = _flatten(example_state)
+        wants_tensors = any(isinstance(x, torch.Tensor) for x in flat)
+        dev = resolve_device(device) \
+            if wants_tensors or (verify and self.protect) else None
+        steps = self.steps()
+        if not steps:
+            raise FileNotFoundError(f"no checkpoints under {self.dir}")
+        step = steps[-1] if step is None else step
+        d = self.dir / f"step_{step}"
+        meta = json.loads((d / "meta.json").read_text())
+        if len(meta["leaves"]) != len(flat):
+            raise ValueError(f"step {step} has {len(meta['leaves'])} leaves; "
+                             f"the example state has {len(flat)}")
+        out = {}
+        n_corrected = 0
+        for i, (key, leaf, info) in enumerate(zip(keys, flat, meta["leaves"])):
+            arr = np.load(d / f"leaf_{i}.npy", allow_pickle=False)
+            if verify and self.protect and (d / f"leaf_{i}.ecc.npy").exists():
+                packed = np.load(d / f"leaf_{i}.ecc.npy", allow_pickle=False)
+                lanes = np.unpackbits(packed, axis=1)[:, :codec.BURST_LANES]
+                raw, stats = codec.recover_blob(lanes, info["nbytes"],
+                                                device=dev)
+                if not stats.ok:
+                    raise IOError(f"leaf {i}: {stats.uncorrectable} "
+                                  f"uncorrectable codewords")
+                n_corrected += stats.corrected
+                arr = np.frombuffer(raw, dtype=info["dtype"]).reshape(
+                    info["shape"]).copy()
+            if isinstance(leaf, torch.Tensor):
+                out[key] = torch.as_tensor(arr).to(dev, leaf.dtype).reshape(
+                    leaf.shape)
+            else:
+                ex = np.asarray(leaf)
+                out[key] = arr.astype(ex.dtype).reshape(ex.shape)
+        return out, {"step": step, "corrected_codewords": n_corrected}

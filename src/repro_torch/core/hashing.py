@@ -1,13 +1,14 @@
 """Counter-based hashes for the Monte-Carlo draws: the profiling queries
-(``query_uniform``), the Fig 17 burst-error draws (``burst_uniform``) and the
-memory-system traces and core mixes (``trace_uniform``, ``mix_uniform``).
+(``query_uniform``), the Fig 17 burst-error draws (``burst_uniform``), the
+memory-system traces and core mixes (``trace_uniform``, ``mix_uniform``) and
+the synthetic fleet's leaves (``fleet_uniform``).
 
 A copy of ``repro.core.substrate``'s ``_mix32`` / ``query_uniform`` /
-``quantize_t`` / ``burst_uniform`` / ``trace_uniform`` / ``mix_uniform``: the
-numpy forms serve the per-DIMM walkers (core/errors.py, core/shuffling.py)
-and the host-built memsim traces, the torch forms the batched paths in
-core/substrate.py, and both give the same bits for the same key, so the two
-paths make identical decisions.
+``quantize_t`` / ``burst_uniform`` / ``trace_uniform`` / ``fleet_uniform`` /
+``mix_uniform``: the numpy forms serve the per-DIMM walkers (core/errors.py,
+core/shuffling.py), the host-built memsim traces and the synthetic fleet,
+the torch forms the batched paths in core/substrate.py, and both give the
+same bits for the same key, so the two paths make identical decisions.
 
 Torch has no ``>>`` on ``uint32`` tensors, so the torch form carries each
 32-bit word in an int64 tensor and masks it back to 32 bits after every
@@ -118,6 +119,19 @@ def trace_uniform(seed, idx, lane):
     h = u32(seed) * np.uint32(_GOLD)
     h = _mix32(h ^ (u32(idx) * np.uint32(0xBF58476D)))
     h = _mix32(h ^ (u32(lane) * np.uint32(0x94D049BB)))
+    return (h >> 8).astype(np.float32) * np.float32(1.0 / (1 << 24))
+
+
+def fleet_uniform(seed, serial, lane):
+    """Deterministic uniform in [0, 1) for one synthetic-fleet leaf draw of
+    ``population.synthetic_fleet``, keyed by (fleet seed, DIMM serial, leaf
+    lane) and never by chunk position: a chunked fleet generator emits the
+    same DIMM bits at any chunk size.  Inputs broadcast; pass arrays, not
+    0-d scalars."""
+    u32 = lambda v: np.asarray(v, np.uint32)
+    h = u32(seed) * np.uint32(_GOLD)
+    h = _mix32(h ^ (u32(serial) * np.uint32(0x2545F491)))
+    h = _mix32(h ^ (u32(lane) * np.uint32(0x9E6D62D9)))
     return (h >> 8).astype(np.float32) * np.float32(1.0 / (1 << 24))
 
 

@@ -94,6 +94,24 @@ prompts["tokens"] = prompts["tokens"][:, :-1]
 toks, _ = generate(cfg, init_params(0, cfg, device="cpu"), prompts, max_new=3,
                    device="cpu")
 assert toks.shape == (2, 3)
+import tempfile
+from repro_torch import obs
+from repro_torch.core.population import synthetic_fleet
+from repro_torch.core.streaming import hash_poisson_counts, stream_secded_scrub
+from repro_torch.serve import FleetConfig, FleetServer
+fleet = synthetic_fleet(4, TINY, seed=0, device="cpu")
+assert hash_poisson_counts(fleet.chunk(0, 2), "trp", 7.5).shape == (2, 2, 64)
+code = np.zeros((10, 72), np.int32)
+assert stream_secded_scrub(code, chunk_size=4, device="cpu")["clean"] == 10
+obs.start_tracing()
+with tempfile.TemporaryDirectory() as d:
+    server = FleetServer(fleet, FleetConfig(chunk_size=2), checkpoint_dir=d)
+    assert server.ingest(now=0.0)["ingested"] == 4
+    server.save(step=0)
+    again = FleetServer(fleet, FleetConfig(chunk_size=2), checkpoint_dir=d)
+    again.load()
+    assert (again.query_batch(np.arange(4)) == server.query_batch(np.arange(4))).all()
+assert any(e["name"] == "serve.ingest_chunk" for e in obs.stop_tracing())
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LEAKED", leaked)
@@ -212,6 +230,42 @@ def test_slice6_entry_points_raise_without_cuda_and_without_device():
                  lambda: params_from_numpy({"w": np.zeros(2)}),
                  lambda: generate(cfg, params, prompts),
                  lambda: main(["--smoke"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+def test_slice9_entry_points_raise_without_cuda_and_without_device(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.geometry import TINY
+    from repro_torch.core.population import make_population, synthetic_fleet
+    from repro_torch.core.streaming import (PopulationStream,
+                                            hash_poisson_counts,
+                                            stream_bit_signature,
+                                            stream_secded_scrub,
+                                            stream_shuffling_gain)
+    from repro_torch.core.substrate import DimmBatch
+    from repro_torch.launch.serve import main
+    from repro_torch.serve import FleetServer
+    pop = make_population(TINY, 2)
+    cpu_fleet = synthetic_fleet(4, TINY, device="cpu")
+    stream = PopulationStream(4, TINY, cpu_fleet.chunk_fn)   # no device
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(0, {"a": np.zeros(3, np.float32)}, device="cpu")
+    counts = np.zeros((2, 2, 64), np.int64)
+    for call in (
+            lambda: synthetic_fleet(4, TINY).chunk(0, 2),
+            lambda: FleetServer(stream),
+            lambda: hash_poisson_counts(DimmBatch.from_population(pop),
+                                        "trp", 7.5),
+            lambda: stream_secded_scrub(np.zeros((4, 72), np.int32)),
+            lambda: stream_shuffling_gain(np.zeros((2, 9, 64))),
+            lambda: stream_bit_signature(lambda lo, hi: counts[lo:hi], 2),
+            lambda: mgr.restore({"a": torch.zeros(3)}),
+            lambda: mgr.restore({"a": torch.zeros(3)}, verify=False),
+            lambda: mgr.save(1, {"a": np.zeros(3)}),
+            lambda: main(["--fleet", "4", "--chunk", "2"])):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
 
