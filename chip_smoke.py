@@ -148,11 +148,31 @@ of 512x512 mats, 16 mats and 8 subarrays — it
      ``stream_bit_signature`` against the dense signatures of phase 14's
      counts, ``stream_secded_scrub`` over phase 8's flipped codewords
      against its decode, and ``stream_discover_generations`` on
-     ``synthetic_fleet(512, FULL)`` at chunk sizes 128 and 100.
+     ``synthetic_fleet(512, FULL)`` at chunk sizes 128 and 100;
+ 23. holds the ``wkv6_bwd`` kernel (the VJP of the recurrence) against its
+     plain version (float32 gradients within rtol = atol = 1e-3, gradients
+     stored in bfloat16 within rtol 8e-3, atol 1e-3) at the training shape
+     (8, 512, 32, 64) in float32, with the training path's dtypes (``k``/``v``
+     bfloat16) and with a start state and a final-state cotangent, and at
+     edge shapes (S = 1, S around the kernel's 8-step chunk, dh 8 to 64);
+     checks that two runs give the same bits; times kernel and plain version;
+ 24. RWKV-6 training at full width and depth: ``launch.train.main`` on
+     ``rwkv6-1.6b`` (24 layers, d_model 2048, 1.48B random float32
+     parameters, bfloat16 compute, per-layer remat, AdamW), 8 steps of 8 x
+     512 tokens (exactly 48 ``wkv6`` and 24 ``wkv6_bwd`` launches a step,
+     no other kernel); prints the step times, tokens/s, the memory peak and
+     the losses, which must be finite; then one more step under
+     ``torch.profiler``: its kernel time by group (matmuls, float32 ones
+     among them, ``wkv6``, ``wkv6_bwd``, the rest) and the device's idle
+     share; then the card against the port on the
+     CPU at full width cut to 2 layers, float32 compute, batch 2 x 128, one
+     set of host parameters on both: the loss (rtol 1e-5), the gradients'
+     global norm (rtol 1e-4) and every gradient leaf (within 1e-3 of the
+     leaf's largest |CPU gradient|).
 
 Every phase prints one JSON line.  The launch counts are set to 0 just before
 each path (phases 3-4, 6, 7, 8, 9, 12, 13, 14, 16, 17, 19, 20 (ingest; tick
-and checkpoint), 21 and each scan of 22) and read just after it;
+and checkpoint), 21, each scan of 22 and 24) and read just after it;
 every kernel of a path must have launched, and the ``kernels`` line sums the
 paths' counts.
 Any failed check raises; the last line is ``{"ok": true, "device": {...}}``
@@ -163,6 +183,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -222,12 +243,18 @@ from repro_torch.kernels.secded import (  # noqa: E402
     encode_checks, encode_checks_ref, syndrome, syndrome_ref)
 from repro_torch.kernels.shuffle import (  # noqa: E402
     _perm_tensor, apply_shuffle, apply_shuffle_ref, shuffle_permutation)
-from repro_torch.kernels.wkv6 import wkv6, wkv6_ref  # noqa: E402
+from repro_torch.kernels.wkv6 import (  # noqa: E402
+    wkv6, wkv6_bwd, wkv6_bwd_ref, wkv6_ref)
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.launch.serve import main as serve_main  # noqa: E402
+from repro_torch.launch.steps import make_train_step  # noqa: E402
+from repro_torch.launch.train import build_state  # noqa: E402
+from repro_torch.launch.train import main as train_main  # noqa: E402
 from repro_torch.models import cache as model_cache  # noqa: E402
 from repro_torch.models import model  # noqa: E402
 from repro_torch.memsim import sim as memsim  # noqa: E402
+from repro_torch.optim import global_norm  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten  # noqa: E402
 from repro_torch.memsys.codec import (  # noqa: E402
     corrupt_run, interleave_permutation, protect_blob, recover_blob)
 from repro_torch.serve import (  # noqa: E402
@@ -353,6 +380,23 @@ CLI_FLEET, CLI_CHUNK = 256, 128   # launch/serve.py --fleet, its CI leg
 SCAN_CHUNK = 40                   # 96 = 40 + 40 + 16: a ragged last chunk
 SCRUB_CHUNK = 1 << 20             # codewords a scrub chunk
 DISCOVER_DIMMS, DISCOVER_CHUNKS = 512, (128, 100)
+# RWKV-6 training: the backward kernel at the training shape, against its
+# plain version (it sums in another order): float32 gradients within rtol =
+# atol = 1e-3, gradients stored in bfloat16 within 2 of its ulps (rtol 8e-3)
+# and atol 1e-3 (tests/test_torch_train_cuda.py)
+WKV_TRAIN = (8, 512, 32, 64)
+WKV_BWD_TOL = {torch.float32: (1e-3, 1e-3), torch.bfloat16: (8e-3, 1e-3)}
+# S = 1 and S around the kernel's 8-step chunk (kC, csrc/wkv6_bwd.cu)
+WKV_BWD_EDGES = ((1, 1, 2, 64), (2, 7, 3, 8), (2, 9, 3, 16), (2, 17, 3, 32),
+                 (2, 130, 2, 64))
+# fp32 operations the backward needs per (b, h, t): 14 per (i, j) and 21 per
+# i (csrc/wkv6_bwd.cu's header)
+WKV_BWD_FLOPS_PER_IJ, WKV_BWD_FLOPS_PER_I = 14, 21
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 8
+# the card against the port on the CPU: full width cut to 2 layers, float32
+# compute; float32 sums in other orders (cuBLAS, the kernels) on the card
+TRAIN_CPU_LAYERS, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 2, 2, 128
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_GRAD_TOL = 1e-5, 1e-4, 1e-3
 # phases 4-17 keep the dense results that phase 22 holds the scans to
 DENSE: dict = {}
 
@@ -1512,12 +1556,6 @@ def greedy(logits):
     return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        return [leaf for v in tree.values() for leaf in _leaves(v)]
-    return [tree]
-
-
 def teacher_logits(cfg, params, seq):
     """Prefill ``seq[:, :CPU_PROMPT]`` and decode its other tokens one by one
     on the parameters' device: every step's last logits, (B, n, V) float32
@@ -1540,7 +1578,7 @@ def rwkv6_serving_phase(dev) -> dict:
     params = model.init_params(SERVE_SEED, cfg, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for t in tree_leaves(params))
     prompts = make_batch(cfg, SERVE_BATCH, SERVE_PROMPT, seed=0, step=0)
     prompts["tokens"] = prompts["tokens"][:, :-1]
     ops.reset_launches()
@@ -1640,6 +1678,206 @@ def rwkv6_serving_phase(dev) -> dict:
          controls={k: {"max_abs_err": float(v.max()),
                        "mean_abs_err": float(v.mean())}
                    for k, v in controls.items()})
+    return launches
+
+
+def wkv_bwd_inputs(shape, dev, seed, with_state, kv_dtype=torch.float32):
+    """``wkv_inputs`` (``k``/``v`` in ``kv_dtype``), a seeded cotangent
+    ``dy`` (std 1) and, ``with_state``, a start state (std 0.5) and a
+    final-state cotangent (std 1): the arguments of ``wkv6_bwd``."""
+    r, k, v, w, u = wkv_inputs(shape, dev, seed=seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    dy = torch.randn(shape, generator=gen, device=dev)
+    s0 = ds = None
+    if with_state:
+        B, _, H, dh = shape
+        s0 = torch.randn((B, H, dh, dh), generator=gen, device=dev) * 0.5
+        ds = torch.randn((B, H, dh, dh), generator=gen, device=dev)
+    return r, k.to(kv_dtype), v.to(kv_dtype), w, u, s0, dy, ds
+
+
+def wkv_bwd_compare(args, label: str) -> float:
+    """``wkv6_bwd`` against ``wkv6_bwd_ref`` on the same inputs: every
+    gradient finite, in its input's dtype and within ``WKV_BWD_TOL``, or
+    raise.  Returns the largest |kernel - plain|."""
+    got, want = wkv6_bwd(*args), wkv6_bwd_ref(*args)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, g, w in zip(("dr", "dk", "dv", "dwlog", "du", "dinit"), got, want):
+        if w is None:
+            if g is not None:
+                raise AssertionError(f"wkv6_bwd ({label}) gave {name} without a start state")
+            continue
+        if g.dtype != w.dtype or g.shape != w.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"wkv6_bwd ({label}) {name}: {g.dtype} "
+                                 f"{tuple(g.shape)}, not finite or not {w.dtype} "
+                                 f"{tuple(w.shape)}")
+        rtol, atol = WKV_BWD_TOL[torch.bfloat16 if w.dtype == torch.bfloat16
+                                 else torch.float32]
+        diff = (g.float() - w.float()).abs()
+        if bool((diff > atol + rtol * w.float().abs()).any()):
+            raise AssertionError(f"wkv6_bwd ({label}) {name} differs from its plain "
+                                 f"version by {float(diff.max())} (rtol {rtol}, atol {atol})")
+        err = max(err, float(diff.max()))
+    return err
+
+
+def wkv_bwd_work(args) -> tuple[int, int]:
+    """(bytes, fp32 operations) of one wkv6_bwd call: each input (and dy,
+    and the state and its cotangent where given) read once, each gradient
+    written once in its input's dtype."""
+    r, k, v, w, u, s0, dy, ds = args
+    B, S, H, dh = r.shape
+    size = lambda t: 0 if t is None else t.numel() * t.element_size()
+    n_bytes = 2 * sum(size(t) for t in (r, k, v, w, u, s0)) + size(dy) + size(ds)
+    return n_bytes, B * H * S * (WKV_BWD_FLOPS_PER_IJ * dh * dh + WKV_BWD_FLOPS_PER_I * dh)
+
+
+def wkv_bwd_kernel_vs_plain(dev) -> dict:
+    """Phase 23: ``wkv6_bwd`` against its plain version; returns its
+    ``kernels``-line fields (at the training shape, float32)."""
+    cases = {}
+    main_args = wkv_bwd_inputs(WKV_TRAIN, dev, seed=31, with_state=False)
+    cases["train"] = wkv_bwd_compare(main_args, "train")
+    mixed = wkv_bwd_inputs(WKV_TRAIN, dev, seed=31, with_state=False,
+                           kv_dtype=torch.bfloat16)
+    cases["train_bf16_kv"] = wkv_bwd_compare(mixed, "train, bfloat16 k/v")
+    cases["train_init_state"] = wkv_bwd_compare(
+        wkv_bwd_inputs(WKV_TRAIN, dev, seed=33, with_state=True), "train, init state")
+    for shape in WKV_BWD_EDGES:
+        for with_state in (False, True):
+            label = "x".join(map(str, shape)) + ("_init_state" if with_state else "")
+            cases[label] = wkv_bwd_compare(
+                wkv_bwd_inputs(shape, dev, seed=shape[1] * shape[3], with_state=with_state),
+                label)
+    # no atomics: the same bits every run
+    first, again = wkv6_bwd(*mixed), wkv6_bwd(*mixed)
+    if not all(torch.equal(a, b) for a, b in zip(first, again) if a is not None):
+        raise AssertionError("wkv6_bwd gave other bits on a second run")
+    ms = cuda_ms(lambda: wkv6_bwd(*main_args), 20)
+    mix_ms = cuda_ms(lambda: wkv6_bwd(*mixed), 20)
+    plain_ms = cuda_ms(lambda: wkv6_bwd_ref(*main_args), 3)
+    fwd_ms = cuda_ms(lambda: wkv6(*main_args[:5]), 20)
+    n_bytes, n_ops = wkv_bwd_work(main_args)
+    mix_bytes, _ = wkv_bwd_work(mixed)
+    bw, flops = PEAK_BYTES_PER_S, PEAK_FP32_FLOPS
+    fields = dict(ms=ms, plain_ms=plain_ms, bytes_ms=n_bytes / bw * 1e3,
+                  ops_ms=n_ops / flops * 1e3, library_ms=None,
+                  max_abs_err=max(cases.values()))
+    emit("kernel_vs_plain", kernel="wkv6_bwd", shape=list(WKV_TRAIN),
+         max_abs_err_by_case=cases,
+         bound={"float32": list(WKV_BWD_TOL[torch.float32]),
+                "bfloat16": list(WKV_BWD_TOL[torch.bfloat16])},
+         bytes=n_bytes, flops=n_ops, same_bits_twice=True, training_dtypes_ms=mix_ms,
+         training_dtypes_bytes_ms=mix_bytes / bw * 1e3, forward_kernel_ms=fwd_ms,
+         library="none (no single PyTorch call computes the recurrence's VJP)",
+         **fields)
+    return fields
+
+
+# kernel names by group in the profiled train step
+PROFILE_GROUPS = (("wkv6_bwd", ("wkv6_bwd_kernel", "wkv6_du_kernel")), ("wkv6", ("wkv6_kernel",)),
+                  ("matmul", ("gemm", "nvjet", "xmma")))
+
+
+def profile_train_step(cfg, dev) -> dict:
+    """One full-size train step (after a warm-up step) under
+    ``torch.profiler``: wall ms, kernel ms by group and the idle share
+    (1 - kernel time / wall time; the profiler's own host cost slows the
+    launches, so it reads high), and the 10 longest kernels."""
+    state = build_state(cfg, device=dev)
+    step = make_train_step(cfg)
+    batch = make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, step=0)
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    del state
+    kernels = [(e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    groups = dict.fromkeys([g for g, _ in PROFILE_GROUPS] + ["other"], 0.0)
+    fp32_mm = 0.0
+    for name, _, ms in kernels:
+        group = next((g for g, keys in PROFILE_GROUPS if any(k in name for k in keys)), "other")
+        groups[group] += ms
+        if group == "matmul" and ("f32f32" in name or "sgemm" in name):
+            fp32_mm += ms
+    kernel_ms = sum(groups.values())
+    if not groups["wkv6_bwd"] or not groups["wkv6"]:
+        raise AssertionError(f"the profiled step shows no wkv6 / wkv6_bwd kernel: {groups}")
+    return dict(wall_ms=wall_ms, kernel_ms=kernel_ms, idle_share=1 - kernel_ms / wall_ms,
+                kernel_ms_by_group=groups, fp32_matmul_ms=fp32_mm,
+                top=[dict(kernel=name[:90], count=n, ms=ms)
+                     for name, n, ms in sorted(kernels, key=lambda k: -k[2])[:10]])
+
+
+def rwkv6_training_phase(dev) -> dict:
+    """Phase 24: RWKV-6 training at full width and depth, then the card
+    against the CPU port at 2 layers; returns the training run's launches."""
+    cfg = get_config(ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = train_main(["--arch", ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+                      str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--log-every", "1"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = counted({"wkv6": 2 * cfg.n_layers * TRAIN_STEPS,
+                        "wkv6_bwd": cfg.n_layers * TRAIN_STEPS})
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = out["losses"]
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"training losses {losses}")
+    steady = statistics.median(out["step_s"][1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    emit("rwkv6_training", arch=ARCH, n_layers=cfg.n_layers, d_model=cfg.d_model,
+         d_ff=cfg.d_ff, vocab=cfg.vocab_size, param_dtype=cfg.param_dtype,
+         compute_dtype=cfg.compute_dtype, remat=cfg.remat, optimizer=cfg.optimizer,
+         batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS, losses=losses,
+         step_s=out["step_s"], first_step_s=out["step_s"][0], median_step_s=steady,
+         tokens_per_s=tokens / steady, run_s=run_s, max_memory_allocated=peak,
+         launches=launches)
+    torch.cuda.empty_cache()
+    emit("rwkv6_training_profile", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+         **profile_train_step(cfg, dev))
+    torch.cuda.empty_cache()
+
+    # the card against the port on the CPU: 2 layers, full width, float32
+    small = cfg.replace(n_layers=TRAIN_CPU_LAYERS, compute_dtype="float32")
+    host = model.init_params(SERVE_SEED, small, device="cpu")
+    batch = make_batch(small, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, seed=5, step=0)
+    res = {}
+    for name, params in (("cpu", host), ("card", model.params_to(host, dev))):
+        p = tree_map(lambda t: t.detach().requires_grad_(), params)
+        loss, _ = model.loss_fn(small, p, batch)
+        grads = tree_unflatten(p, torch.autograd.grad(loss, tree_leaves(p)))
+        res[name] = (float(loss.detach()), float(global_norm(grads)),
+                     [g.float().cpu() for g in tree_leaves(grads)])
+    (loss_c, gn_c, g_c), (loss_g, gn_g, g_g) = res["cpu"], res["card"]
+    if abs(loss_g - loss_c) > TRAIN_LOSS_RTOL * abs(loss_c) \
+            or abs(gn_g - gn_c) > TRAIN_GNORM_RTOL * abs(gn_c):
+        raise AssertionError(f"card vs CPU: loss {loss_g} / {loss_c}, gnorm "
+                             f"{gn_g} / {gn_c}")
+    leaf_err = []
+    for a, b in zip(g_g, g_c):
+        if not torch.isfinite(a).all():
+            raise AssertionError("a card gradient is not finite")
+        leaf_err.append(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30))
+    if max(leaf_err) > TRAIN_GRAD_TOL:
+        raise AssertionError(f"card vs CPU gradients: {max(leaf_err)} of the leaf's "
+                             f"largest (bound {TRAIN_GRAD_TOL})")
+    emit("rwkv6_training_card_vs_cpu", n_layers=TRAIN_CPU_LAYERS, d_model=small.d_model,
+         vocab=small.vocab_size, compute_dtype="float32", batch=TRAIN_CPU_BATCH,
+         seq=TRAIN_CPU_SEQ, loss_cpu=loss_c, loss_card=loss_g, gnorm_cpu=gn_c,
+         gnorm_card=gn_g, leaves=len(leaf_err), max_scaled_grad_err=max(leaf_err),
+         bounds=dict(loss_rtol=TRAIN_LOSS_RTOL, gnorm_rtol=TRAIN_GNORM_RTOL,
+                     grad_scaled=TRAIN_GRAD_TOL))
     return launches
 
 
@@ -2158,6 +2396,11 @@ def main() -> int:
     # ---- 20-22. the fleet service, its CPU twin and CLI, the streamed scans
     paths += [fleet_phase(dev), serve_twin_phase(dev),
               stream_scans_phase(batch, diva)]
+    DENSE.clear()
+
+    # ---- 23-24. the wkv6 backward kernel, and RWKV-6 training at full width
+    ints["wkv6_bwd"] = wkv_bwd_kernel_vs_plain(dev)
+    paths.append(rwkv6_training_phase(dev))
     total = {name: sum(p[name] for p in paths) for name in ops.KERNELS}
 
     rows = [dict(name="fail_prob",
@@ -2178,6 +2421,9 @@ def main() -> int:
         rows.append(dict(name=name,
                          source=f"src/repro_torch/kernels/csrc/{source}",
                          replaces=f"src/repro/kernels/{replaces}", **ints[name]))
+    # no Pallas twin: the reference differentiates its scan with XLA
+    rows.append(dict(name="wkv6_bwd", source="src/repro_torch/kernels/csrc/wkv6_bwd.cu",
+                     replaces="src/repro/models/rwkv6.py:54", **ints["wkv6_bwd"]))
     print(json.dumps({"kernels": [{
         "name": r["name"], "route": "cuda", "source": r["source"],
         "replaces": r["replaces"], "launches": total[r["name"]],

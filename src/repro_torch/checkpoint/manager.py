@@ -7,10 +7,11 @@ interleave, ``memsys/codec.protect_blob``: the ``secded_encode`` and
 Restore verifies and corrects every burst (scrubbing: ``diva_shuffle`` and
 ``secded_syndrome``).
 
-A state is a flat ``dict[str, array]`` of numpy arrays or tensors, flattened
-in sorted-key order — the order ``jax.tree_util`` gives a dict — so the
-on-disk layout matches the reference's leaf for leaf and either package
-restores the other's checkpoints:
+A state is a dict of numpy arrays or tensors, nested or flat (a train state
+``{"params", "opt", "step"}``), flattened in sorted-key order at every level
+— the order ``jax.tree_util`` gives a dict — so the on-disk layout matches
+the reference's leaf for leaf and either package restores the other's
+checkpoints:
 
     <dir>/step_<k>/meta.json + leaf_<i>.npy (+ leaf_<i>.ecc.npy: packed lanes)
 
@@ -33,6 +34,7 @@ from repro_torch.device import resolve_device
 from repro_torch.memsys import codec
 from repro_torch.obs import REGISTRY as _OBS_REGISTRY
 from repro_torch.obs import span as _span
+from repro_torch.tree import tree_leaves, tree_unflatten
 
 # Counters and duration histograms at the save/restore boundaries (host
 # I/O), including the scrubbing signal: corrected codewords per restore.
@@ -49,13 +51,20 @@ _M_RESTORE_S = _OBS_REGISTRY.histogram(
     "repro_checkpoint_restore_seconds", "checkpoint restore wall time")
 
 
-def _flatten(state: dict) -> tuple[list[str], list]:
-    """Keys and leaves in sorted-key order (jax's order for a dict)."""
+def _flatten(state: dict) -> list:
+    """The leaves in sorted-key order (jax's order for a dict)."""
     if not isinstance(state, dict):
         raise TypeError(f"a checkpoint state is a dict of arrays, got "
                         f"{type(state).__name__}")
-    keys = sorted(state)
-    return keys, [state[k] for k in keys]
+    return tree_leaves(state)
+
+
+def _treedef(tree) -> str:
+    """The structure as jax prints a dict treedef (for the reference's
+    reader; ``restore`` here follows its example state)."""
+    if isinstance(tree, dict):
+        return "{%s}" % ", ".join(f"{k!r}: {_treedef(tree[k])}" for k in sorted(tree))
+    return "*"
 
 
 def _host(leaf) -> np.ndarray:
@@ -93,15 +102,13 @@ class CheckpointManager:
         return out
 
     def _save(self, step: int, state: dict, device) -> Path:
-        keys, flat = _flatten(state)
+        flat = _flatten(state)
         dev = resolve_device(device) if self.protect else None
         tmp = self.dir / f".tmp_step_{step}"
         if tmp.exists():
             shutil.rmtree(tmp)
         tmp.mkdir(parents=True)
-        meta = {"step": step,
-                "treedef": "PyTreeDef({%s})" % ", ".join(f"{k!r}: *"
-                                                         for k in keys),
+        meta = {"step": step, "treedef": f"PyTreeDef({_treedef(state)})",
                 "leaves": []}
         for i, leaf in enumerate(flat):
             arr = _host(leaf)
@@ -143,7 +150,7 @@ class CheckpointManager:
 
     def restore(self, example_state: dict, step: int | None = None, *,
                 device=None, verify: bool = True):
-        """Restore into the keys, shapes and dtypes of ``example_state``
+        """Restore into the structure, shapes and dtypes of ``example_state``
         (step: the newest by default).  The codec runs on ``device``
         (default: the CUDA device); a leaf whose example is a tensor comes
         back as a tensor on ``device``, any other as numpy.  Returns
@@ -157,7 +164,7 @@ class CheckpointManager:
 
     def _restore(self, example_state: dict, step: int | None, device,
                  verify: bool):
-        keys, flat = _flatten(example_state)
+        flat = _flatten(example_state)
         wants_tensors = any(isinstance(x, torch.Tensor) for x in flat)
         dev = resolve_device(device) \
             if wants_tensors or (verify and self.protect) else None
@@ -170,9 +177,9 @@ class CheckpointManager:
         if len(meta["leaves"]) != len(flat):
             raise ValueError(f"step {step} has {len(meta['leaves'])} leaves; "
                              f"the example state has {len(flat)}")
-        out = {}
+        out = []
         n_corrected = 0
-        for i, (key, leaf, info) in enumerate(zip(keys, flat, meta["leaves"])):
+        for i, (leaf, info) in enumerate(zip(flat, meta["leaves"])):
             arr = np.load(d / f"leaf_{i}.npy", allow_pickle=False)
             if verify and self.protect and (d / f"leaf_{i}.ecc.npy").exists():
                 packed = np.load(d / f"leaf_{i}.ecc.npy", allow_pickle=False)
@@ -186,9 +193,9 @@ class CheckpointManager:
                 arr = np.frombuffer(raw, dtype=info["dtype"]).reshape(
                     info["shape"]).copy()
             if isinstance(leaf, torch.Tensor):
-                out[key] = torch.as_tensor(arr).to(dev, leaf.dtype).reshape(
-                    leaf.shape)
+                out.append(torch.as_tensor(arr).to(dev, leaf.dtype).reshape(leaf.shape))
             else:
                 ex = np.asarray(leaf)
-                out[key] = arr.astype(ex.dtype).reshape(ex.shape)
-        return out, {"step": step, "corrected_codewords": n_corrected}
+                out.append(arr.astype(ex.dtype).reshape(ex.shape))
+        return tree_unflatten(example_state, out), {"step": step,
+                                                    "corrected_codewords": n_corrected}

@@ -1,2 +1,3 @@
-"""Synthetic token batches (``pipeline.make_batch``), the same bits as the
-reference's."""
+"""Synthetic token batches (``pipeline.make_batch``, the same bits as the
+reference's), the training stream ``SyntheticLM`` and its ``Prefetcher``."""
+from repro_torch.data.pipeline import Prefetcher, SyntheticLM, make_batch

@@ -45,25 +45,17 @@
 // barriers close a chunk, none is inside it.  The start state is read and
 // the final state written by the threads that hold it, 16 bytes a thread.
 
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wkv6_io.cuh"
+
 namespace {
 
+using wkv6io::load_raw;
+using wkv6io::widen;
+
 constexpr int kT = 12;   // steps per chunk
-enum Dtype { kF32 = 0, kF16 = 1, kBF16 = 2 };
-
-__device__ __forceinline__ uint32_t load_raw(const void* p, int code, size_t idx) {
-  if (code == kF32) return __ldg(static_cast<const unsigned int*>(p) + idx);
-  return __ldg(static_cast<const unsigned short*>(p) + idx);
-}
-
-__device__ __forceinline__ float widen(uint32_t bits, int code) {
-  if (code == kF32) return __uint_as_float(bits);
-  if (code == kF16) return __half2float(__ushort_as_half(static_cast<unsigned short>(bits)));
-  return __uint_as_float(bits << 16);   // bfloat16: the high half of a float32
-}
 
 // A thread's tile of the state: kRows x kCols, by head width
 template <int kDh> struct Tile;
@@ -256,7 +248,7 @@ extern "C" int wkv6_launch(const void* r, const void* k, const void* v, const vo
   if (B < 1 || S < 1 || H < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int codes[4] = {r_dtype, k_dtype, v_dtype, w_dtype};
   for (int c : codes)
-    if (c < kF32 || c > kBF16) return static_cast<int>(cudaErrorInvalidValue);
+    if (!wkv6io::valid(c)) return static_cast<int>(cudaErrorInvalidValue);
   switch (dh) {
     case 8: launch<8>(r, k, v, wlog, r_dtype, k_dtype, v_dtype, w_dtype, u, s0, y, s_out,
                       B, S, H, stream); break;

@@ -17,10 +17,18 @@ it.  Inputs may be float32, float16 or bfloat16, each its own; both versions
 compute in float32, and the kernel reads each input in its own dtype (the
 serving path passes bfloat16 ``k``/``v`` and float32 ``r``/``wlog``).
 
-Dispatch is by the tensors' device alone: CPU tensors go to ``wkv6_ref``,
-CUDA tensors to the kernel in ``csrc/wkv6.cu`` (its header states the bound
-and the design); anything else raises.  ``wkv6.launches`` counts kernel
-launches.
+``wkv6`` is differentiable: it runs through ``Wkv6Fn``, whose backward is
+``wkv6_bwd``, the vector-Jacobian product of the recurrence (the port's
+counterpart of XLA's autodiff of ``wkv6_scan``, which the reference trains
+through: the Pallas kernel has no VJP).  It returns the gradients of ``r, k,
+v, wlog, u`` in their inputs' dtypes and of ``init_state`` (float32) when one
+was given.
+
+Dispatch is by the tensors' device alone: CPU tensors go to the plain
+versions ``wkv6_ref`` / ``wkv6_bwd_ref``, CUDA tensors to the kernels in
+``csrc/wkv6.cu`` / ``csrc/wkv6_bwd.cu`` (their headers state the bounds and
+the designs); anything else raises.  ``wkv6.launches`` and
+``wkv6_bwd.launches`` count kernel launches.
 """
 from __future__ import annotations
 
@@ -125,15 +133,10 @@ def _launch(r, k, v, wlog, u, init_state):
     return y, state
 
 
-def wkv6(r, k, v, wlog, u, init_state=None):
-    """``r, k, v, wlog``: (B, S, H, dh); ``u``: (H, dh); ``init_state``: None
-    (zeros) or (B, H, dh, dh) float32; all on one device.  Returns ``(y, s)``:
-    y (B, S, H, dh) float32 and the final state (B, H, dh, dh) float32."""
-    _check(r, k, v, wlog, u, init_state)
-    kind = r.device.type
-    if kind not in ("cpu", "cuda"):
-        raise ValueError(f"wkv6 runs on cpu or cuda tensors, not {kind}")
-    if kind == "cpu":
+def _forward(r, k, v, wlog, u, init_state):
+    """``(y, final state)`` on the tensors' device: the plain version on the
+    CPU, the kernel (counted) on a card."""
+    if r.device.type == "cpu":
         return wkv6_ref(r, k, v, wlog, u, init_state)
     B, S, H, dh = r.shape
     if S == 0 or B * H == 0:
@@ -145,4 +148,163 @@ def wkv6(r, k, v, wlog, u, init_state=None):
     return out
 
 
+class Wkv6Fn(torch.autograd.Function):
+    """The recurrence as an autograd node: forward ``_forward``, backward
+    ``wkv6_bwd`` (the kernel on a card, ``wkv6_bwd_ref`` on the CPU).  Saves
+    the inputs, not the states: the backward recomputes them."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, wlog, u, init_state):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, wlog, u, init_state)
+        return _forward(r, k, v, wlog, u, init_state)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        r, k, v, wlog, u, init_state = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
+        grads = wkv6_bwd(r, k, v, wlog, u, init_state, dy, dstate)
+        return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))
+
+
+def wkv6(r, k, v, wlog, u, init_state=None):
+    """``r, k, v, wlog``: (B, S, H, dh); ``u``: (H, dh); ``init_state``: None
+    (zeros) or (B, H, dh, dh) float32; all on one device.  Returns ``(y, s)``:
+    y (B, S, H, dh) float32 and the final state (B, H, dh, dh) float32, both
+    differentiable through ``Wkv6Fn``."""
+    _check(r, k, v, wlog, u, init_state)
+    kind = r.device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"wkv6 runs on cpu or cuda tensors, not {kind}")
+    return Wkv6Fn.apply(r, k, v, wlog, u, init_state)
+
+
 wkv6.launches = 0
+
+
+# ------------------------------------------------------------------ backward
+
+def wkv6_bwd_ref(r, k, v, wlog, u, init_state, dy, dstate=None):
+    """Plain PyTorch version of the backward kernel, on any device: the VJP
+    of ``wkv6_ref`` written out.  The forward loop keeps every state S_{t-1};
+    the reverse loop carries G_t = dL/dS_t (from ``dstate``, or zeros):
+
+        dr_t    = S_{t-1} dy_t + u k_t (dy_t . v_t)
+        dk_t    = G_t v_t + r_t u (dy_t . v_t)
+        dv_t    = G_t^T k_t + dy_t (r_t . u k_t)
+        dwlog_t = -(exp(wlog_t) w_t) rowsum(G_t * S_{t-1})
+        du      = sum over b, t of r_t k_t (dy_t . v_t)
+        G_{t-1} = diag(w_t) G_t + r_t^T dy_t
+
+    Returns ``(dr, dk, dv, dwlog, du, d init_state)``, each in its input's
+    dtype (float32 arithmetic); the last is None without an ``init_state``."""
+    B, S, H, dh = r.shape
+    rf, kf, vf, wf = (t.float() for t in (r, k, v, wlog))
+    uf, dyf = u.float(), dy.float()
+    zeros = dict(dtype=torch.float32, device=r.device)
+    s = torch.zeros((B, H, dh, dh), **zeros) if init_state is None else init_state.float()
+    before = []                                             # S_{t-1}
+    for t in range(S):
+        before.append(s)
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]
+        s = torch.exp(-torch.exp(wf[:, t]))[..., None] * s + kv
+    g = torch.zeros((B, H, dh, dh), **zeros) if dstate is None else dstate.float()
+    dr, dk, dv, dw = (torch.zeros((B, S, H, dh), **zeros) for _ in range(4))
+    du = torch.zeros((H, dh), **zeros)
+    for t in reversed(range(S)):
+        sp = before[t]
+        rt, kt, vt, wt, dyt = rf[:, t], kf[:, t], vf[:, t], wf[:, t], dyf[:, t]
+        dyv = (dyt * vt).sum(-1, keepdim=True)              # (B, H, 1)
+        ruk = (rt * uf * kt).sum(-1, keepdim=True)
+        e = torch.exp(wt)
+        w = torch.exp(-e)
+        dr[:, t] = torch.einsum("bhij,bhj->bhi", sp, dyt) + uf * kt * dyv
+        dk[:, t] = torch.einsum("bhij,bhj->bhi", g, vt) + rt * uf * dyv
+        dv[:, t] = torch.einsum("bhij,bhi->bhj", g, kt) + dyt * ruk
+        dw[:, t] = -(e * w) * (g * sp).sum(-1)
+        du += (rt * kt * dyv).sum(0)
+        g = w[..., None] * g + rt[..., :, None] * dyt[..., None, :]
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(wlog.dtype),
+            du.to(u.dtype), None if init_state is None else g)
+
+
+@functools.cache
+def _bwd_entry():
+    """``wkv6_bwd_launch`` of the backward kernel's library, built if needed,
+    with its ctypes signature set once."""
+    from repro_torch.kernels.build import load
+    fn = load("wkv6_bwd").wkv6_bwd_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    return fn
+
+
+CHUNK_BWD = 8   # steps between the backward kernel's saved states (kC, csrc/wkv6_bwd.cu)
+
+
+def _bwd_launch(r, k, v, wlog, u, init_state, dy, dstate):
+    """Launch the backward kernel (and its deterministic sum of du over the
+    batch); returns the gradients or raises."""
+    B, S, H, dh = r.shape
+    if dh not in DH:
+        raise ValueError(f"the wkv6_bwd kernel is built for dh in {DH}, got {dh}")
+    r, k, v, wlog = (t.contiguous() for t in (r, k, v, wlog))
+    uf = u.float().contiguous()
+    dy = dy.float().contiguous()
+    s0 = None if init_state is None else init_state.contiguous()
+    ds = None if dstate is None else dstate.float().contiguous()
+    dr, dk, dv, dw = (torch.empty_like(t) for t in (r, k, v, wlog))
+    du = torch.empty((H, dh), dtype=u.dtype, device=r.device)
+    du_part = r.new_empty((B, H, dh), dtype=torch.float32)
+    ds0 = None if s0 is None else torch.empty_like(s0)
+    ckpt = r.new_empty((B, H, -(-S // CHUNK_BWD), dh, dh), dtype=torch.float32)
+    ptr = lambda t: 0 if t is None else t.data_ptr()
+    index = r.device.index
+    args = (r.data_ptr(), k.data_ptr(), v.data_ptr(), wlog.data_ptr(),
+            _CODE[r.dtype], _CODE[k.dtype], _CODE[v.dtype], _CODE[wlog.dtype],
+            _CODE[u.dtype], uf.data_ptr(), ptr(s0), dy.data_ptr(), ptr(ds),
+            dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
+            du_part.data_ptr(), ptr(ds0), ckpt.data_ptr(), B, S, H, dh,
+            torch._C._cuda_getCurrentRawStream(index))
+    if index == torch.cuda.current_device():
+        err = _bwd_entry()(*args)
+    else:
+        with torch.cuda.device(index):
+            err = _bwd_entry()(*args)
+    if err != 0:
+        raise RuntimeError(f"wkv6_bwd failed: CUDA error {err}")
+    return dr, dk, dv, dw, du, ds0
+
+
+def wkv6_bwd(r, k, v, wlog, u, init_state, dy, dstate=None):
+    """The VJP of ``wkv6`` at ``(r, k, v, wlog, u, init_state)`` for the
+    cotangents ``dy`` (B, S, H, dh) of ``y`` and ``dstate`` (None for zeros,
+    or (B, H, dh, dh)) of the final state.  Returns ``(dr, dk, dv, dwlog, du,
+    d init_state)`` as ``wkv6_bwd_ref`` does: the plain version on CPU
+    tensors, the kernel on CUDA tensors."""
+    _check(r, k, v, wlog, u, init_state)
+    if dy.shape != r.shape or dy.device != r.device:
+        raise ValueError(f"dy must be {tuple(r.shape)} on {r.device}, got "
+                         f"{tuple(dy.shape)} on {dy.device}")
+    B, S, H, dh = r.shape
+    if dstate is not None and (dstate.shape != (B, H, dh, dh) or dstate.device != r.device):
+        raise ValueError(f"dstate must be (B, H, dh, dh) = {(B, H, dh, dh)} on "
+                         f"{r.device}, got {tuple(dstate.shape)} on {dstate.device}")
+    kind = r.device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"wkv6_bwd runs on cpu or cuda tensors, not {kind}")
+    if kind == "cpu":
+        return wkv6_bwd_ref(r, k, v, wlog, u, init_state, dy, dstate)
+    if S == 0 or B * H == 0:
+        zeros = [torch.zeros_like(t) for t in (r, k, v, wlog, u)]
+        d0 = None if init_state is None else (
+            torch.zeros_like(init_state) if dstate is None else dstate.float().clone())
+        return (*zeros, d0)
+    out = _bwd_launch(r, k, v, wlog, u, init_state, dy, dstate)
+    wkv6_bwd.launches += 1
+    return out
+
+
+wkv6_bwd.launches = 0

@@ -1,6 +1,6 @@
-"""Shared model building blocks: dtypes, init and norms (the part of
-``repro.models.layers`` that the rwkv6 family uses; the MLP, rotary and loss
-helpers wait for the other families and for training)."""
+"""Shared model building blocks: dtypes, init, norms and the loss (the part
+of ``repro.models.layers`` that the rwkv6 family uses; the MLP and rotary
+helpers wait for the other families)."""
 from __future__ import annotations
 
 import torch
@@ -55,3 +55,15 @@ def apply_norm(cfg: ModelConfig, p, x):
     if cfg.norm == "rmsnorm":
         return rmsnorm(x, p["scale"])
     return layernorm(x, p["scale"], p["bias"])
+
+
+def cross_entropy(logits, labels, mask=None):
+    """Mean next-token CE in fp32. logits (..., V), labels (...) integer."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

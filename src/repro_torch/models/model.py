@@ -4,19 +4,26 @@ The counterpart of ``repro.models.model`` for the ssm family: parameters
 are nested dicts of tensors with the reference's keys and its layer-stacked
 layout (a leading ``n_layers`` axis on every leaf under ``"layers"``), so a
 reference parameter tree carries across one to one (``params_from_numpy``).
-The layer stack is a plain Python loop: the reference's ``remat``, ``unroll``
-and sequence-sharding switches belong to training and sharding, which are
-not ported.  Any other family raises ``ValueError``.
+The layer stack is a plain Python loop over the stacked leaves, unbound once
+(so that the backward stacks each leaf's gradient once).  With
+``cfg.remat == "full"`` and autograd on, each layer runs under
+``torch.utils.checkpoint`` (non-reentrant), the counterpart of the
+reference's ``jax.checkpoint`` in ``_scan_layers``: only a layer's input is
+kept, and the backward recomputes the layer, its ``wkv6`` included.  The
+reference's ``unroll`` and sequence-sharding switches belong to its XLA cost
+analysis and to sharding, which are not ported.  Any other family raises
+``ValueError``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import rwkv6 as rwkv
-from repro_torch.models.layers import apply_norm, dtype_of, norm_params
+from repro_torch.models.layers import apply_norm, cross_entropy, dtype_of, norm_params
 
 # Param leaves kept in fp32 regardless of compute dtype (routing / SSM dynamics
 # / norm statistics are precision-sensitive).
@@ -115,19 +122,45 @@ def _layer_slice(stacked, i: int):
     return _map_named(lambda _, a: a[i], stacked)
 
 
+def _unbind_layers(stacked, n: int) -> list:
+    """The layer-stacked tree as ``n`` per-layer trees of views."""
+    flat = _map_named(lambda _, a: a.unbind(0), stacked)
+    return [_map_named(lambda _, parts, i=i: parts[i], flat) for i in range(n)]
+
+
 # =============================================================== forward
+
+def _layer(cfg, lp, x):
+    t, _ = rwkv.rwkv_time_mix(cfg, lp, x)
+    x = x + t
+    c, _ = rwkv.rwkv_channel_mix(cfg, lp, x)
+    return x + c
+
 
 def forward(cfg: ModelConfig, params, batch):
     """Returns (logits (B, S, V), aux_loss 0).  ``batch["tokens"]``: (B, S)
-    integer tokens (inputs only); runs on the parameters' device."""
+    integer tokens (inputs only); runs on the parameters' device.  With
+    ``cfg.remat == "full"`` the backward recomputes each layer; without
+    autograd that changes nothing."""
     _check_family(cfg)
     params = cast_params(params, cfg)
+    remat = cfg.remat == "full"
     x = _embed(cfg, params, batch["tokens"])
-    for i in range(cfg.n_layers):
-        lp = _layer_slice(params["layers"], i)
-        t, _ = rwkv.rwkv_time_mix(cfg, lp, x)
-        x = x + t
-        c, _ = rwkv.rwkv_channel_mix(cfg, lp, x)
-        x = x + c
+    for lp in _unbind_layers(params["layers"], cfg.n_layers):
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(_layer, cfg, lp, x, use_reentrant=False)
+        else:
+            x = _layer(cfg, lp, x)
     x = apply_norm(cfg, params["final_norm"], x)
     return _logits(cfg, params, x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# =============================================================== loss
+
+def loss_fn(cfg: ModelConfig, params, batch, *, aux_weight: float = 0.01):
+    """batch["tokens"]: (B, S+1); loss = CE(next token) + aux (0 for ssm).
+    Returns (loss, {"ce", "aux"})."""
+    tokens = torch.as_tensor(batch["tokens"], device=param_device(params))
+    logits, aux = forward(cfg, params, {**batch, "tokens": tokens[:, :-1]})
+    ce = cross_entropy(logits, tokens[:, 1:])
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}

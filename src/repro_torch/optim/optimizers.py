@@ -1,0 +1,151 @@
+"""Optimizers on nested dicts of tensors (the counterpart of
+``repro.optim.optimizers``).
+
+``Optimizer`` is a pair of functions (init, update) like the reference's:
+``update(grads, state, params, lr) -> (new_params, new_state)`` is
+functional (it returns new trees and leaves its arguments as they are) and
+runs under ``torch.no_grad()``; the learning rate comes from outside, so
+schedules stay out of the state.  The states have the reference's leaves
+(``{"m", "v", "count"}`` for AdamW, ``{"f", "count"}`` for Adafactor,
+``{"m", "count"}`` for SGD with momentum) and its float32 order of
+operations.  Weight decay follows the reference's rule ``p.ndim >= 2``: on
+the layer-stacked ``(L, ...)`` leaves of a model it also decays norms and
+the per-channel vectors, as the reference does.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from repro_torch.tree import tree_leaves, tree_map, tree_unzip
+
+
+class Optimizer(NamedTuple):
+    init: Callable[[Any], Any]
+    update: Callable[..., tuple[Any, Any]]  # (grads, state, params, lr) -> (new_params, new_state)
+    name: str
+
+
+def _zeros(p, dtype=torch.float32, shape=None):
+    return torch.zeros(p.shape if shape is None else shape, dtype=dtype, device=p.device)
+
+
+def _count(params):
+    return torch.zeros((), dtype=torch.int32, device=tree_leaves(params)[0].device)
+
+
+def global_norm(tree) -> torch.Tensor:
+    leaves = tree_leaves(tree)
+    return torch.sqrt(sum(torch.sum(torch.square(leaf.float())) for leaf in leaves))
+
+
+def clip_by_global_norm(tree, max_norm: float):
+    """``(tree scaled so that its global norm is at most max_norm, the norm
+    before)``; each leaf keeps its dtype."""
+    gn = global_norm(tree)
+    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
+    return tree_map(lambda g: (g.float() * scale).to(g.dtype), tree), gn
+
+
+def adamw(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1) -> Optimizer:
+    def init(params):
+        return {"m": tree_map(_zeros, params), "v": tree_map(_zeros, params),
+                "count": _count(params)}
+
+    @torch.no_grad()
+    def update(grads, state, params, lr):
+        c = state["count"] + 1
+        bc1 = 1 - b1 ** c.float()
+        bc2 = 1 - b2 ** c.float()
+
+        def upd(g, m, v, p):
+            g = g.float()
+            m = b1 * m + (1 - b1) * g
+            v = b2 * v + (1 - b2) * g * g
+            step = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+            if p.ndim >= 2:  # decay matrices only (norms/bias exempt)
+                step = step + weight_decay * p.float()
+            return (p.float() - lr * step).to(p.dtype), m, v
+
+        new_params, new_m, new_v = tree_unzip(
+            tree_map(upd, grads, state["m"], state["v"], params), 3)
+        return new_params, {"m": new_m, "v": new_v, "count": c}
+
+    return Optimizer(init, update, "adamw")
+
+
+def adafactor(eps=1e-30, clip_threshold=1.0, decay=0.8, weight_decay=0.0,
+              momentum: bool = False) -> Optimizer:
+    """Factored second moment: for a (..., R, C) tensor keep row/col means.
+
+    State per leaf: {"vr": shape[:-1], "vc": shape[:-2]+(C,)} for ndim>=2,
+    else {"v": shape}. Optional bf16 first moment when momentum=True.
+    """
+    def init(params):
+        def one(p):
+            st = {}
+            if p.ndim >= 2:
+                st["vr"] = _zeros(p, shape=p.shape[:-1])
+                st["vc"] = _zeros(p, shape=p.shape[:-2] + (p.shape[-1],))
+            else:
+                st["v"] = _zeros(p)
+            if momentum:
+                st["m"] = _zeros(p, torch.bfloat16)
+            return st
+        return {"f": tree_map(one, params), "count": _count(params)}
+
+    @torch.no_grad()
+    def update(grads, state, params, lr):
+        c = state["count"] + 1
+        rho = 1.0 - c.float() ** (-decay)
+
+        def one(g, st, p):
+            g = g.float()
+            g2 = g * g + eps
+            new_st = dict(st)
+            if p.ndim >= 2:
+                vr = rho * st["vr"] + (1 - rho) * g2.mean(dim=-1)
+                vc = rho * st["vc"] + (1 - rho) * g2.mean(dim=-2)
+                new_st["vr"], new_st["vc"] = vr, vc
+                denom = (vr[..., None] * vc[..., None, :]) / torch.clamp(
+                    vr.mean(dim=-1, keepdim=True)[..., None], min=eps)
+                u = g * torch.rsqrt(torch.clamp(denom, min=eps))
+            else:
+                v = rho * st["v"] + (1 - rho) * g2
+                new_st["v"] = v
+                u = g * torch.rsqrt(torch.clamp(v, min=eps))
+            # update clipping (RMS)
+            rms = torch.sqrt(torch.mean(u * u))
+            u = u / torch.clamp(rms / clip_threshold, min=1.0)
+            if momentum:
+                m = 0.9 * st["m"].float() + u
+                new_st["m"] = m.to(torch.bfloat16)
+                u = m
+            if weight_decay and p.ndim >= 2:
+                u = u + weight_decay * p.float()
+            return (p.float() - lr * u).to(p.dtype), new_st
+
+        new_params, new_f = tree_unzip(tree_map(one, grads, state["f"], params), 2)
+        return new_params, {"f": new_f, "count": c}
+
+    return Optimizer(init, update, "adafactor")
+
+
+def sgd_momentum(beta=0.9) -> Optimizer:
+    def init(params):
+        return {"m": tree_map(_zeros, params), "count": _count(params)}
+
+    @torch.no_grad()
+    def update(grads, state, params, lr):
+        def upd(g, m, p):
+            m = beta * m + g.float()
+            return (p.float() - lr * m).to(p.dtype), m
+        new_params, new_m = tree_unzip(tree_map(upd, grads, state["m"], params), 2)
+        return new_params, {"m": new_m, "count": state["count"] + 1}
+
+    return Optimizer(init, update, "sgd_momentum")
+
+
+def get_optimizer(name: str) -> Optimizer:
+    return {"adamw": adamw, "adafactor": adafactor, "sgd_momentum": sgd_momentum}[name]()
