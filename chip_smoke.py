@@ -154,8 +154,11 @@ of 512x512 mats, 16 mats and 8 subarrays — it
      stored in bfloat16 within rtol 8e-3, atol 1e-3) at the training shape
      (8, 512, 32, 64) in float32, with the training path's dtypes (``k``/``v``
      bfloat16) and with a start state and a final-state cotangent, and at
-     edge shapes (S = 1, S around the kernel's 8-step chunk, dh 8 to 64);
-     checks that two runs give the same bits; times kernel and plain version;
+     edge shapes (S = 1, S around the kernel's 8-step chunk, dh 8 to 64, a
+     single cluster, an odd H); checks that two runs give the same bits;
+     prints the kernel's blocks and clusters resident per SM and card and
+     its registers, and fails if ptxas or the runtime report a spill; times
+     kernel and plain version;
  24. RWKV-6 training at full width and depth: ``launch.train.main`` on
      ``rwkv6-1.6b`` (24 layers, d_model 2048, 1.48B random float32
      parameters, bfloat16 compute, per-layer remat, AdamW), 8 steps of 8 x
@@ -184,6 +187,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -243,8 +247,9 @@ from repro_torch.kernels.secded import (  # noqa: E402
     encode_checks, encode_checks_ref, syndrome, syndrome_ref)
 from repro_torch.kernels.shuffle import (  # noqa: E402
     _perm_tensor, apply_shuffle, apply_shuffle_ref, shuffle_permutation)
+from repro_torch.kernels.wkv6 import DH as WKV_DH  # noqa: E402
 from repro_torch.kernels.wkv6 import (  # noqa: E402
-    wkv6, wkv6_bwd, wkv6_bwd_ref, wkv6_ref)
+    wkv6, wkv6_bwd, wkv6_bwd_ref, wkv6_bwd_resources, wkv6_ref)
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.launch.serve import main as serve_main  # noqa: E402
 from repro_torch.launch.steps import make_train_step  # noqa: E402
@@ -386,9 +391,13 @@ DISCOVER_DIMMS, DISCOVER_CHUNKS = 512, (128, 100)
 # and atol 1e-3 (tests/test_torch_train_cuda.py)
 WKV_TRAIN = (8, 512, 32, 64)
 WKV_BWD_TOL = {torch.float32: (1e-3, 1e-3), torch.bfloat16: (8e-3, 1e-3)}
-# S = 1 and S around the kernel's 8-step chunk (kC, csrc/wkv6_bwd.cu)
+# S = 1 and S around the kernel's 8-step chunk (kC, csrc/wkv6_bwd.cu); a
+# (b, h) is a cluster of 2 blocks (32 rows each at dh = 64, 16 at dh = 32),
+# one block at dh <= 16: S not a multiple of 8 at dh = 64, a single cluster
+# (B*H = 1), an odd H, S = 1 at each cluster size
 WKV_BWD_EDGES = ((1, 1, 2, 64), (2, 7, 3, 8), (2, 9, 3, 16), (2, 17, 3, 32),
-                 (2, 130, 2, 64))
+                 (2, 130, 2, 64), (1, 21, 1, 64), (3, 13, 5, 64), (1, 37, 1, 32),
+                 (2, 1, 3, 32), (1, 1, 1, 16), (3, 1, 1, 8))
 # fp32 operations the backward needs per (b, h, t): 14 per (i, j) and 21 per
 # i (csrc/wkv6_bwd.cu's header)
 WKV_BWD_FLOPS_PER_IJ, WKV_BWD_FLOPS_PER_I = 14, 21
@@ -1733,9 +1742,52 @@ def wkv_bwd_work(args) -> tuple[int, int]:
     return n_bytes, B * H * S * (WKV_BWD_FLOPS_PER_IJ * dh * dh + WKV_BWD_FLOPS_PER_I * dh)
 
 
-def wkv_bwd_kernel_vs_plain(dev) -> dict:
-    """Phase 23: ``wkv6_bwd`` against its plain version; returns its
-    ``kernels``-line fields (at the training shape, float32)."""
+def ptxas_report(log: str, symbol: str) -> dict:
+    """Registers and spill bytes of each kernel whose mangled name holds
+    ``symbol``, from nvcc's ``-Xptxas=-v`` output: {name: {registers,
+    spill_stores, spill_loads}}."""
+    out, name = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if entry:
+            name = entry.group(1) if symbol in entry.group(1) else None
+            if name:
+                out.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            out[name]["spill_stores"], out[name]["spill_loads"] = map(int, spill.groups())
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            out[name]["registers"] = int(used.group(1))
+    return out
+
+
+def wkv_bwd_resources(nvcc_log: str) -> dict:
+    """The backward kernel's launch shape and occupancy at each head width
+    (the CUDA runtime's report, at the training shape's B*H, with its local
+    bytes a thread) and ptxas's registers and spills from ``nvcc_log`` (its
+    build's output, empty if it was built before this run); raises if
+    either reports a spill."""
+    B, _, H, _ = WKV_TRAIN
+    occ = {dh: wkv6_bwd_resources(dh, B * H) for dh in WKV_DH}
+    ptxas = ptxas_report(nvcc_log, "wkv6_bwd_kernel")
+    spills = {n: p for n, p in ptxas.items()
+              if p.get("spill_stores", 0) or p.get("spill_loads", 0)}
+    if spills or any(o["local_bytes"] for o in occ.values()):
+        raise AssertionError(f"wkv6_bwd spills: ptxas {spills}, runtime {occ}")
+    emit("wkv6_bwd_resources", by_dh=occ, ptxas=ptxas,
+         ptxas_log="present" if ptxas else "not built in this run")
+    return occ
+
+
+def wkv_bwd_kernel_vs_plain(dev, nvcc_log: str) -> dict:
+    """Phase 23: ``wkv6_bwd``'s resources (``wkv_bwd_resources``), then the
+    kernel against its plain version; returns its ``kernels``-line fields
+    (at the training shape, float32)."""
+    wkv_bwd_resources(nvcc_log)
     cases = {}
     main_args = wkv_bwd_inputs(WKV_TRAIN, dev, seed=31, with_state=False)
     cases["train"] = wkv_bwd_compare(main_args, "train")
@@ -2399,7 +2451,7 @@ def main() -> int:
     DENSE.clear()
 
     # ---- 23-24. the wkv6 backward kernel, and RWKV-6 training at full width
-    ints["wkv6_bwd"] = wkv_bwd_kernel_vs_plain(dev)
+    ints["wkv6_bwd"] = wkv_bwd_kernel_vs_plain(dev, logs.get("wkv6_bwd", ""))
     paths.append(rwkv6_training_phase(dev))
     total = {name: sum(p[name] for p in paths) for name in ops.KERNELS}
 

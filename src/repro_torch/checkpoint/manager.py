@@ -67,10 +67,31 @@ def _treedef(tree) -> str:
     return "*"
 
 
-def _host(leaf) -> np.ndarray:
+# a bfloat16 leaf is stored as its raw 16-bit words: numpy has no bfloat16
+# without ml_dtypes, so the .npy holds 2-byte void items (the reference's
+# np.save of an ml_dtypes array reads back the same) and meta.json says
+# "bfloat16"; the ECC sidecar covers the same words
+_BF16 = "bfloat16"
+_WORD = np.dtype("V2")
+
+
+def _host(leaf) -> tuple[np.ndarray, str]:
+    """The leaf as the array to write, and the dtype name for meta.json."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:
+            return leaf.view(torch.int16).numpy().view(_WORD), _BF16
+        return leaf.numpy(), str(leaf.numpy().dtype)
+    arr = np.asarray(leaf)
+    if arr.dtype.name == _BF16:   # an ml_dtypes array from the reference
+        return arr.view(_WORD), _BF16
+    return arr, str(arr.dtype)
+
+
+def _words_to_bf16(words: np.ndarray) -> torch.Tensor:
+    """2-byte words (any 2-byte dtype) as the bfloat16 tensor they encode."""
+    return torch.from_numpy(np.ascontiguousarray(words).view(np.int16).copy()) \
+        .view(torch.bfloat16)
 
 
 @dataclass
@@ -111,9 +132,8 @@ class CheckpointManager:
         meta = {"step": step, "treedef": f"PyTreeDef({_treedef(state)})",
                 "leaves": []}
         for i, leaf in enumerate(flat):
-            arr = _host(leaf)
-            meta["leaves"].append({"shape": list(arr.shape),
-                                   "dtype": str(arr.dtype),
+            arr, dtype = _host(leaf)
+            meta["leaves"].append({"shape": list(arr.shape), "dtype": dtype,
                                    "nbytes": int(arr.nbytes)})
             np.save(tmp / f"leaf_{i}.npy", arr, allow_pickle=False)
             if self.protect:
@@ -190,8 +210,11 @@ class CheckpointManager:
                     raise IOError(f"leaf {i}: {stats.uncorrectable} "
                                   f"uncorrectable codewords")
                 n_corrected += stats.corrected
-                arr = np.frombuffer(raw, dtype=info["dtype"]).reshape(
-                    info["shape"]).copy()
+                dtype = np.int16 if info["dtype"] == _BF16 else info["dtype"]
+                arr = np.frombuffer(raw, dtype=dtype).reshape(info["shape"]).copy()
+            if info["dtype"] == _BF16:
+                t = _words_to_bf16(arr)
+                arr = t if isinstance(leaf, torch.Tensor) else t.float().numpy()
             if isinstance(leaf, torch.Tensor):
                 out.append(torch.as_tensor(arr).to(dev, leaf.dtype).reshape(leaf.shape))
             else:

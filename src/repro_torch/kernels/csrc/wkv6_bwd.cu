@@ -17,87 +17,186 @@
 // bfloat16) and each gradient is written in its input's dtype, rounded to
 // nearest even; dy, the states and all arithmetic are float32.  The sums run
 // in another order than the plain version's (kernels/wkv6.py::wkv6_bwd_ref),
-// so the two agree to a tolerance, not bit for bit.
+// so the two agree to a tolerance, not bit for bit; the order is fixed, so a
+// second run gives the same bits.
 //
-// Bound, at the training shape (B, S, H, dh) = (8, 512, 32, 64): HBM sees one
-// read of r, k, v, wlog and dy and one write of the four gradients; in
-// float32 that is 302.0 MB, 0.0902 ms at an H100 SXM's 3.35 TB/s (235 MB with
-// the training path's bfloat16 k and v).  The function needs 14 fp32
-// operations per (i, j) and step (the state's recompute k*v, w*S and the add;
-// the sums of dr, dk, dv and dwlog, a product and an add each; the update of
-// G, two products and an add) and 21 per i (the decay and its derivative,
-// dy.v, r u k, the rank-one terms of dr, dk, dv, dwlog's scale, du): 58,688
-// per (b, h, t), 7.69 GFLOP, 0.115 ms at 67 TFLOP/s.  So the bound is by
-// operations.
+// Bound, at the training shape (B, S, H, dh) = (8, 512, 32, 64): the function
+// needs 14 fp32 operations per (i, j) and step (the state's recompute k*v,
+// w*S and the add; the sums of dr, dk, dv and dwlog, a product and an add
+// each; the update of G, two products and an add) and 21 per i (the decay
+// and its derivative, dy.v, r u k, the rank-one terms of dr, dk, dv, dwlog's
+// scale, du): 58,688 per (b, h, t), 7.69 GFLOP, 0.1148 ms at 67 TFLOP/s.  HBM
+// sees one read of r, k, v, wlog and dy and one write of the four gradients:
+// 302.0 MB in float32, 0.0902 ms at 3.35 TB/s (235 MB, 0.0701 ms, with the
+// training path's bfloat16 k and v).  So the bound is by operations.
 //
-// Design: one block per (b, h), 8 dh threads in two groups of 4 dh, 4
-// threads a line.  A row thread holds G[i][q*dh/4 ..] and the matching part
-// of the state; it computes dr, dk and dwlog (sums over j: its own columns,
-// then two shuffles across the 4 threads of the row) and du.  A column thread
-// holds G[q*dh/4 ..][j] and computes dv (a sum over i, the same way).  Both
-// groups update their copy of G with the same fmaf, so neither waits on the
-// other inside a chunk.  The backward needs S_{t-1} in reverse order; it is
-// not recovered by dividing by w (w ~ 0.55: rounding would grow over the
-// sequence).  Instead a first forward pass writes the state before every
-// chunk of kC = 8 steps to a global scratch (B*H x chunks x dh x dh float32,
-// read back by the thread that wrote it, interleaved by thread so that a
-// warp's access of one value a thread is one 128-byte line: in a row's
-// layout each was 32 lines, and the scratch took over half the kernel's
-// time), and the reverse pass recomputes a
-// chunk's states from it into shared memory: 8 states of dh x dh floats, 144
-// KB at dh = 64 (plus 18 KB of staged inputs: one block per SM), laid out so
-// that a warp's 32 lanes hit 32 banks.  A chunk's inputs are staged into
-// shared memory (one element a thread; each step's 4 column planes padded
-// into distinct bank octets), with each step's dy.v and r.u.k summed by a
-// butterfly; the next chunk's inputs load into registers while a chunk
-// computes.  du is summed over t in registers and over b by a
-// second kernel in a fixed order: no atomics, the same bits every run.
+// What held the first design back (one block per (b, h), 512 threads; 0.89
+// ms in float32, 1.14 ms with bfloat16 k/v on an H100), and what this one
+// does about it:
+// 1. Too few blocks: 256 blocks of 512 threads, 166 KB of shared memory, one
+//    block an SM, two waves (132 + 124) of serial steps.  Every element
+//    (i, j) of S and of G evolves on its own: rows meet only in dv (a sum
+//    over i), columns only in dr, dk and dwlog (sums over j).  So here a block
+//    owns kR rows of one (b, h) and all dh columns, and the kCluster = dh / kR
+//    blocks of a (b, h) are one thread-block cluster.  At dh = 64, kR = 32:
+//    512 blocks of 256 threads, 2 an SM, 132 clusters resident, so 1.94
+//    waves (16-row blocks in clusters of 4 gave 1,024 blocks of 128 threads,
+//    4 an SM, but only 124 clusters resident: 3 waves).  Within a block dr,
+//    dk, dwlog and du are complete and dv is a partial sum over its rows: at
+//    each chunk's end every block leaves its dv partial in shared memory, and
+//    after a cluster barrier block rank q adds the ranks' partials, in rank
+//    order, for columns [q kR, q kR + kR), through distributed shared memory:
+//    no atomics, no second pass over HBM, the same bits every run.  The
+//    checkpoint sweep is split the same way, each block recomputing only its
+//    own rows.
+// 2. G held twice, by a row group and a column group with unequal work.
+//    Here each thread holds one kTR x kTC tile of G and the same tile of S
+//    (2 x 4 at dh = 64) and one role: per step and element it updates S (in
+//    the recompute) and G once and adds its part of the four sums, 8 fp32
+//    instructions for the function's 7 FMA-equivalents.
+// 3. Thread-private history in shared memory.  Here the chunk's recomputed
+//    states S_{t0-1} .. S_{t0+kC-2} of the thread's tile stay in registers
+//    (kC x 8 floats, the chunk fully unrolled): 128 registers a thread, no
+//    spill.
+// 4. Reductions inside the step (shuffles every step).  No gradient feeds the
+//    recurrence, so a step here only writes the thread's partial sums (its
+//    part of dy.S, G.v, G.S for its rows and of k.G for its columns) to
+//    per-step slots in shared memory, laid out so that a warp's stores and the
+//    block's later reads are free of bank conflicts.  At the chunk's end the
+//    block adds the partials in a fixed order, with the rank-one terms (u k
+//    (dy.v), r u (dy.v), dy (r.u k) over the block's rows).  No shuffle and
+//    no barrier inside a chunk.  (Summing the partials within the warp by
+//    shuffles instead cut this pass but cost the step more: shuffles use the
+//    same pipe as shared memory.)
+// 5. Scattered stores (one 2- or 4-byte value a thread and step, 4-way
+//    divergent).  Here a thread writes 4 consecutive values of one gradient
+//    and step: 16 bytes in float32, 8 in a 16-bit dtype, so a warp fills
+//    whole 32-byte sectors, and the training dtypes are no slower than
+//    float32.
+// What bounds it now: shared memory's 32 lanes a clock per SM, which the
+// step's operands (v, dy of the thread's columns; r, k, w of its rows) and
+// partial sums cross at ~3 words per element and step against 6 fp32
+// instructions on 128 lanes; and HBM in the checkpoint sweep, which writes
+// 268 MB of saved states (a chunk of kC = 8 steps each, interleaved by thread
+// so that a warp's store or load is one contiguous 512-byte run; read back
+// by the thread that wrote it), staging kF steps between two barriers.  The
+// next chunk's inputs load into registers while a chunk computes; du is
+// summed over t in a fixed order per block and over b by a second kernel.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "wkv6_io.cuh"
 
+namespace cgr = cooperative_groups;
+
 namespace {
 
-using wkv6io::load;
-using wkv6io::store;
+using wkv6io::load_raw;
+using wkv6io::store4;
+using wkv6io::widen;
 
-constexpr int kC = 8;                    // steps per chunk: one saved state a chunk
-constexpr int kP = 4;                    // threads a row of G (or a column)
-constexpr int kLinesPerWarp = 32 / kP;   // rows (columns) a warp holds
+constexpr int kC = 8;   // steps per chunk: one saved state a chunk
+
+// rows a block owns (kR), a thread's tile of them (kTR rows x kTC columns),
+// the steps the checkpoint sweep stages at once (kF) and the blocks an SM
+// is to hold (kBlocks: registers a thread <= 65536 / (threads x kBlocks);
+// at dh = 32 shared memory allows 7, so the registers need not stop at 128)
+template <int kDh> struct Split;
+template <> struct Split<64> {
+  static constexpr int kR = 32, kTR = 2, kTC = 4, kF = 32, kBlocks = 2;
+};
+template <> struct Split<32> {
+  static constexpr int kR = 16, kTR = 2, kTC = 4, kF = 16, kBlocks = 6;
+};
+template <> struct Split<16> {
+  static constexpr int kR = 16, kTR = 2, kTC = 2, kF = 32, kBlocks = 8;
+};
+template <> struct Split<8> {
+  static constexpr int kR = 8, kTR = 1, kTC = 2, kF = 32, kBlocks = 16;
+};
 
 template <int kDh>
 struct Bwd {
-  static constexpr int kW = kDh / kP;                  // columns (rows) a thread holds
-  static constexpr int kGroup = kDh * kP;              // threads of each group
-  static constexpr int kThreads = 2 * kGroup;
-  // a staged step is kP planes of kW values, kQw apart: the 4 planes of a
-  // step start in 4 bank octets, so that a warp's 4 q groups reading value x
-  // of their plane hit 4 banks (kW = 16 needs the padding)
-  static constexpr int kQw = kW == 16 ? 24 : kW;
-  static constexpr int kRow = kP * kQw;                // floats a staged step
-  // the stride between a step's q planes in the recomputed states: 8 mod 32,
-  // so that lane (q, line % 8) of a warp reads bank 8 q + line % 32
-  static constexpr int kQs = kDh + ((8 - kDh % 32) + 32) % 32;
-  static constexpr int kSegLanes = kDh < 32 ? kDh : 32;   // lanes of a staged partial sum
+  static constexpr int kR = Split<kDh>::kR, kTR = Split<kDh>::kTR, kTC = Split<kDh>::kTC;
+  static constexpr int kCluster = kDh / kR;             // blocks a (b, h)
+  static constexpr int kRG = kR / kTR;                  // row groups
+  static constexpr int kCG = kDh / kTC;                 // column groups
+  static constexpr int kThreads = kRG * kCG;
+  static constexpr int kRowPer = kC * kR / kThreads;    // staged row values a thread
+  static constexpr int kColPer = kC * kDh / kThreads;   // staged column values a thread
+  static constexpr int kSegLanes = kDh < 32 ? kDh : 32; // lanes of a partial dy.v
   static constexpr int kSegs = kDh / kSegLanes;
-  static constexpr int kHist = kC * kW * kP * kQs;        // floats of recomputed states
-  static constexpr int kStaged = 6 * kC * kRow + 2 * kC * kSegs;
-  static constexpr size_t kSmem = (kHist + kStaged) * sizeof(float);
-  static_assert(kGroup % 32 == 0, "a group is whole warps");
-  static_assert(kThreads == kC * kDh, "one staged element a thread");
+  static constexpr int kQuads = kR / 4;                 // 4-row groups of the block's rows
+  static constexpr int kRowUnits = 4 * kC * kQuads;     // (dr | dk | dwlog | du, step, quad)
+  static constexpr int kColUnits = kC * kDh / 4;        // (step, column quad) of the dv partial
+  static constexpr int kOwnUnits = kC * kQuads;         // (step, quad) of the block's dv columns
+  // the first thread of the dv partial's units (after the row units' owners)
+  static constexpr int kFirstCol = kRowUnits == kThreads ? 3 * kThreads / 4 : 0;
+  // a column group's row partials of all steps: + 16 so that the two column
+  // groups of a half-warp's stores fall in the two halves of the banks
+  static constexpr int kPartRow = kC * kR + 16;
+  // a row group's column partials of one step: + 4 so that the 8 row groups
+  // of a quarter-warp's 16-byte stores fall in 8 distinct bank quads
+  static constexpr int kPartCol = kDh + 4;
+  // shared memory, in floats
+  static constexpr int oU = 0;                          // u of the block's rows
+  static constexpr int oR = oU + kR;                    // [kC][kR]: r
+  static constexpr int oK = oR + kC * kR;               //           k
+  static constexpr int oD = oK + kC * kR;               //           w = exp(-exp(wlog))
+  static constexpr int oND = oD + kC * kR;              //           dw/dwlog = -exp(wlog) w
+  static constexpr int oV = oND + kC * kR;              // [kC][kDh]: v
+  static constexpr int oDY = oV + kC * kDh;             //            dy
+  static constexpr int oRUK = oDY + kC * kDh;           // [kC]: sum of r u k over the block's rows
+  static constexpr int oDYV = oRUK + kC;                // [kC][kSegs]: partial sums of dy.v
+  static constexpr int oDU = oDYV + kC * kSegs;         // [kC][kR]: du by step residue
+  static constexpr int oPR = oDU + kC * kR;             // [3][kCG][kPartRow]: dr, dk, dwlog
+  static constexpr int oPC = oPR + 3 * kCG * kPartRow;  // [kC][kRG][kPartCol]: dv partials
+  static constexpr int oDV = oPC + kC * kRG * kPartCol; // [2][kC][kDh]: dv, by chunk parity
+  static constexpr int kFloats = oDV + 2 * kC * kDh;
+  static constexpr size_t kSmem = kFloats * sizeof(float);
+  // the checkpoint sweep stages kF steps of k, w and v, in the partials' room
+  static constexpr int kF = Split<kDh>::kF;
+  static constexpr int kFRowPer = kF * kR / kThreads;
+  static constexpr int kFColPer = kF * kDh / kThreads;
+  static_assert(kF % kC == 0 && kF * (2 * kR + kDh) <= 3 * kCG * kPartRow,
+                "the sweep stages whole chunks, in the partials' room");
+  static_assert(kThreads % 32 == 0 && 32 % kR == 0,
+                "whole warps; a warp stages whole steps of rows");
+  static_assert(kRowUnits % kThreads == 0 && kC * kR % kThreads == 0 &&
+                kC * kDh % kThreads == 0, "the staging and the row outputs tile the block");
+  static_assert(oDU % 4 == 0 && oPR % 4 == 0 && oPC % 4 == 0 && oDV % 4 == 0 &&
+                kPartRow % 4 == 0 && kPartCol % 4 == 0, "16-byte aligned arrays");
 };
 
-// where element e of a staged step lies
-template <int kDh>
-__device__ __forceinline__ int staged(int e) {
-  using Sh = Bwd<kDh>;
-  return (e / Sh::kW) * Sh::kQw + e % Sh::kW;
+// n consecutive floats at p (16-byte aligned for n = 4, 8 for n = 2) into x
+template <int n>
+__device__ __forceinline__ void load_vec(const float* p, float* x) {
+  if constexpr (n == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    x[0] = q.x; x[1] = q.y; x[2] = q.z; x[3] = q.w;
+  } else if constexpr (n == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    x[0] = q.x; x[1] = q.y;
+  } else {
+    x[0] = *p;
+  }
+}
+
+template <int n>
+__device__ __forceinline__ void store_vec(float* p, const float* x) {
+  if constexpr (n == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  } else if constexpr (n == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+  } else {
+    *p = x[0];
+  }
 }
 
 template <int kDh>
-__global__ void __launch_bounds__(Bwd<kDh>::kThreads, 1)
+__global__ void __launch_bounds__(Bwd<kDh>::kThreads, Split<kDh>::kBlocks)
 wkv6_bwd_kernel(const void* __restrict__ r, const void* __restrict__ k,
                 const void* __restrict__ v, const void* __restrict__ wlog, int code_r,
                 int code_k, int code_v, int code_w, const float* __restrict__ u,
@@ -107,204 +206,356 @@ wkv6_bwd_kernel(const void* __restrict__ r, const void* __restrict__ k,
                 float* __restrict__ du_part, float* __restrict__ ds0,
                 float* __restrict__ ckpt, int S, int H) {
   using Sh = Bwd<kDh>;
-  constexpr int kW = Sh::kW, kRow = Sh::kRow;
-  constexpr int kMat = kDh * kDh;
+  constexpr int kR = Sh::kR, kTR = Sh::kTR, kTC = Sh::kTC, kThreads = Sh::kThreads;
+  constexpr int kQuads = Sh::kQuads;
   extern __shared__ __align__(16) float smem[];
-  float* const hist = smem;                   // [kC][kW][kP][kQs]: row threads' own
-  float* const s_r = hist + Sh::kHist;        // the chunk's inputs, [kC][kRow] each
-  float* const s_k = s_r + kC * kRow;
-  float* const s_v = s_k + kC * kRow;
-  float* const s_d = s_v + kC * kRow;         // w = exp(-exp(wlog))
-  float* const s_nd = s_d + kC * kRow;        // dw/dwlog = -exp(wlog) w
-  float* const s_dy = s_nd + kC * kRow;
-  float* const s_dyv = s_dy + kC * kRow;      // [kC][kSegs] partial sums of dy.v
-  float* const s_ruk = s_dyv + kC * Sh::kSegs;   // [kC][kSegs] partial sums of r u k
+  float* const s_u = smem + Sh::oU;
+  float* const s_r = smem + Sh::oR;
+  float* const s_k = smem + Sh::oK;
+  float* const s_d = smem + Sh::oD;
+  float* const s_nd = smem + Sh::oND;
+  float* const s_v = smem + Sh::oV;
+  float* const s_dy = smem + Sh::oDY;
+  float* const s_ruk = smem + Sh::oRUK;
+  float* const s_dyv = smem + Sh::oDYV;
+  float* const s_du = smem + Sh::oDU;
+  float* const s_pr = smem + Sh::oPR;
+  float* const s_pc = smem + Sh::oPC;
+  float* const s_dvb = smem + Sh::oDV;
 
   const int tid = threadIdx.x;
-  const int bh = blockIdx.x;
+  // a 1-D grid of 1-D clusters: block rank q of cluster bh owns rows q kR ..
+  const int rank = blockIdx.x % Sh::kCluster;
+  const int bh = blockIdx.x / Sh::kCluster;
   const int b = bh / H, h = bh - b * H;
+  const int i0 = rank * kR;
   const int n_chunks = (S + kC - 1) / kC;
   // element (b, t, h, i) of a (B, S, H, dh) tensor: base + t * row + i
   const size_t row = static_cast<size_t>(H) * kDh;
   const size_t base = (static_cast<size_t>(b) * S * H + h) * kDh;
-  // the staging role: element se of step st of a chunk (tid = st * kDh + se)
-  const int st = tid / kDh, se = tid % kDh;
-  const int s_at = st * kRow + staged<kDh>(se);
-  const float u_se = u[h * kDh + se];
-  // the compute role: a row thread holds G[line][q*kW + x] and S likewise, a
-  // column thread G[q*kW + x][line]
-  const bool is_row = tid < Sh::kGroup;
-  const int gt = is_row ? tid : tid - Sh::kGroup;
-  const int lane = gt % 32;
-  const int line = (gt / 32) * kLinesPerWarp + lane % kLinesPerWarp;
-  const int q = lane / kLinesPerWarp;
-  const int line_at = staged<kDh>(line), plane = q * Sh::kQw;
-  const size_t mat = static_cast<size_t>(bh) * kMat;
-  const int mine = line * kDh + q * kW;       // a row thread's first element of a matrix
-  // a row thread's saved states: value x of chunk c at (c*kW + x)*kGroup, so
-  // that a warp's store or load of one value a thread is one 128-byte line
-  float* const ck = ckpt + static_cast<size_t>(bh) * n_chunks * kMat + gt;
-  float* const my_hist = hist + q * Sh::kQs + line;   // step tau, x: + (tau*kW + x)*kP*kQs
+  const size_t mat = static_cast<size_t>(bh) * kDh * kDh;
+  // the step role: rows i0 + r0 .. r0 + kTR - 1, columns c0 .. c0 + kTC - 1
+  const int rg = tid % Sh::kRG, cg = tid / Sh::kRG;
+  const int r0 = rg * kTR, c0 = cg * kTC;
+  // the thread's saved states: tile row p of chunk c at + c kR dh + p kThreads kTC
+  float* const ck = ckpt + static_cast<size_t>(blockIdx.x) * n_chunks * (kR * kDh) + tid * kTC;
 
-  // ---- forward: the state before each chunk into the scratch
-  float s[kW];
-#pragma unroll
-  for (int x = 0; x < kW; ++x) s[x] = (is_row && s0) ? s0[mat + mine + x] : 0.0f;
-  // the next chunk's k, v, wlog, loaded while this one computes (chunks
-  // before the last are whole)
-  float fk = 0.0f, fv = 0.0f, fw = 0.0f;
-  auto fetch_fwd = [&](int c) {
-    const size_t at = base + static_cast<size_t>(c * kC + st) * row + se;
-    fk = load(k, code_k, at);
-    fv = load(v, code_v, at);
-    fw = load(wlog, code_w, at);
+  if (tid < kR) s_u[tid] = u[h * kDh + i0 + tid];
+  for (int e = tid; e < kC * kR; e += kThreads) s_du[e] = 0.0f;
+
+  // the staging role: row value n is e = tid + n kThreads of a chunk's
+  // [kC][kR] rows, column value n of its [kC][kDh] columns
+  struct Raw {
+    uint32_t r[Sh::kRowPer], k[Sh::kRowPer], w[Sh::kRowPer], v[Sh::kColPer];
+    float dy[Sh::kColPer];
   };
-  if (n_chunks > 1) fetch_fwd(0);
-  for (int c = 0;; ++c) {
-    if (is_row) {
+  auto fetch = [&](Raw& p, int c) {
 #pragma unroll
-      for (int x = 0; x < kW; ++x) ck[(static_cast<size_t>(c) * kW + x) * Sh::kGroup] = s[x];
+    for (int n = 0; n < Sh::kRowPer; ++n) {
+      const int e = tid + n * kThreads, t = c * kC + e / kR;
+      const bool in = t < S;
+      const size_t at = base + static_cast<size_t>(t) * row + i0 + e % kR;
+      p.k[n] = in ? load_raw(k, code_k, at) : 0u;
+      p.w[n] = in ? load_raw(wlog, code_w, at) : 0u;
+      p.r[n] = in ? load_raw(r, code_r, at) : 0u;
     }
-    if (c == n_chunks - 1) break;
-    __syncthreads();   // the previous chunk's reads of s_k, s_v, s_d are done
-    s_k[s_at] = fk;
-    s_v[s_at] = fv;
-    s_d[s_at] = expf(-expf(fw));
-    if (c + 1 < n_chunks - 1) fetch_fwd(c + 1);
-    __syncthreads();
-    if (is_row) {
-      for (int tau = 0; tau < kC; ++tau) {
-        const float d = s_d[tau * kRow + line_at], kk = s_k[tau * kRow + line_at];
-        const float* const v_t = s_v + tau * kRow + plane;
 #pragma unroll
-        for (int x = 0; x < kW; ++x) s[x] = fmaf(d, s[x], kk * v_t[x]);
+    for (int n = 0; n < Sh::kColPer; ++n) {
+      const int e = tid + n * kThreads, t = c * kC + e / kDh;
+      const bool in = t < S;
+      const size_t at = base + static_cast<size_t>(t) * row + e % kDh;
+      p.v[n] = in ? load_raw(v, code_v, at) : 0u;
+      p.dy[n] = in ? __ldg(dy + at) : 0.0f;
+    }
+  };
+
+  // ---- forward: the state before each chunk but the last into the scratch,
+  // kF steps staged at once (k, w, v in the partials' room)
+  float s[kTR][kTC];
+#pragma unroll
+  for (int p = 0; p < kTR; ++p) {
+    if (s0) {
+      load_vec<kTC>(s0 + mat + static_cast<size_t>(i0 + r0 + p) * kDh + c0, s[p]);
+    } else {
+#pragma unroll
+      for (int x = 0; x < kTC; ++x) s[p][x] = 0.0f;
+    }
+  }
+  {
+    constexpr int kF = Sh::kF;
+    float* const f_k = s_pr;                 // [kF][kR]
+    float* const f_d = f_k + kF * kR;        // [kF][kR]
+    float* const f_v = f_d + kF * kR;        // [kF][kDh]
+    uint32_t fk[Sh::kFRowPer], fw[Sh::kFRowPer], fv[Sh::kFColPer];
+    auto fetch_fwd = [&](int t0) {
+#pragma unroll
+      for (int n = 0; n < Sh::kFRowPer; ++n) {
+        const int e = tid + n * kThreads, t = t0 + e / kR;
+        const size_t at = base + static_cast<size_t>(t) * row + i0 + e % kR;
+        fk[n] = t < S ? load_raw(k, code_k, at) : 0u;
+        fw[n] = t < S ? load_raw(wlog, code_w, at) : 0u;
+      }
+#pragma unroll
+      for (int n = 0; n < Sh::kFColPer; ++n) {
+        const int e = tid + n * kThreads, t = t0 + e / kDh;
+        fv[n] = t < S ? load_raw(v, code_v, base + static_cast<size_t>(t) * row + e % kDh) : 0u;
+      }
+    };
+    const int swept = (n_chunks - 1) * kC;   // steps before the last chunk
+    if (swept > 0) fetch_fwd(0);
+    for (int f0 = 0; f0 < swept; f0 += kF) {
+      __syncthreads();   // the previous block of steps' reads are done
+#pragma unroll
+      for (int n = 0; n < Sh::kFRowPer; ++n) {
+        const int e = tid + n * kThreads;
+        f_k[e] = widen(fk[n], code_k);
+        f_d[e] = expf(-expf(widen(fw[n], code_w)));
+      }
+#pragma unroll
+      for (int n = 0; n < Sh::kFColPer; ++n) f_v[tid + n * kThreads] = widen(fv[n], code_v);
+      if (f0 + kF < swept) fetch_fwd(f0 + kF);   // in flight while these steps compute
+      __syncthreads();
+      for (int cc = 0; cc < kF / kC && f0 + cc * kC < swept; ++cc) {
+        const int c = f0 / kC + cc;
+#pragma unroll
+        for (int p = 0; p < kTR; ++p)
+          store_vec<kTC>(ck + static_cast<size_t>(c) * (kR * kDh) + p * kThreads * kTC, s[p]);
+#pragma unroll
+        for (int tau = cc * kC; tau < cc * kC + kC; ++tau) {
+          float vv[kTC], kk[kTR], dd[kTR];
+          load_vec<kTC>(f_v + tau * kDh + c0, vv);
+          load_vec<kTR>(f_k + tau * kR + r0, kk);
+          load_vec<kTR>(f_d + tau * kR + r0, dd);
+#pragma unroll
+          for (int p = 0; p < kTR; ++p)
+#pragma unroll
+            for (int x = 0; x < kTC; ++x) s[p][x] = fmaf(dd[p], s[p][x], kk[p] * vv[x]);
+        }
       }
     }
   }
+  // s is now the state before the last chunk
 
   // ---- reverse, a chunk at a time from the last
-  float g[kW];
+  float g[kTR][kTC];
 #pragma unroll
-  for (int x = 0; x < kW; ++x)
-    g[x] = ds_final ? ds_final[mat + (is_row ? mine + x : (q * kW + x) * kDh + line)] : 0.0f;
-  const float u_line = u[h * kDh + line];
-  float du_acc = 0.0f;
-  // the next chunk's inputs (zeros past the sequence), loaded ahead
-  float pr = 0.0f, pk = 0.0f, pv = 0.0f, pw = 0.0f, pg = 0.0f;
-  auto fetch = [&](int c) {
-    const int t = c * kC + st;
-    pr = pk = pv = pw = pg = 0.0f;
-    if (t < S) {
-      const size_t at = base + static_cast<size_t>(t) * row + se;
-      pr = load(r, code_r, at);
-      pk = load(k, code_k, at);
-      pv = load(v, code_v, at);
-      pw = load(wlog, code_w, at);
-      pg = dy[at];
-    }
-  };
-  fetch(n_chunks - 1);
-  for (int c = n_chunks - 1; c >= 0; --c) {
-    const int t0 = c * kC, steps = min(kC, S - t0);
-    if (is_row) {   // the chunk's saved state, read before the barrier
-#pragma unroll
-      for (int x = 0; x < kW; ++x) s[x] = ck[(static_cast<size_t>(c) * kW + x) * Sh::kGroup];
-    }
-    __syncthreads();   // the staging buffers are free
-    {
-      const float e = expf(pw), d = expf(-e);
-      s_r[s_at] = pr;
-      s_k[s_at] = pk;
-      s_v[s_at] = pv;
-      s_d[s_at] = d;
-      s_nd[s_at] = -(e * d);
-      s_dy[s_at] = pg;
-      float dyv = pg * pv, ruk = pr * u_se * pk;
-#pragma unroll
-      for (int off = Sh::kSegLanes / 2; off > 0; off /= 2) {
-        dyv += __shfl_xor_sync(0xffffffffu, dyv, off);
-        ruk += __shfl_xor_sync(0xffffffffu, ruk, off);
-      }
-      if (se % Sh::kSegLanes == 0) {
-        s_dyv[st * Sh::kSegs + se / Sh::kSegLanes] = dyv;
-        s_ruk[st * Sh::kSegs + se / Sh::kSegLanes] = ruk;
-      }
-    }
-    if (c > 0) fetch(c - 1);   // in flight while this chunk computes
-    __syncthreads();
-    if (is_row) {
-      // S_{t0-1} .. S_{t0+steps-2}, recomputed from the chunk's saved state
-      for (int tau = 0; tau < steps; ++tau) {
-#pragma unroll
-        for (int x = 0; x < kW; ++x) my_hist[(tau * kW + x) * kP * Sh::kQs] = s[x];
-        const float d = s_d[tau * kRow + line_at], kk = s_k[tau * kRow + line_at];
-        const float* const v_t = s_v + tau * kRow + plane;
-#pragma unroll
-        for (int x = 0; x < kW; ++x) s[x] = fmaf(d, s[x], kk * v_t[x]);
-      }
-      for (int tau = steps - 1; tau >= 0; --tau) {
-        const float* const dy_t = s_dy + tau * kRow + plane;
-        const float* const v_t = s_v + tau * kRow + plane;
-        float a = 0.0f, bs = 0.0f, cs = 0.0f;   // dy.S_{t-1}, G.v, G.S_{t-1} over my columns
-#pragma unroll
-        for (int x = 0; x < kW; ++x) {
-          const float sp = my_hist[(tau * kW + x) * kP * Sh::kQs];
-          a = fmaf(dy_t[x], sp, a);
-          bs = fmaf(g[x], v_t[x], bs);
-          cs = fmaf(g[x], sp, cs);
-        }
-#pragma unroll
-        for (int off = kLinesPerWarp; off < 32; off *= 2) {
-          a += __shfl_xor_sync(0xffffffffu, a, off);
-          bs += __shfl_xor_sync(0xffffffffu, bs, off);
-          cs += __shfl_xor_sync(0xffffffffu, cs, off);
-        }
-        const int at_line = tau * kRow + line_at;
-        const float ri = s_r[at_line], ki = s_k[at_line], di = s_d[at_line];
-        float dyv = s_dyv[tau * Sh::kSegs];
-#pragma unroll
-        for (int sg = 1; sg < Sh::kSegs; ++sg) dyv += s_dyv[tau * Sh::kSegs + sg];
-        const size_t at = base + static_cast<size_t>(t0 + tau) * row + line;
-        if (q == 0) {
-          store(dr, code_r, at, fmaf(u_line * ki, dyv, a));
-        } else if (q == 1) {
-          store(dk, code_k, at, fmaf(ri * u_line, dyv, bs));
-        } else if (q == 2) {
-          store(dw, code_w, at, s_nd[at_line] * cs);
-        } else {
-          du_acc = fmaf(ri * ki, dyv, du_acc);
-        }
-#pragma unroll
-        for (int x = 0; x < kW; ++x) g[x] = fmaf(di, g[x], ri * dy_t[x]);
-      }
+  for (int p = 0; p < kTR; ++p) {
+    if (ds_final) {
+      load_vec<kTC>(ds_final + mat + static_cast<size_t>(i0 + r0 + p) * kDh + c0, g[p]);
     } else {
-      for (int tau = steps - 1; tau >= 0; --tau) {
-        const float* const k_t = s_k + tau * kRow + plane;
-        const float* const r_t = s_r + tau * kRow + plane;
-        const float* const d_t = s_d + tau * kRow + plane;
-        const float gyj = s_dy[tau * kRow + line_at];
-        float acc = 0.0f;   // k.G over my rows
 #pragma unroll
-        for (int x = 0; x < kW; ++x) acc = fmaf(k_t[x], g[x], acc);
-#pragma unroll
-        for (int off = kLinesPerWarp; off < 32; off *= 2)
-          acc += __shfl_xor_sync(0xffffffffu, acc, off);
-        float ruk = s_ruk[tau * Sh::kSegs];
-#pragma unroll
-        for (int sg = 1; sg < Sh::kSegs; ++sg) ruk += s_ruk[tau * Sh::kSegs + sg];
-        if (q == 0)
-          store(dv, code_v, base + static_cast<size_t>(t0 + tau) * row + line,
-                fmaf(gyj, ruk, acc));
-#pragma unroll
-        for (int x = 0; x < kW; ++x) g[x] = fmaf(d_t[x], g[x], r_t[x] * gyj);
-      }
+      for (int x = 0; x < kTC; ++x) g[p][x] = 0.0f;
     }
   }
-  if (is_row && ds0) {
+  float* const pr_mine = s_pr + cg * Sh::kPartRow + r0;   // + q * kCG * kPartRow + tau * kR
+  float* const pc_mine = s_pc + rg * Sh::kPartCol + c0;   // + tau * kRG * kPartCol
+  Raw pre;
+  fetch(pre, n_chunks - 1);
+  __syncthreads();   // the forward sweep's reads of the staged values are done
+  for (int c = n_chunks - 1; c >= 0; --c) {
+    const int t0 = c * kC;
+    float* const dvb = s_dvb + (c & 1) * (kC * kDh);
+    // stage the chunk: steps past the sequence get zeros and a decay of 1,
+    // so that G passes through them unchanged
 #pragma unroll
-    for (int x = 0; x < kW; ++x) ds0[mat + mine + x] = g[x];
+    for (int n = 0; n < Sh::kRowPer; ++n) {
+      const int e = tid + n * kThreads, st = e / kR, si = e % kR;
+      const bool in = t0 + st < S;
+      const float rv = widen(pre.r[n], code_r), kv = widen(pre.k[n], code_k);
+      const float ex = expf(widen(pre.w[n], code_w)), d = expf(-ex);
+      s_r[e] = rv;
+      s_k[e] = kv;
+      s_d[e] = in ? d : 1.0f;
+      s_nd[e] = in ? -(ex * d) : 0.0f;
+      float ruk = rv * s_u[si] * kv;
+#pragma unroll
+      for (int off = kR / 2; off > 0; off /= 2) ruk += __shfl_xor_sync(0xffffffffu, ruk, off);
+      if (si == 0) s_ruk[st] = ruk;
+    }
+#pragma unroll
+    for (int n = 0; n < Sh::kColPer; ++n) {
+      const int e = tid + n * kThreads, st = e / kDh, sj = e % kDh;
+      const float vv = widen(pre.v[n], code_v), gy = pre.dy[n];
+      s_v[e] = vv;
+      s_dy[e] = gy;
+      float dyv = gy * vv;
+#pragma unroll
+      for (int off = Sh::kSegLanes / 2; off > 0; off /= 2)
+        dyv += __shfl_xor_sync(0xffffffffu, dyv, off);
+      if (sj % Sh::kSegLanes == 0) s_dyv[st * Sh::kSegs + sj / Sh::kSegLanes] = dyv;
+    }
+    if (c > 0) fetch(pre, c - 1);   // in flight while this chunk computes
+    __syncthreads();
+
+    // S_{t0-1} .. S_{t0+kC-2} of the tile, recomputed from the saved state
+    float hist[kC][kTR][kTC];
+#pragma unroll
+    for (int tau = 0; tau < kC; ++tau) {
+#pragma unroll
+      for (int p = 0; p < kTR; ++p)
+#pragma unroll
+        for (int x = 0; x < kTC; ++x) hist[tau][p][x] = s[p][x];
+      if (tau + 1 < kC) {
+        float vv[kTC], kk[kTR], dd[kTR];
+        load_vec<kTC>(s_v + tau * kDh + c0, vv);
+        load_vec<kTR>(s_k + tau * kR + r0, kk);
+        load_vec<kTR>(s_d + tau * kR + r0, dd);
+#pragma unroll
+        for (int p = 0; p < kTR; ++p)
+#pragma unroll
+          for (int x = 0; x < kTC; ++x) s[p][x] = fmaf(dd[p], s[p][x], kk[p] * vv[x]);
+      }
+    }
+    // the steps in reverse: the tile's partial sums into the step's slots,
+    // then G_{t-1} = w_t G_t + r_t^T dy_t
+#pragma unroll
+    for (int tau = kC - 1; tau >= 0; --tau) {
+      float vv[kTC], gy[kTC], rr[kTR], kk[kTR], dd[kTR];
+      load_vec<kTC>(s_v + tau * kDh + c0, vv);
+      load_vec<kTC>(s_dy + tau * kDh + c0, gy);
+      load_vec<kTR>(s_r + tau * kR + r0, rr);
+      load_vec<kTR>(s_k + tau * kR + r0, kk);
+      load_vec<kTR>(s_d + tau * kR + r0, dd);
+      float a[kTR], bs[kTR], cs[kTR], dvp[kTC];   // dy.S_{t-1}, G.v, G.S_{t-1}; k.G
+#pragma unroll
+      for (int p = 0; p < kTR; ++p) {
+        a[p] = gy[0] * hist[tau][p][0];
+        bs[p] = g[p][0] * vv[0];
+        cs[p] = g[p][0] * hist[tau][p][0];
+#pragma unroll
+        for (int x = 1; x < kTC; ++x) {
+          a[p] = fmaf(gy[x], hist[tau][p][x], a[p]);
+          bs[p] = fmaf(g[p][x], vv[x], bs[p]);
+          cs[p] = fmaf(g[p][x], hist[tau][p][x], cs[p]);
+        }
+      }
+#pragma unroll
+      for (int x = 0; x < kTC; ++x) {
+        dvp[x] = kk[0] * g[0][x];
+#pragma unroll
+        for (int p = 1; p < kTR; ++p) dvp[x] = fmaf(kk[p], g[p][x], dvp[x]);
+      }
+      store_vec<kTR>(pr_mine + tau * kR, a);
+      store_vec<kTR>(pr_mine + Sh::kCG * Sh::kPartRow + tau * kR, bs);
+      store_vec<kTR>(pr_mine + 2 * Sh::kCG * Sh::kPartRow + tau * kR, cs);
+      store_vec<kTC>(pc_mine + tau * Sh::kRG * Sh::kPartCol, dvp);
+#pragma unroll
+      for (int p = 0; p < kTR; ++p)
+#pragma unroll
+        for (int x = 0; x < kTC; ++x) g[p][x] = fmaf(dd[p], g[p][x], rr[p] * gy[x]);
+    }
+    if (c > 0) {   // the previous chunk's saved state, loading through the reduction
+#pragma unroll
+      for (int p = 0; p < kTR; ++p)
+        load_vec<kTC>(ck + static_cast<size_t>(c - 1) * (kR * kDh) + p * kThreads * kTC, s[p]);
+    }
+    __syncthreads();
+
+    // the chunk's dr, dk, dwlog (and du's terms) of the block's rows: 4 rows
+    // of one gradient and step a unit, the partials added in column order
+#pragma unroll
+    for (int m = 0; m < Sh::kRowUnits / kThreads; ++m) {
+      const int n = tid + m * kThreads;
+      const int q = n / (kC * kQuads), tau = n / kQuads % kC, quad = n % kQuads;
+      const int at = tau * kR + 4 * quad;
+      float dyv = s_dyv[tau * Sh::kSegs];
+#pragma unroll
+      for (int sg = 1; sg < Sh::kSegs; ++sg) dyv += s_dyv[tau * Sh::kSegs + sg];
+      float out[4];
+      if (q < 3) {
+        const float* const part = s_pr + q * Sh::kCG * Sh::kPartRow + at;
+        load_vec<4>(part, out);
+#pragma unroll 4
+        for (int j = 1; j < Sh::kCG; ++j) {
+          float x4[4];
+          load_vec<4>(part + j * Sh::kPartRow, x4);
+#pragma unroll
+          for (int x = 0; x < 4; ++x) out[x] += x4[x];
+        }
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const float uu = s_u[4 * quad + x];
+          out[x] = q == 0 ? fmaf(uu * s_k[at + x], dyv, out[x])
+                 : q == 1 ? fmaf(s_r[at + x] * uu, dyv, out[x])
+                          : s_nd[at + x] * out[x];
+        }
+        if (t0 + tau < S) {
+          void* const dst = q == 0 ? dr : q == 1 ? dk : dw;
+          const int code = q == 0 ? code_r : q == 1 ? code_k : code_w;
+          store4(dst, code, base + static_cast<size_t>(t0 + tau) * row + i0 + 4 * quad, out);
+        }
+      } else {   // du: this unit's running sum over the steps tau of every chunk
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          s_du[at + x] = fmaf(s_r[at + x] * s_k[at + x], dyv, s_du[at + x]);
+      }
+    }
+    // the block's dv partial: its row groups' partials in order, plus dy
+    // times the block's share of r.u k; where a thread has one row unit, on
+    // the du threads, which have no partials to add
+    for (int n = tid - Sh::kFirstCol; n >= 0 && n < Sh::kColUnits;
+         n += kThreads - Sh::kFirstCol) {
+      const int tau = n / (kDh / 4), col = 4 * (n % (kDh / 4));
+      const float* const part = s_pc + tau * Sh::kRG * Sh::kPartCol + col;
+      float sum[4], gy[4];
+      load_vec<4>(part, sum);
+#pragma unroll
+      for (int j = 1; j < Sh::kRG; ++j) {
+        float x4[4];
+        load_vec<4>(part + j * Sh::kPartCol, x4);
+#pragma unroll
+        for (int x = 0; x < 4; ++x) sum[x] += x4[x];
+      }
+      load_vec<4>(s_dy + tau * kDh + col, gy);
+      const float ruk = s_ruk[tau];
+#pragma unroll
+      for (int x = 0; x < 4; ++x) sum[x] = fmaf(gy[x], ruk, sum[x]);
+      store_vec<4>(dvb + tau * kDh + col, sum);
+    }
+    // every block's dv partial of the chunk is in place (and, until the next
+    // chunk, this barrier also keeps the staged values and partials)
+    if constexpr (Sh::kCluster > 1) {
+      cgr::this_cluster().sync();
+    } else {
+      __syncthreads();
+    }
+    // dv of the block's columns i0 .., the ranks' partials added in rank order
+    for (int n = tid; n < Sh::kOwnUnits; n += kThreads) {
+      const int tau = n / kQuads, col = i0 + 4 * (n % kQuads);
+      float sum[4];
+      if constexpr (Sh::kCluster > 1) {
+        cgr::cluster_group cluster = cgr::this_cluster();
+        load_vec<4>(cluster.map_shared_rank(dvb, 0) + tau * kDh + col, sum);
+#pragma unroll
+        for (int q = 1; q < Sh::kCluster; ++q) {
+          float x4[4];
+          load_vec<4>(cluster.map_shared_rank(dvb, q) + tau * kDh + col, x4);
+#pragma unroll
+          for (int x = 0; x < 4; ++x) sum[x] += x4[x];
+        }
+      } else {
+        load_vec<4>(dvb + tau * kDh + col, sum);
+      }
+      if (t0 + tau < S)
+        store4(dv, code_v, base + static_cast<size_t>(t0 + tau) * row + col, sum);
+    }
   }
-  if (is_row && q == kP - 1) du_part[static_cast<size_t>(bh) * kDh + line] = du_acc;
+
+  if (ds0) {
+#pragma unroll
+    for (int p = 0; p < kTR; ++p)
+      store_vec<kTC>(ds0 + mat + static_cast<size_t>(i0 + r0 + p) * kDh + c0, g[p]);
+  }
+  // du of the block's rows over this batch entry: the step residues in order
+  // (the last chunk's barrier ordered their sums before these reads)
+  if (tid < kR) {
+    float acc = s_du[tid];
+#pragma unroll
+    for (int tau = 1; tau < kC; ++tau) acc += s_du[tau * kR + tid];
+    du_part[static_cast<size_t>(bh) * kDh + i0 + tid] = acc;
+  }
+  // no block leaves while another may still read its dv partial
+  if constexpr (Sh::kCluster > 1) cgr::this_cluster().sync();
 }
 
 // du[n] = sum over b of du_part[b][n], b in order, n = h * dh + i
@@ -314,7 +565,25 @@ __global__ void wkv6_du_kernel(const float* __restrict__ du_part, void* __restri
   if (idx >= n) return;
   float acc = 0.0f;
   for (int b = 0; b < B; ++b) acc += du_part[static_cast<size_t>(b) * n + idx];
-  store(du, code_u, idx, acc);
+  wkv6io::store(du, code_u, idx, acc);
+}
+
+// the launch of wkv6_bwd_kernel<kDh> over B*H clusters of kCluster blocks
+template <int kDh>
+cudaLaunchConfig_t config(int BH, cudaStream_t stream, cudaLaunchAttribute* attr) {
+  using Sh = Bwd<kDh>;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(BH * Sh::kCluster);
+  cfg.blockDim = dim3(Sh::kThreads);
+  cfg.dynamicSmemBytes = Sh::kSmem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = Sh::kCluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = Sh::kCluster > 1 ? 1 : 0;
+  return cfg;
 }
 
 template <int kDh>
@@ -323,30 +592,60 @@ cudaError_t launch(const void* r, const void* k, const void* v, const void* wlog
                    const float* dy, const float* ds_final, void* dr, void* dk, void* dv,
                    void* dw, void* du, float* du_part, float* ds0, float* ckpt, int B, int S,
                    int H, cudaStream_t stream) {
-  using Sh = Bwd<kDh>;
   cudaError_t err = cudaFuncSetAttribute(wkv6_bwd_kernel<kDh>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(Sh::kSmem));
+                                         static_cast<int>(Bwd<kDh>::kSmem));
   if (err != cudaSuccess) return err;
-  wkv6_bwd_kernel<kDh><<<B * H, Sh::kThreads, Sh::kSmem, stream>>>(
-      r, k, v, wlog, cr, ck, cv, cw, u, s0, dy, ds_final, dr, dk, dv, dw, du_part, ds0, ckpt,
-      S, H);
-  err = cudaGetLastError();
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = config<kDh>(B * H, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, wkv6_bwd_kernel<kDh>, r, k, v, wlog, cr, ck, cv, cw, u, s0,
+                           dy, ds_final, dr, dk, dv, dw, du_part, ds0, ckpt, S, H);
   if (err != cudaSuccess) return err;
   const int n = H * kDh;
   wkv6_du_kernel<<<(n + 255) / 256, 256, 0, stream>>>(du_part, du, cu, B, n);
   return cudaGetLastError();
 }
 
+template <int kDh>
+cudaError_t occupancy(int BH, int* out) {
+  using Sh = Bwd<kDh>;
+  cudaError_t err = cudaFuncSetAttribute(wkv6_bwd_kernel<kDh>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(Sh::kSmem));
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, wkv6_bwd_kernel<kDh>);
+  if (err != cudaSuccess) return err;
+  int blocks = 0, clusters = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, wkv6_bwd_kernel<kDh>,
+                                                      Sh::kThreads, Sh::kSmem);
+  if (err != cudaSuccess) return err;
+  if (Sh::kCluster > 1) {
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = config<kDh>(BH, nullptr, &attr);
+    err = cudaOccupancyMaxActiveClusters(&clusters, wkv6_bwd_kernel<kDh>, &cfg);
+    if (err != cudaSuccess) return err;
+  }
+  out[0] = Sh::kThreads;
+  out[1] = static_cast<int>(Sh::kSmem);
+  out[2] = Sh::kCluster;
+  out[3] = blocks;
+  out[4] = clusters;
+  out[5] = fa.numRegs;
+  out[6] = static_cast<int>(fa.localSizeBytes);
+  return cudaSuccess;
+}
+
 }  // namespace
 
-// r, k, v, wlog, dy, dr, dk, dv, dw: (B, S, H, dh), contiguous; r..wlog each
-// float32 (dtype code 0), float16 (1) or bfloat16 (2), and dr..dw in the code
-// of their input; dy float32.  u: (H, dh) float32, its gradient du written in
-// code u_dtype.  s0 and ds_final (either may be null for zeros) and ds0 (null
-// when no start state was given): (B, H, dh, dh) float32.  du_part: (B, H, dh)
-// float32 scratch; ckpt: (B, H, ceil(S / 8), dh, dh) float32 scratch.  S >= 1
-// and B*H >= 1.  Returns the CUDA error of the launches (0 on success).
+// r, k, v, wlog, dy, dr, dk, dv, dw: (B, S, H, dh), contiguous and 16-byte
+// aligned; r..wlog each float32 (dtype code 0), float16 (1) or bfloat16 (2),
+// and dr..dw in the code of their input; dy float32.  u: (H, dh) float32, its
+// gradient du written in code u_dtype.  s0 and ds_final (either may be null
+// for zeros) and ds0 (null when no start state was given): (B, H, dh, dh)
+// float32, 16-byte aligned.  du_part: (B, H, dh) float32 scratch; ckpt: (B,
+// H, ceil(S / 8), dh, dh) float32 scratch.  S >= 1 and B*H >= 1.  Returns the
+// CUDA error of the launches (0 on success).
 extern "C" int wkv6_bwd_launch(const void* r, const void* k, const void* v, const void* wlog,
                                int r_dtype, int k_dtype, int v_dtype, int w_dtype,
                                int u_dtype, const float* u, const float* s0, const float* dy,
@@ -369,6 +668,23 @@ extern "C" int wkv6_bwd_launch(const void* r, const void* k, const void* v, cons
     WKV6_BWD_CASE(32)
     WKV6_BWD_CASE(64)
 #undef WKV6_BWD_CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(err);
+}
+
+// What the card makes of the kernel at head width dh for B*H = BH clusters:
+// out[0..6] = threads a block, dynamic shared bytes a block, blocks a
+// cluster, blocks resident per SM, clusters resident on the card (0 for a
+// cluster of 1), registers a thread, local (spilled) bytes a thread.
+// Returns the CUDA error (0 on success).
+extern "C" int wkv6_bwd_occupancy(int dh, int BH, int* out) {
+  cudaError_t err;
+  switch (dh) {
+    case 8: err = occupancy<8>(BH, out); break;
+    case 16: err = occupancy<16>(BH, out); break;
+    case 32: err = occupancy<32>(BH, out); break;
+    case 64: err = occupancy<64>(BH, out); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(err);

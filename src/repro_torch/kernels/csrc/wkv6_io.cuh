@@ -40,4 +40,26 @@ __device__ __forceinline__ void store(void* p, int code, size_t idx, float x) {
   }
 }
 
+// x[0..3] into elements idx .. idx + 3, rounded as store() rounds: one
+// 16-byte store in float32, one 8-byte store in a 16-bit dtype (idx a
+// multiple of 4, the tensor 16-byte aligned)
+__device__ __forceinline__ void store4(void* p, int code, size_t idx, const float* x) {
+  if (code == kF32) {
+    *reinterpret_cast<float4*>(static_cast<float*>(p) + idx) = make_float4(x[0], x[1], x[2], x[3]);
+    return;
+  }
+  uint2 w;
+  if (code == kF16) {
+    const __half2 lo = __floats2half2_rn(x[0], x[1]), hi = __floats2half2_rn(x[2], x[3]);
+    w.x = *reinterpret_cast<const unsigned int*>(&lo);
+    w.y = *reinterpret_cast<const unsigned int*>(&hi);
+  } else {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(x[0], x[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(x[2], x[3]);
+    w.x = *reinterpret_cast<const unsigned int*>(&lo);
+    w.y = *reinterpret_cast<const unsigned int*>(&hi);
+  }
+  *reinterpret_cast<uint2*>(static_cast<unsigned short*>(p) + idx) = w;
+}
+
 }  // namespace wkv6io

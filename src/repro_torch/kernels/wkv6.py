@@ -88,6 +88,15 @@ def _check(r, k, v, wlog, u, init_state):
         raise ValueError("r, k, v, wlog, u and init_state must share one device")
 
 
+def _aligned(t):
+    """``t`` contiguous and 16-byte aligned (the kernels move a thread's
+    state tile 16 bytes at a time), copied only if it is not."""
+    if t is None:
+        return None
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
 @functools.cache
 def _entry():
     """``wkv6_launch`` of the kernel library, built if needed, with its ctypes
@@ -108,11 +117,7 @@ def _launch(r, k, v, wlog, u, init_state):
         raise ValueError(f"the wkv6 kernel is built for dh in {DH}, got {dh}")
     r, k, v, wlog = (t.contiguous() for t in (r, k, v, wlog))
     u = u.float().contiguous()
-    s0 = init_state
-    if s0 is not None:
-        s0 = s0.contiguous()
-        if s0.data_ptr() % 16:   # the kernel reads a thread's state 16 bytes at a time
-            s0 = s0.clone()
+    s0 = _aligned(init_state)
     y = r.new_empty((B, S, H, dh), dtype=torch.float32)
     state = r.new_empty((B, H, dh, dh), dtype=torch.float32)
     index = r.device.index
@@ -253,8 +258,8 @@ def _bwd_launch(r, k, v, wlog, u, init_state, dy, dstate):
     r, k, v, wlog = (t.contiguous() for t in (r, k, v, wlog))
     uf = u.float().contiguous()
     dy = dy.float().contiguous()
-    s0 = None if init_state is None else init_state.contiguous()
-    ds = None if dstate is None else dstate.float().contiguous()
+    s0 = _aligned(init_state)
+    ds = None if dstate is None else _aligned(dstate.float())
     dr, dk, dv, dw = (torch.empty_like(t) for t in (r, k, v, wlog))
     du = torch.empty((H, dh), dtype=u.dtype, device=r.device)
     du_part = r.new_empty((B, H, dh), dtype=torch.float32)
@@ -308,3 +313,23 @@ def wkv6_bwd(r, k, v, wlog, u, init_state, dy, dstate=None):
 
 
 wkv6_bwd.launches = 0
+
+
+def wkv6_bwd_resources(dh: int, bh: int) -> dict:
+    """What the card makes of the backward kernel at head width ``dh`` for
+    ``bh`` = B*H clusters: threads and dynamic shared bytes a block, blocks a
+    cluster, blocks resident per SM, clusters resident on the card (0 for a
+    cluster of 1), registers a thread and local (spilled) bytes a thread, as
+    the CUDA runtime reports them.  Needs a card."""
+    from repro_torch.kernels.build import load
+    lib = load("wkv6_bwd")
+    occ = lib.wkv6_bwd_occupancy
+    occ.restype = ctypes.c_int
+    occ.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    out = (ctypes.c_int * 7)()
+    err = occ(dh, bh, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"wkv6_bwd_occupancy failed: CUDA error {err}")
+    keys = ("threads", "smem_bytes", "cluster", "blocks_per_sm", "clusters_resident",
+            "registers", "local_bytes")
+    return dict(zip(keys, out))

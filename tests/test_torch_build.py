@@ -49,3 +49,25 @@ def test_the_port_kernels_that_share_fast_div_hash_it():
     names = {n: [p.name for p in build._sources(n)] for n in ("fail_prob", "rc_transient")}
     assert all("fast_div.cuh" in files for files in names.values())
     assert [p.name for p in build._sources("bank_sched")] == ["bank_sched.cu"]
+
+
+def test_chip_smoke_reads_registers_and_spills_from_the_report():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_for_test", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN1a15wkv6_bwd_kernelILi64EEEvPKv' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN1a15wkv6_bwd_kernelILi64EEEvPKv",
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 128 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN1a14wkv6_du_kernelEPKf' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN1a14wkv6_du_kernelEPKf",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 32 registers, used 0 barriers"])
+    assert smoke.ptxas_report(log, "wkv6_bwd_kernel") == {
+        "_ZN1a15wkv6_bwd_kernelILi64EEEvPKv": {"spill_stores": 8, "spill_loads": 4,
+                                              "registers": 128}}
+    assert smoke.ptxas_report("", "wkv6_bwd_kernel") == {}

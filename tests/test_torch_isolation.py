@@ -1,5 +1,6 @@
 """The port stands alone: repro_torch and chip_smoke.py import neither jax nor
-the reference package, and an entry point never falls back to the CPU."""
+the reference package (nor ml_dtypes, jax's numpy dtypes: the port carries
+bfloat16 through torch), and an entry point never falls back to the CPU."""
 import ast
 import os
 import subprocess
@@ -14,7 +15,7 @@ torch = pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
-FORBIDDEN = {"jax", "jaxlib", "repro"}
+FORBIDDEN = {"jax", "jaxlib", "repro", "ml_dtypes"}
 
 
 def _imported_roots(path: Path):

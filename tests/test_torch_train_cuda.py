@@ -63,9 +63,14 @@ def _close_grads(got, want):
         torch.testing.assert_close(g.float(), w.float(), rtol=rtol, atol=atol)
 
 
+# a (b, h) is a cluster of 2 blocks (32 rows each at dh = 64, 16 at dh = 32),
+# one block at dh <= 16: S not a multiple of the 8-step chunk, a single
+# cluster (B*H = 1), an odd H and S = 1 at each cluster size
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,H,dh", [(1, 1, 1, 8), (2, 7, 2, 16), (2, 130, 3, 32),
-                                      (2, 64, 2, 64), (1, 17, 2, 64), (3, 9, 2, 8)])
+                                      (2, 64, 2, 64), (1, 17, 2, 64), (3, 9, 2, 8),
+                                      (1, 13, 1, 64), (2, 1, 3, 64), (3, 21, 5, 64),
+                                      (1, 9, 1, 32), (2, 1, 3, 32), (1, 1, 1, 16)])
 @pytest.mark.parametrize("with_state", [False, True])
 @pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
 def test_wkv6_bwd_kernel_matches_plain_version(cuda, B, S, H, dh, with_state, kv_dtype):

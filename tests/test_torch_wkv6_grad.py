@@ -92,6 +92,24 @@ def test_plain_backward_matches_reference_vjp(dh, S, with_state, kv_dtype):
             _assert_close(g, w)
 
 
+@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("S", [9, 17])
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("kv_dtype", [jnp.float32, jnp.bfloat16])
+def test_plain_backward_matches_reference_vjp_at_card_widths(dh, S, with_state, kv_dtype):
+    """The head widths the card's kernel splits across blocks (dh 64 the
+    training width), at sequence lengths that are not a multiple of the
+    kernel's 8-step chunk."""
+    case = _case(1, S, 2, dh, seed=S * dh, with_state=with_state)
+    want = _reference_vjp(*case, kv_dtype)
+    got = wkv6_bwd_ref(*_torch_args(*case, kv_dtype))
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+        else:
+            _assert_close(g, w)
+
+
 @pytest.mark.parametrize("S", [1, 130])
 def test_autograd_through_the_function_matches_reference_vjp(S):
     """Every leaf's gradient through ``wkv6`` with ``loss.backward()``,
