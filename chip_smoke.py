@@ -171,11 +171,33 @@ of 512x512 mats, 16 mats and 8 subarrays — it
      CPU at full width cut to 2 layers, float32 compute, batch 2 x 128, one
      set of host parameters on both: the loss (rtol 1e-5), the gradients'
      global norm (rtol 1e-4) and every gradient leaf (within 1e-3 of the
-     leaf's largest |CPU gradient|).
+     leaf's largest |CPU gradient|);
+ 25. the DIVA path with the DIMM axis split over a mesh (``mesh=``): on
+     ``DimmMesh([cuda:0] * N)`` for N = 1, 2, 5 (5 pads the 96 DIMMs to 100
+     with clones of the last), and on ``dimm_mesh()`` when more than one card
+     is visible, each entry point beside its unsharded run:
+     ``row_error_lambda`` (tRP 7.5 ns) against phase 3, the DIVA profile
+     against phase 4, ``burst_bit_profile_population`` +
+     ``shuffling_gain_population`` against phase 6, FR-FCFS
+     ``system_speedup_population`` on the whole-DIMM tables at n = 20,000
+     against phase 9's totals, ``stream_error_summary`` at the operating
+     point and at nominal in chunks of 40 against phase 13,
+     ``bit_signature_population`` + ``recover_mapping_population`` on phase
+     14's counts against the unsharded call, and ``lifetime_population``
+     over 2 epochs at N = 2 against phase 17's first 2.  Tables, decisions,
+     counts, signatures, mappings, Fig 19 totals and hot cells identical;
+     lambdas, fleet lambdas and ECC exposure within rtol 1e-5, burst-bit
+     profiles within phase 6's bounds, the fleet cell-sum (the shards'
+     float32 partials added in mesh order) within rtol 1e-6; a sharded run
+     launches each kernel exactly N times as often as the unsharded one.
+     Prints the seconds of every run, sharded and not, the launches and the
+     largest float gap.  A repeated card measures the cost of the split and
+     the gather, not a speed-up across cards.
 
 Every phase prints one JSON line.  The launch counts are set to 0 just before
 each path (phases 3-4, 6, 7, 8, 9, 12, 13, 14, 16, 17, 19, 20 (ingest; tick
-and checkpoint), 21, each scan of 22 and 24) and read just after it;
+and checkpoint), 21, each scan of 22, 24 and each run of 25) and read just
+after it;
 every kernel of a path must have launched, and the ``kernels`` line sums the
 paths' counts.
 Any failed check raises; the last line is ``{"ok": true, "device": {...}}``
@@ -228,6 +250,8 @@ from repro_torch.core.timing import OperatingPoint, TimingParams  # noqa: E402
 from repro_torch.data.pipeline import make_batch  # noqa: E402
 from repro_torch.discovery.blind import (  # noqa: E402
     BlindDiva, blind_vs_oracle, campaign_counts)
+from repro_torch.discovery.recover import (  # noqa: E402
+    recover_mapping_population)
 from repro_torch.discovery.signatures import (  # noqa: E402
     bit_signature_population)
 from repro_torch.kernels import build, ops  # noqa: E402
@@ -262,6 +286,7 @@ from repro_torch.optim import global_norm  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten  # noqa: E402
 from repro_torch.memsys.codec import (  # noqa: E402
     corrupt_run, interleave_permutation, protect_blob, recover_blob)
+from repro_torch.sharding import DimmMesh, dimm_mesh  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     PATH_CONVENTIONAL, PATH_DISCOVER, PATH_HIT, FleetConfig, FleetServer,
     take_batch)
@@ -406,7 +431,15 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 8
 # compute; float32 sums in other orders (cuBLAS, the kernels) on the card
 TRAIN_CPU_LAYERS, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 2, 2, 128
 TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_GRAD_TOL = 1e-5, 1e-4, 1e-3
-# phases 4-17 keep the dense results that phase 22 holds the scans to
+# the DIVA path on a DIMM-axis mesh (phase 25): meshes that repeat the card,
+# 5 padding the 96 DIMMs to 100; the lifecycle over its first 2 epochs at 2
+SHARD_SIZES = (1, 2, 5)
+SHARD_LIFE_EPOCHS, SHARD_LIFE_SIZE = 2, 2
+# the fleet cell-sum adds the shards' float32 partials in mesh order: the
+# reference's bound for its sharded sum (tests/test_streaming.py)
+GRID_SUM_RTOL = 1e-6
+# phases 3-17 keep the dense results that phases 22 and 25 hold the scans and
+# the sharded runs to
 DENSE: dict = {}
 
 
@@ -770,6 +803,7 @@ def memsim_phase(dev, batch, diva) -> tuple[dict, dict]:
     t0 = time.perf_counter()
     whole = memsim.system_speedup_population(diva, n_requests=MEMSIM_N,
                                              device=dev)
+    DENSE["fig19_whole"] = whole
     secs["frfcfs_whole"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     pb = profile_population_arrays(batch, banks=4, multibit_only=True)
@@ -1033,6 +1067,7 @@ def error_summary_phase(batch, pop) -> dict:
                                    OP_PARAM, OP_T, chunk_size=OP_CHUNK,
                                    temp_C=OP_TEMP, refresh_ms=OP_REFRESH)
     nominal_s = time.perf_counter() - t0
+    DENSE.update(summary_op=at_op, summary_nominal=nominal)
     n_chunks = -(-batch.n_dimms // OP_CHUNK)
     launches = counted({"fail_prob_op": n_chunks, "fail_prob": n_chunks})
     g = batch.geom
@@ -1104,7 +1139,7 @@ def blind_phase(batch, pop) -> dict:
     disc = BlindDiva().discover(counts, expected, serials=serials,
                                 device=batch.device)
     secs["discover"] = time.perf_counter() - t0
-    DENSE["campaign_counts"] = counts
+    DENSE.update(campaign_counts=counts, campaign_expected=expected)
     t0 = time.perf_counter()
     bvo = blind_vs_oracle(batch, disc, temp_C=55.0, multibit_only=True)
     secs["blind_vs_oracle"] = time.perf_counter() - t0
@@ -2281,6 +2316,188 @@ def stream_scans_phase(batch, diva) -> dict:
     return total
 
 
+def max_gap(got, want) -> float:
+    """Largest |got - want| / |want| over the nonzero entries of ``want``, a
+    float array of ``got``'s shape (0.0: bit for bit)."""
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape:
+        raise AssertionError(f"shapes {got.shape} and {want.shape} differ")
+    nz = want != 0
+    return float(np.max(np.abs(got - want)[nz] / np.abs(want[nz]))) \
+        if nz.any() else 0.0
+
+
+def same(got, want, what: str) -> None:
+    """Identical (``np.array_equal``), or raise."""
+    if not np.array_equal(got, want):
+        raise AssertionError(f"{what} differs from its unsharded result")
+
+
+def close(got, want, what: str, rtol: float, atol: float = 0.0) -> float:
+    """Within rtol / atol, or raise; returns the largest relative gap."""
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol, err_msg=what)
+    return max_gap(got, want)
+
+
+def sharded_phase(batch, diva) -> dict:
+    """Phase 25: the DIVA path's entry points with the DIMM axis split over
+    meshes that repeat the card, each beside its unsharded run; returns the
+    launches of every run, summed."""
+    dev = batch.device
+    meshes = {f"N{n}": DimmMesh([dev] * n) for n in SHARD_SIZES}
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        meshes[f"dimm_mesh_{n_cards}_cards"] = dimm_mesh()
+    secs, launches, gaps = {}, {}, {}
+    total = dict.fromkeys(ops.KERNELS, 0)
+
+    def run(name, fn, check, labels=None):
+        """``fn(mesh)`` unsharded, then on each mesh of ``labels``: timed,
+        counted (N times the unsharded launches of each kernel) and held by
+        ``check(out, unsharded out)``, which returns the largest relative
+        gap of each float output it holds to a bound (none: all exact)."""
+        base = None
+        for label in ["unsharded"] + list(labels or meshes):
+            mesh = None if label == "unsharded" else meshes[label]
+            ops.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(mesh)
+            torch.cuda.synchronize()
+            secs.setdefault(name, {})[label] = time.perf_counter() - t0
+            got = {k: v for k, v in ops.launch_counts().items() if v}
+            launches.setdefault(name, {})[label] = got
+            for k, v in got.items():
+                total[k] += v
+            if mesh is None:
+                base, base_launches = out, got
+            elif got != {k: mesh.size * v for k, v in base_launches.items()}:
+                raise AssertionError(f"{name} on {label} launched {got}, "
+                                     f"expected {mesh.size} x {base_launches}")
+            gaps.setdefault(name, {})[label] = check(out, base)
+
+    lam = DENSE["lam"]
+    run("row_error_lambda",
+        lambda m: row_error_lambda(batch, "trp", 7.5, mesh=m),
+        lambda out, _: {"lam": close(out, lam, "row lambdas", LAMBDA_RTOL,
+                                     1e-6)})
+    run("profile_population_arrays",
+        lambda m: profile_population_arrays(batch, region="worst",
+                                            multibit_only=True, mesh=m),
+        lambda out, _: same(out, diva, "DIVA tables") or {})
+
+    gain = DENSE["fig17_gain"]
+
+    def fig17(m):
+        probs = burst_bit_profile_population(batch, "trp", 7.5,
+                                             refresh_ms=256.0, mesh=m)
+        return probs, shuffling_gain_population(
+            probs, seeds=batch.serial, n_accesses=N_ACCESSES, device=dev,
+            mesh=m)
+
+    def fig17_check(out, _):
+        for k in ("total", "uncorrectable_no_shuffle", "uncorrectable_shuffle",
+                  "undetected_no_shuffle", "undetected_shuffle",
+                  "frac_no_shuffle", "frac_shuffle"):
+            same(out[1][k], gain[k], f"Fig 17 {k}")
+        return {"probs": close(out[0], DENSE["fig17_probs"],
+                               "burst-bit profiles", PROB_RTOL, PROB_ATOL)}
+
+    run("fig17_profile_and_shuffling", fig17, fig17_check)
+
+    whole = DENSE["fig19_whole"]
+
+    def fig19_check(out, _):
+        same(out["total_latency_cycles"], whole["total_latency_cycles"],
+             "Fig 19 totals")
+        same(out["per_dimm_workload_speedup"],
+             whole["per_dimm_workload_speedup"], "Fig 19 speedups")
+        return {}
+
+    run("system_speedup_population",
+        lambda m: memsim.system_speedup_population(
+            diva, n_requests=MEMSIM_N, device=dev, mesh=m), fig19_check)
+
+    op = dict(temp_C=OP_TEMP, refresh_ms=OP_REFRESH, vdd=OP_VDD,
+              retention=True, collect_fail_maps=True)
+    stream = PopulationStream.from_batch(batch)
+
+    def summaries(m):
+        return (stream_error_summary(stream, OP_PARAM, OP_T,
+                                     chunk_size=OP_CHUNK, mesh=m, **op),
+                stream_error_summary(stream, OP_PARAM, OP_T,
+                                     chunk_size=OP_CHUNK, temp_C=OP_TEMP,
+                                     refresh_ms=OP_REFRESH, mesh=m))
+
+    def summary_check(out, _):
+        gap = {}
+        for res, want, what in ((out[0], DENSE["summary_op"], "op_point"),
+                                (out[1], DENSE["summary_nominal"], "nominal")):
+            same(res["hot_cells"], want["hot_cells"], f"{what} hot cells")
+            for key in ("lam_min", "lam_max", "worst_cell_max"):
+                same(res[key]["serial"], want[key]["serial"],
+                     f"{what} {key} serial")
+                gap[f"{what}_{key}"] = close(
+                    res[key]["value"], want[key]["value"], f"{what} {key}",
+                    LAMBDA_RTOL)
+            gap[f"{what}_grid_sum"] = close(res["grid_sum"], want["grid_sum"],
+                                            f"{what} cell-sum", GRID_SUM_RTOL)
+        maps = lambda res: np.concatenate([unpack_bool(p)
+                                           for p in res["fail_maps"]])
+        same(maps(out[0]), maps(DENSE["summary_op"]), "fail maps")
+        gap["op_point_lam_total"] = close(
+            out[0]["lam_total"], DENSE["summary_op"]["lam_total"],
+            "fleet lambdas", LAMBDA_RTOL)
+        return gap
+
+    run("stream_error_summary", summaries, summary_check)
+
+    counts = DENSE["campaign_counts"][1]                  # tRP 7.5 ns
+    expected = DENSE["campaign_expected"][1]
+
+    def discovery(m):
+        return (bit_signature_population(counts.astype(np.int32), device=dev,
+                                         mesh=m),
+                recover_mapping_population(counts, expected, device=dev,
+                                           mesh=m))
+
+    def discovery_check(out, base):
+        same(out[0], base[0], "signatures")
+        for k in base[1]:
+            same(out[1][k], base[1][k], f"recovered {k}")
+        return {}
+
+    run("signatures_and_recovery", discovery, discovery_check)
+
+    life = DENSE["lifetime"]
+    E = SHARD_LIFE_EPOCHS
+    temps = np.full(E, LIFE_TEMP)
+
+    def life_check(out, _):
+        for k in ("timings", "stale_fail"):
+            same(out[k], life[k][:E], f"lifetime {k}")
+        return {"ecc_lambda": close(out["ecc_lambda"], life["ecc_lambda"][:E],
+                                    "ECC exposure", LAMBDA_RTOL)}
+
+    run("lifetime_population",
+        lambda m: lifetime_population(batch, LIFE_AGES[:E], temps, mesh=m),
+        life_check, labels=[f"N{SHARD_LIFE_SIZE}"])
+
+    emit("sharded", dimms=batch.n_dimms, mesh_sizes=list(SHARD_SIZES),
+         lifetime_epochs=E, lifetime_mesh_size=SHARD_LIFE_SIZE,
+         cards=n_cards, all_cards_mesh=(
+             f"dimm_mesh() over {n_cards} cards ran" if n_cards > 1 else
+             "not run: one card visible"),
+         meshes={k: [str(d) for d in m.devices] for k, m in meshes.items()},
+         seconds=secs, launches=launches, max_rel_float_gap=gaps,
+         largest_rel_float_gap=max([g for per in gaps.values()
+                                    for run_gaps in per.values()
+                                    for g in run_gaps.values()] + [0.0]),
+         note="a mesh that repeats one card measures the split, the clone "
+              "padding and the gather, not a speed-up across cards")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU host",
@@ -2369,6 +2586,7 @@ def main() -> int:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     lam = row_error_lambda(batch, "trp", 7.5)
+    DENSE["lam"] = lam
     char_s = time.perf_counter() - t0
     char_launches = ops.launch_counts()["fail_prob"]
     expected = g.subarrays * 4
@@ -2448,11 +2666,16 @@ def main() -> int:
     # ---- 20-22. the fleet service, its CPU twin and CLI, the streamed scans
     paths += [fleet_phase(dev), serve_twin_phase(dev),
               stream_scans_phase(batch, diva)]
-    DENSE.clear()
+    for key in [k for k in DENSE if k.startswith("codec_")]:
+        del DENSE[key]                                   # phase 22's only
 
     # ---- 23-24. the wkv6 backward kernel, and RWKV-6 training at full width
     ints["wkv6_bwd"] = wkv_bwd_kernel_vs_plain(dev, logs.get("wkv6_bwd", ""))
     paths.append(rwkv6_training_phase(dev))
+
+    # ---- 25. the DIVA path with the DIMM axis split over a mesh
+    paths.append(sharded_phase(batch, diva))
+    DENSE.clear()
     total = {name: sum(p[name] for p in paths) for name in ops.KERNELS}
 
     rows = [dict(name="fail_prob",

@@ -18,7 +18,7 @@ checkpoints:
 ``meta.json`` carries a ``treedef`` string so the reference's reader finds
 every key it expects; ``restore`` here ignores it.  The reference's
 ``shardings=`` (re-sharding onto another mesh) is left out (ROADMAP queue 1
-#5).
+#3).
 """
 from __future__ import annotations
 

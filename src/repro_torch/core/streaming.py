@@ -7,9 +7,9 @@ The counterpart of ``repro.core.streaming``:
     on; ``from_batch`` wraps a resident batch (tensor views, no copies),
     ``population.synthetic_fleet`` synthesizes a fleet chunk by chunk.
   * ``stream_population`` — the chunk loop: fixed-size chunks over the DIMM axis
-    (``chunk_spans``), the ragged tail clone-padded to the one chunk width,
-    each chunk's program run eagerly on the batch's device and its results
-    folded through online reductions.
+    (``sharding.chunk_spans``), the ragged tail clone-padded to the one chunk
+    width, each chunk's program run eagerly on the batch's device (or split
+    over a ``mesh``) and its results folded through online reductions.
   * Online reductions — ``Sum``, ``Min``/``Max`` (with the attaining serial),
     ``Welford``, ``Collect`` and ``Passthrough`` (numpy, copied).
   * Streamed entry points, each a loop over the dense path's own chunk
@@ -29,8 +29,12 @@ cross-DIMM folds are exact; float ones are widened to float64 and hold to a
 tolerance across chunk sizes.  Each chunk call bumps
 ``repro_stream_chunks_total{entry}`` and, while a trace is recorded, opens a
 ``stream.chunk`` span; folded DIMMs count in ``repro_stream_dimms_total``.
-The reference's ``mesh=`` arguments (the DIMM axis sharded over devices) are
-left out (ROADMAP queue 1 #5).
+``mesh=`` (a ``sharding.DimmMesh``) shards each chunk over the DIMM axis:
+the chunk size is rounded up to the mesh's size and each chunk runs through
+``substrate._run_sharded``, which cannot change a per-DIMM integer or
+decision, so the folded summaries do not depend on the mesh either (the
+error summary's float cell-sum adds the shards' partials, to a tolerance).
+The counter and the span count chunks, not shards.
 """
 from __future__ import annotations
 
@@ -48,10 +52,11 @@ from repro_torch.core.latency import (DEFAULT_ITERS, DEFAULT_PATTERNS,
                                       retention_stress)
 from repro_torch.core.packing import narrow_counts, pack_bool
 from repro_torch.core.substrate import (_LEAVES, DimmBatch, _axis_context,
-                                        _geom_consts, _lifetime_impl,
-                                        _op_grid_impl, _pack_coeffs,
-                                        _pack_op_coeffs, _profile_impl,
-                                        _resolve_rows, _shuffling_impl,
+                                        _dispatch, _gather, _geom_consts,
+                                        _lifetime_impl, _op_grid_impl,
+                                        _pack_coeffs, _pack_op_coeffs, _pad0,
+                                        _profile_impl, _resolve_rows,
+                                        _shard_outputs, _shuffling_impl,
                                         condition_adders, lifetime_adders,
                                         operating_grid_tables, pattern_stress,
                                         row_error_lambda)
@@ -61,6 +66,7 @@ from repro_torch.kernels.fail_prob import fail_prob, fail_prob_op
 from repro_torch.kernels.secded import syndrome
 from repro_torch.obs import REGISTRY as _OBS_REGISTRY
 from repro_torch.obs import tracing as _obs_tracing
+from repro_torch.sharding import DimmMesh, chunk_spans, mesh_device
 
 # Streaming throughput accounting, counted at the HOST chunk boundary: chunk
 # calls by entry point and folded DIMMs (clone-padding excluded).  Per-chunk
@@ -75,16 +81,6 @@ _OBS_DIMMS = _OBS_REGISTRY.counter(
     "DIMMs folded through streaming scans (clone-padding excluded)")
 
 
-def chunk_spans(n_dimms: int, chunk_size: int) -> list[tuple[int, int]]:
-    """[lo, hi) population spans of a chunked scan: fixed-size chunks that
-    tile [0, n_dimms) exactly, in serial order."""
-    if n_dimms < 0 or chunk_size <= 0:
-        raise ValueError(f"need n_dimms >= 0 < chunk_size; got "
-                         f"({n_dimms}, {chunk_size})")
-    return [(lo, min(lo + chunk_size, n_dimms))
-            for lo in range(0, n_dimms, chunk_size)]
-
-
 # ------------------------------------------------------------- the stream
 
 def slice_batch(batch: DimmBatch, lo: int, hi: int) -> DimmBatch:
@@ -93,18 +89,8 @@ def slice_batch(batch: DimmBatch, lo: int, hi: int) -> DimmBatch:
         batch, **{n: getattr(batch, n)[lo:hi] for n in _LEAVES})
 
 
-def pad_batch(batch: DimmBatch, pad: int) -> DimmBatch:
-    """Clone-pad the DIMM axis (repeat the last DIMM ``pad`` times).  The
-    clone's serial travels with it, so its (discarded) draws are that DIMM's
-    and every kept DIMM's draws are untouched."""
-    if pad == 0:
-        return batch
-
-    def grow(a):
-        return torch.cat([a, a[-1:].expand(pad, *a.shape[1:])], dim=0)
-
-    return dataclasses.replace(
-        batch, **{n: grow(getattr(batch, n)) for n in _LEAVES})
+# clone-pad a chunk's DIMM axis (repeat its last DIMM): substrate._pad0
+pad_batch = _pad0
 
 
 @dataclass
@@ -284,8 +270,15 @@ class Passthrough(Reduction):
 
 # ----------------------------------------------------------- the chunk loop
 
+def _padded_width(chunk_size: int, mesh: DimmMesh | None) -> int:
+    """The one chunk width: ``chunk_size`` rounded up to the mesh's size, as
+    ``chunk_spans`` rounds it, so that every padded chunk splits evenly."""
+    return chunk_size if mesh is None else chunk_size + (-chunk_size) % mesh.size
+
+
 def stream_population(source, program, reducers: dict, *,
-                      chunk_size: int = 1024) -> dict:
+                      chunk_size: int = 1024,
+                      mesh: DimmMesh | None = None) -> dict:
     """Run ``program`` over fixed-size population chunks, folding outputs
     through online reductions — no full-population result is ever resident.
 
@@ -294,14 +287,15 @@ def stream_population(source, program, reducers: dict, *,
     ``keep`` (chunk_size,) bool numpy mask that is False on padding —
     programs that reduce over the chunk's DIMM axis on the device must mask
     with it.  ``reducers`` maps output names to ``Reduction`` instances;
-    per-DIMM outputs are pad-stripped before folding.
+    per-DIMM outputs are pad-stripped before folding.  With a ``mesh`` the
+    chunk width is rounded up to its size (the program shards the chunk).
 
     Returns ``{name: reduction.result()}`` plus ``n_dimms`` / ``n_chunks`` /
     ``chunk_size``.
     """
     stream = as_stream(source)
-    spans = chunk_spans(stream.n_dimms, chunk_size)
-    full = chunk_size
+    spans = chunk_spans(stream.n_dimms, chunk_size, mesh)
+    full = _padded_width(chunk_size, mesh)
     for lo, hi in spans:
         batch = stream.chunk(lo, hi)
         keep = np.arange(full) < (hi - lo)
@@ -318,16 +312,18 @@ def stream_population(source, program, reducers: dict, *,
     return res
 
 
-def _chunk_call(name: str, fn, *args, **kw):
-    """One chunk's program, run eagerly: the streaming layer's one
+def _chunk_call(name: str, fn, args: tuple, statics: dict,
+                batch_argnums: tuple = (), mesh: DimmMesh | None = None):
+    """One chunk's program, run eagerly (split over ``mesh`` by
+    ``substrate._dispatch`` when one is given): the streaming layer's one
     instrumentation point — a chunk counter always, a "stream.chunk" span
     (waiting for the chunk's device work at close) only while a trace is
-    recording."""
+    recording; both once a chunk, whatever the mesh."""
     _OBS_CHUNKS.labels(entry=name).inc()
     if not _obs_tracing.active():
-        return fn(*args, **kw)
+        return _dispatch(mesh, fn, args, statics, batch_argnums)
     with _obs_tracing.span("stream.chunk", entry=name) as sp:
-        out = fn(*args, **kw)
+        out = _dispatch(mesh, fn, args, statics, batch_argnums)
         sp.bind(out)
     return out
 
@@ -342,7 +338,8 @@ def stream_profile_population(source, *, chunk_size: int = 1024,
                               patterns=DEFAULT_PATTERNS,
                               iters: int = DEFAULT_ITERS, banks: int = 1,
                               axes=PARAMS, retention: bool = False,
-                              collect: bool = False) -> dict:
+                              collect: bool = False,
+                              mesh: DimmMesh | None = None) -> dict:
     """DIVA / conventional profiling of an arbitrarily large population in
     fixed memory, on the stream's device: the streamed
     ``profile_population_arrays``.
@@ -353,8 +350,8 @@ def stream_profile_population(source, *, chunk_size: int = 1024,
     ``tables_stats`` (Welford mean/var).  ``collect=True`` also concatenates
     the per-DIMM (D, [banks,] len(axes)) tables.  ``axes`` / ``vdd`` /
     ``retention`` extend the sweep as in ``profile_population_arrays``; the
-    per-axis context tables are rebuilt on the host per chunk.  The
-    reference's ``mesh=`` is left out (ROADMAP queue 1 #5).
+    per-axis context tables are rebuilt on the host per chunk.  ``mesh``
+    shards each chunk over the DIMM axis.
     """
     stream = as_stream(source)
     if stream.geom.subarrays % banks != 0:
@@ -380,15 +377,18 @@ def stream_profile_population(source, *, chunk_size: int = 1024,
                                 device=dev)
         ctx_d, ctx_g = _axis_context(batch, axes, temp_C=temp_C,
                                      refresh_ms=refresh_ms, vdd=vdd)
-        tables = _chunk_call(
-            "stream_profile", _profile_impl, batch,
-            torch.as_tensor(rows, dtype=torch.int64, device=dev),
-            torch.as_tensor(pattern_stress(patterns), device=dev), adder,
-            ctx_d, ctx_g, **statics).cpu().numpy()
+        args = (batch, torch.as_tensor(rows, dtype=torch.int64, device=dev),
+                torch.as_tensor(pattern_stress(patterns), device=dev), adder)
+        argnums = (0, 3)
+        if ctx_d is not None:
+            args, argnums = args + (ctx_d, ctx_g), (0, 3, 4)
+        tables = _chunk_call("stream_profile", _profile_impl, args, statics,
+                             argnums, mesh).cpu().numpy()
         tables = tables if banks > 1 else tables[:, 0]
         return {name: tables for name in red}
 
-    return stream_population(stream, program, red, chunk_size=chunk_size)
+    return stream_population(stream, program, red, chunk_size=chunk_size,
+                             mesh=mesh)
 
 
 # ------------------------------------------------- streamed lifetime scan
@@ -401,7 +401,8 @@ def stream_lifetime_population(source, ages, temps, *,
                                patterns=DEFAULT_PATTERNS,
                                iters: int = DEFAULT_ITERS,
                                diagnostics: bool = True, banks: int = 1,
-                               collect: bool = False) -> dict:
+                               collect: bool = False,
+                               mesh: DimmMesh | None = None) -> dict:
     """The streamed ``lifetime_population``, on the stream's device: the
     online re-profiling lifecycle over an arbitrarily large fleet in fixed
     memory.
@@ -412,8 +413,8 @@ def stream_lifetime_population(source, ages, temps, *,
     ``stale_count`` and float64-widened ``ecc_lambda_total``.
     ``collect=True`` also keeps per-DIMM trajectories (``timings``
     (D, E, [banks,] 4), ``stale_fail``, ``ecc_lambda`` — DIMM-leading; the
-    dense path's epoch-leading arrays are one ``moveaxis`` away).  The
-    reference's ``mesh=`` is left out (ROADMAP queue 1 #5).
+    dense path's epoch-leading arrays are one ``moveaxis`` away).  ``mesh``
+    shards each chunk over the DIMM axis.
     """
     stream = as_stream(source)
     if stream.geom.subarrays % banks != 0:
@@ -427,8 +428,6 @@ def stream_lifetime_population(source, ages, temps, *,
     rows = _resolve_rows(region, stream.geom)
     statics = dict(guard_cycles=guard_cycles, iters=iters, multibit=multibit,
                    diagnostics=diagnostics, banks=banks)
-    # the impl's epoch-leading (E, C, banks, ...) -> DIMM-leading (C, E, ...)
-    lead = lambda t: torch.movedim(t, 0, 1).cpu().numpy()
     sq = (lambda a: a[:, :, 0]) if banks == 1 else (lambda a: a)
 
     red: dict[str, Reduction] = {"timings_stats": Welford(),
@@ -449,17 +448,19 @@ def stream_lifetime_population(source, ages, temps, *,
         dev = batch.device
         adders = lifetime_adders(batch, ages, temps, refresh_ms)   # (E, C)
         out = _chunk_call(
-            "stream_lifetime", _lifetime_impl, batch,
-            torch.as_tensor(rows, dtype=torch.int64, device=dev),
-            torch.as_tensor(pattern_stress(patterns), device=dev),
-            torch.as_tensor(adders, device=dev), **statics)
-        vals = {"timings": sq(lead(out[0]))}           # (C, E, [banks,] 4)
+            "stream_lifetime", _lifetime_impl,
+            (batch, torch.as_tensor(rows, dtype=torch.int64, device=dev),
+             torch.as_tensor(pattern_stress(patterns), device=dev),
+             torch.as_tensor(np.ascontiguousarray(adders.T), device=dev)),
+            statics, (0, 3), mesh)
+        out = [sq(v.cpu().numpy()) for v in out]
+        vals = {"timings": out[0]}                     # (C, E, [banks,] 4)
         if diagnostics:
-            vals["stale"] = sq(lead(out[1]))           # (C, E[, banks])
-            vals["ecc"] = sq(lead(out[2]))
+            vals["stale"], vals["ecc"] = out[1], out[2]   # (C, E[, banks])
         return {name: vals[names[name]] for name in red}
 
-    out = stream_population(stream, program, red, chunk_size=chunk_size)
+    out = stream_population(stream, program, red, chunk_size=chunk_size,
+                            mesh=mesh)
     out["ages"], out["temps"] = ages, temps
     return out
 
@@ -474,7 +475,7 @@ _SHUFFLING_KEYS = ("total", "corrected_no_shuffle", "corrected_shuffle",
 def stream_shuffling_gain(probs_source, n_dimms: int | None = None, *,
                           chunk_size: int = 2048, seed: int = 0,
                           n_accesses: int = 2000, collect: bool = False,
-                          device=None) -> dict:
+                          device=None, mesh: DimmMesh | None = None) -> dict:
     """The streamed ``shuffling_gain_population``: Fig 17 ECC scoring over an
     arbitrarily large fleet of (9, 64) burst-bit error profiles, on
     ``device`` (default: the CUDA device) — per chunk two ``diva_shuffle``
@@ -485,10 +486,10 @@ def stream_shuffling_gain(probs_source, n_dimms: int | None = None, *,
     global index`` — chunk-invariant by construction.  All seven codeword
     counters fold as exact int64 sums (``<key>_sum``), so the fleet
     correctable fractions are bit-invariant to chunking; ``collect=True``
-    keeps the per-DIMM counters too.  The reference's ``mesh=`` is left out
-    (ROADMAP queue 1 #5).
+    keeps the per-DIMM counters too.  ``mesh`` shards each chunk over the
+    DIMM axis (``device`` is then ignored).
     """
-    dev = resolve_device(device)
+    dev = mesh_device(mesh, device)
     if callable(probs_source):
         if n_dimms is None:
             raise ValueError("n_dimms is required with a chunk factory")
@@ -499,7 +500,7 @@ def stream_shuffling_gain(probs_source, n_dimms: int | None = None, *,
             probs = probs[None]
         probs_fn, D = (lambda lo, hi: probs[lo:hi]), probs.shape[0]
 
-    spans = chunk_spans(D, chunk_size)
+    spans = chunk_spans(D, chunk_size, mesh)
     red: dict[str, Reduction] = {f"{k}_sum": Sum() for k in _SHUFFLING_KEYS}
     if collect:
         red.update({k: Collect() for k in _SHUFFLING_KEYS})
@@ -511,8 +512,9 @@ def stream_shuffling_gain(probs_source, n_dimms: int | None = None, *,
         seeds = (seed + np.arange(lo, hi)).astype(np.uint32)
         out = _chunk_call(
             "stream_shuffling", _shuffling_impl,
-            torch.as_tensor(chunk, device=dev),
-            torch.as_tensor(seeds.astype(np.int64), device=dev), n_accesses)
+            (torch.as_tensor(chunk, device=dev),
+             torch.as_tensor(seeds.astype(np.int64), device=dev)),
+            dict(n_accesses=n_accesses), (0, 1), mesh)
         _OBS_DIMMS.inc(hi - lo)
         for k, arr in zip(_SHUFFLING_KEYS, out):
             v = arr.cpu().numpy().astype(np.int64)
@@ -525,7 +527,8 @@ def stream_shuffling_gain(probs_source, n_dimms: int | None = None, *,
     res["frac_shuffle"] = int(res["corrected_shuffle_sum"]) / total
     res["gain"] = (int(res["corrected_shuffle_sum"])
                    - int(res["corrected_no_shuffle_sum"])) / total
-    res.update(n_dimms=D, n_chunks=len(spans), chunk_size=int(chunk_size))
+    res.update(n_dimms=D, n_chunks=len(spans),
+               chunk_size=_padded_width(int(chunk_size), mesh))
     return res
 
 
@@ -558,13 +561,40 @@ def _error_summary_impl(row_src, d_mat, coeffs, keep, *, cols: int,
     return out
 
 
+def _error_summary_sharded(row_src, d_mat, coeffs, keep, *,
+                           mesh: DimmMesh, **statics) -> dict:
+    """The error-summary chunk program split over ``mesh``: the per-DIMM
+    outputs (``lam_total``, ``worst_cell``, ``row_fail``) are gathered; the
+    fleet aggregates are each shard's partials, masked by the shard's own
+    slice of ``keep`` (clone padding is dropped: ``keep`` pads with False),
+    and added in mesh order on ``mesh.devices[0]`` — ``grid_sum`` in
+    float32 as the reference's ``psum`` adds, ``hot_cells`` in int32."""
+    D = row_src.shape[0]
+    pad = (-D) % mesh.size
+    row_src, coeffs = _pad0(row_src, pad), _pad0(coeffs, pad)
+    keep = torch.cat([keep, keep.new_zeros(pad)])
+    parts, _ = _shard_outputs(mesh, _error_summary_impl,
+                              (row_src, d_mat, coeffs, keep), statics,
+                              (0, 2, 3))
+    dev = mesh.devices[0]
+    out = {k: _gather([p[k] for p in parts], dev, D)
+           for k in ("lam_total", "worst_cell", "row_fail")}
+    for k in ("grid_sum", "hot_cells"):
+        acc = parts[0][k].to(dev)
+        for p in parts[1:]:
+            acc = acc + p[k].to(dev)
+        out[k] = acc
+    return out
+
+
 def stream_error_summary(source, param: str, t_op: float, *,
                          chunk_size: int = 2048, temp_C: float = 85.0,
                          refresh_ms: float = 64.0, vdd: float = VDD_STD,
                          retention: bool = False, pattern: str = "0101",
                          chip: int = 0, subarray: int = 0,
                          threshold: float = 0.5,
-                         collect_fail_maps: bool = False) -> dict:
+                         collect_fail_maps: bool = False,
+                         mesh: DimmMesh | None = None) -> dict:
     """Fleet-scale failure-probability summary without materializing the
     (D, mats, rows, cols) grids, on the source batch's device.
 
@@ -586,7 +616,11 @@ def stream_error_summary(source, param: str, t_op: float, *,
     adds the refresh/temperature retention channel (canonically at
     ``param="tras"``, the charge-restore knob); either routes the chunk
     program through the ``fail_prob_op`` kernel.  At the defaults it is the
-    plain ``fail_prob`` program.
+    plain ``fail_prob`` program.  ``mesh`` shards each chunk over the DIMM
+    axis (``_error_summary_sharded``): ``hot_cells``, the fail maps and the
+    extremes' serials are those of the unsharded scan; ``grid_sum`` adds the
+    shards' float32 partials in another order, and on a card a DIMM's
+    lambda may sum its cells in another order on a narrower shard.
     """
     stream = as_stream(source)
     pidx = PARAMS.index(param)
@@ -619,11 +653,13 @@ def stream_error_summary(source, param: str, t_op: float, *,
         else:
             coeffs = _pack_coeffs(batch, pidx, t_op, stress, adder, chip,
                                   subarray)
+        impl, kw = (_error_summary_impl, statics) if mesh is None \
+            else (_error_summary_sharded, dict(statics, mesh=mesh))
         out = _chunk_call(
-            "stream_error_summary", _error_summary_impl,
-            batch.row_src[:, subarray].contiguous(),
-            torch.as_tensor(d_mat_np, device=dev), coeffs,
-            torch.as_tensor(keep, device=dev), **statics)
+            "stream_error_summary", impl,
+            (batch.row_src[:, subarray].contiguous(),
+             torch.as_tensor(d_mat_np, device=dev), coeffs,
+             torch.as_tensor(keep, device=dev)), kw)
         out = {k: v.cpu().numpy() for k, v in out.items()}
         # fleet aggregates fold across many chunks: widen before the host add
         out["grid_sum"] = out["grid_sum"].astype(np.float64)
@@ -632,7 +668,8 @@ def stream_error_summary(source, param: str, t_op: float, *,
             packed_maps.append(pack_bool(out["row_fail"][:int(keep.sum())]))
         return {name: out[names[name]] for name in red}
 
-    out = stream_population(stream, program, red, chunk_size=chunk_size)
+    out = stream_population(stream, program, red, chunk_size=chunk_size,
+                            mesh=mesh)
     if collect_fail_maps:
         out["fail_maps"] = packed_maps
     return out
@@ -645,7 +682,8 @@ def stream_operating_grid(source, points, *, chunk_size: int = 1024,
                           iters: int = DEFAULT_ITERS,
                           multibit_only: bool = False, banks: int = 1,
                           retention: bool = True,
-                          collect: bool = False) -> dict:
+                          collect: bool = False,
+                          mesh: DimmMesh | None = None) -> dict:
     """The streamed ``operating_grid_arrays``, on the stream's device: every
     DIMM of an arbitrarily large fleet evaluated at every ``OperatingPoint``
     in ``points``, the (D, G) result grid never resident.
@@ -657,8 +695,8 @@ def stream_operating_grid(source, points, *, chunk_size: int = 1024,
     outcomes), ``lam_stats`` / ``lam_max`` (expected-failure-mass moments
     and the worst DIMM per point, with its serial).  ``collect=True`` also
     keeps the per-DIMM (D, G[, banks]) ``fails`` / ``lam``.  Per-DIMM
-    decisions are identical to the dense path at any chunk size.  The
-    reference's ``mesh=`` is left out (ROADMAP queue 1 #5).
+    decisions are identical to the dense path at any chunk size and on any
+    ``mesh``, which shards each chunk over the DIMM axis.
     """
     stream = as_stream(source)
     if stream.geom.subarrays % banks != 0:
@@ -687,15 +725,17 @@ def stream_operating_grid(source, points, *, chunk_size: int = 1024,
         t_g, adders_dg, shifts_dg, keys_g, retx_g = \
             operating_grid_tables(batch, points)
         fails, lam = _chunk_call(
-            "stream_op_grid", _op_grid_impl, batch,
-            torch.as_tensor(rows, dtype=torch.int64, device=dev),
-            as_t(pattern_stress(patterns)), as_t(t_g), as_t(adders_dg),
-            as_t(shifts_dg), keys_g, as_t(retx_g), **statics)
+            "stream_op_grid", _op_grid_impl,
+            (batch, torch.as_tensor(rows, dtype=torch.int64, device=dev),
+             as_t(pattern_stress(patterns)), as_t(t_g), as_t(adders_dg),
+             as_t(shifts_dg), keys_g, as_t(retx_g)),
+            statics, (0, 4, 5), mesh)
         vals = {"fails": sq(fails.cpu().numpy()),
                 "lam": sq(lam.cpu().numpy())}
         return {name: vals[names[name]] for name in red}
 
-    out = stream_population(stream, program, red, chunk_size=chunk_size)
+    out = stream_population(stream, program, red, chunk_size=chunk_size,
+                            mesh=mesh)
     out["points"] = points
     return out
 
@@ -703,19 +743,20 @@ def stream_operating_grid(source, points, *, chunk_size: int = 1024,
 # ------------------------------------- streamed signatures + generations
 
 def stream_bit_signature(counts_fn, n_dimms: int, *, chunk_size: int = 4096,
-                         device=None) -> np.ndarray:
+                         device=None,
+                         mesh: DimmMesh | None = None) -> np.ndarray:
     """Streamed ``bit_signature_population``: (D, S, nbits) signatures from a
     ``(lo, hi) -> (C, S, R)`` integer-count chunk factory, on ``device``
-    (default: the CUDA device; one ``bit_signature`` launch a chunk).
-    Signatures are a pure per-DIMM map (exact integer kernel + one
-    power-of-two divide), so the concatenated result is identical to the
-    dense call at any chunk size.  The reference's ``mesh=`` is left out
-    (ROADMAP queue 1 #5)."""
+    (default: the CUDA device; one ``bit_signature`` launch a chunk, or a
+    shard with ``mesh``).  Signatures are a pure per-DIMM map (exact integer
+    kernel + one power-of-two divide), so the concatenated result is
+    identical to the dense call at any chunk size and on any mesh."""
     from repro_torch.discovery.signatures import bit_signature_population
-    dev = resolve_device(device)
+    dev = mesh_device(mesh, device)
     parts = [_chunk_call("stream_bit_signature", bit_signature_population,
-                         np.asarray(counts_fn(lo, hi)), device=dev)
-             for lo, hi in chunk_spans(n_dimms, chunk_size)]
+                         (np.asarray(counts_fn(lo, hi)),),
+                         dict(device=dev, mesh=mesh))
+             for lo, hi in chunk_spans(n_dimms, chunk_size, mesh)]
     return np.concatenate(parts, axis=0) if parts \
         else np.zeros((0, 0, 0), np.float32)
 
@@ -777,8 +818,8 @@ def stream_secded_scrub(source, n_words: int | None = None, *,
             code.copy_(torch.from_numpy(np.ascontiguousarray(chunk)))
         else:
             code = torch.as_tensor(chunk, device=dev)
-        fixed, status = _chunk_call("secded_scrub", _scrub_impl, code,
-                                    in_place=donate)
+        fixed, status = _chunk_call("secded_scrub", _scrub_impl, (code,),
+                                    dict(in_place=donate))
         counts += np.bincount(status.cpu().numpy(), minlength=3)[:3]
         if collect:   # a copy: a CPU buffer is reused by the next chunk
             collected.append(fixed.cpu().numpy().copy())
@@ -797,15 +838,16 @@ def stream_secded_scrub(source, n_words: int | None = None, *,
 
 def _campaign_impl(batch: DimmBatch, param: str, t_op: float, *,
                    temp_C: float, refresh_ms: float, patterns, iters: int,
-                   seed: int) -> np.ndarray:
+                   seed: int, mesh: DimmMesh | None) -> np.ndarray:
     """(C, S, R) int64 counts: the row lambdas in external order (one
-    ``fail_prob`` launch per (subarray, pattern) on a card), then one
-    numpy Poisson generator per DIMM keyed by (seed, serial)."""
+    ``fail_prob`` launch per (subarray, pattern) on a card, split over
+    ``mesh``), then one numpy Poisson generator per DIMM keyed by (seed,
+    serial)."""
     g = batch.geom
     C, S, R = batch.n_dimms, g.subarrays, g.rows_per_mat
     lam = row_error_lambda(batch, param, t_op, temp_C=temp_C,
                            refresh_ms=refresh_ms, patterns=patterns,
-                           iters=iters, internal_order=False
+                           iters=iters, internal_order=False, mesh=mesh
                            ).reshape(C, S, R)
     counts = np.empty((C, S, R), np.int64)
     for d, serial in enumerate(batch.serial.cpu().numpy()):
@@ -816,7 +858,8 @@ def _campaign_impl(batch: DimmBatch, param: str, t_op: float, *,
 def hash_poisson_counts(batch: DimmBatch, param: str, t_op: float, *,
                         temp_C: float = 85.0, refresh_ms: float = 64.0,
                         patterns=DEFAULT_PATTERNS, iters: int = DEFAULT_ITERS,
-                        seed: int = 0) -> np.ndarray:
+                        seed: int = 0,
+                        mesh: DimmMesh | None = None) -> np.ndarray:
     """Synthetic observed campaign counts for a (chunk) batch, on the batch's
     device: the row-lambda sweep (``row_error_lambda``, external order),
     then per-DIMM Poisson draws keyed by the DIMM's SERIAL — never its batch
@@ -827,11 +870,13 @@ def hash_poisson_counts(batch: DimmBatch, param: str, t_op: float, *,
     host: exact and independent of the device, but not ``repro``'s bits
     (``jax.random.poisson`` under ``fold_in(PRNGKey(seed), serial)``, which
     torch cannot reproduce).  Parity runs feed the reference's counts in
-    through the ``counts_fn`` hooks.  The reference's ``mesh=`` is left out
-    (ROADMAP queue 1 #5)."""
-    return _chunk_call("stream_campaign", _campaign_impl, batch, param,
-                       float(t_op), temp_C=temp_C, refresh_ms=refresh_ms,
-                       patterns=patterns, iters=iters, seed=seed)
+    through the ``counts_fn`` hooks.  ``mesh`` shards the row-lambda sweep
+    (the draws stay keyed by serial on the host)."""
+    return _chunk_call("stream_campaign", _campaign_impl,
+                       (batch, param, float(t_op)),
+                       dict(temp_C=temp_C, refresh_ms=refresh_ms,
+                            patterns=patterns, iters=iters, seed=seed,
+                            mesh=mesh))
 
 
 def stream_discover_generations(source, *, counts_fn=None, param: str = "trp",
@@ -840,7 +885,8 @@ def stream_discover_generations(source, *, counts_fn=None, param: str = "trp",
                                 chunk_size: int = 4096,
                                 threshold: float = 0.85, k_rows: int = 2,
                                 campaign_seed: int = 0,
-                                collect_labels: bool = True) -> dict:
+                                collect_labels: bool = True,
+                                mesh: DimmMesh | None = None) -> dict:
     """Generation inference as chunks flow through, on the stream's device:
     the streamed sibling of the blind-discovery clustering stage, built on
     ``generation.StreamingGenerations``.
@@ -852,8 +898,9 @@ def stream_discover_generations(source, *, counts_fn=None, param: str = "trp",
     the chunk's counts fold into its generation's exact canonical sums.  At
     finalize: per-DIMM labels (identical to the dense greedy clusterer),
     mean canonical profiles (exact: integer sums / profile count) and the
-    discovered vulnerable rows per generation.  The reference's ``mesh=`` is
-    left out (ROADMAP queue 1 #5).
+    discovered vulnerable rows per generation.  ``mesh`` shards the
+    campaign's row lambdas and the signatures over the DIMM axis; the chunk
+    size is rounded up to its size.
     """
     from repro_torch.discovery.generation import StreamingGenerations
     from repro_torch.discovery.signatures import (bit_signature_population,
@@ -862,17 +909,17 @@ def stream_discover_generations(source, *, counts_fn=None, param: str = "trp",
     if counts_fn is None:
         counts_fn = lambda b: hash_poisson_counts(
             b, param, t_op, temp_C=temp_C, refresh_ms=refresh_ms,
-            seed=campaign_seed)
+            seed=campaign_seed, mesh=mesh)
 
     gens = StreamingGenerations(threshold=threshold)
     labels_parts: list[np.ndarray] = []
     serial_parts: list[np.ndarray] = []
-    spans = chunk_spans(stream.n_dimms, chunk_size)
+    spans = chunk_spans(stream.n_dimms, chunk_size, mesh)
     for lo, hi in spans:
         batch = stream.chunk(lo, hi)
         counts = narrow_counts(np.asarray(counts_fn(batch)))
         sigs = bit_signature_population(counts.astype(np.int32),
-                                        device=batch.device)
+                                        device=batch.device, mesh=mesh)
         labels = gens.update(signature_features(sigs), counts)
         _OBS_DIMMS.inc(hi - lo)
         if collect_labels:
@@ -886,5 +933,5 @@ def stream_discover_generations(source, *, counts_fn=None, param: str = "trp",
         out["serials"] = np.concatenate(serial_parts) if serial_parts \
             else np.zeros(0, np.int64)
     out.update(n_dimms=stream.n_dimms, n_chunks=len(spans),
-               chunk_size=int(chunk_size))
+               chunk_size=_padded_width(int(chunk_size), mesh))
     return out

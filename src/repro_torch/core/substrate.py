@@ -36,15 +36,21 @@ The counterpart of ``repro.core.substrate`` for the main path:
 Monte-Carlo decisions and error draws use the counter hashes of
 core/hashing.py, whose torch and numpy forms give the same bits, so the
 batched paths reproduce the per-DIMM numpy walkers and the reference's
-tables and counts decision for decision.  Not ported yet: the ``mesh`` DIMM
-sharding (ROADMAP queue 1).
+tables and counts decision for decision.
 
 Entry points run on the batch's device.  A batch lands on CUDA unless the
 caller passes ``device="cpu"``; with no CUDA device and no explicit device
 the constructors raise.  Results return as numpy, as in the reference.
+``mesh=`` (a ``sharding.DimmMesh``) splits the DIMM axis over the mesh's
+devices instead (``_run_sharded``): each shard runs the same eager program
+on its device and the outputs are gathered on the mesh's first.  Every draw
+is keyed by the DIMM's serial, so the split changes no integer and no
+decision; float sums over a DIMM's cells may take another order on a
+shard's width (the CUDA reductions split by their output count).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from dataclasses import dataclass
 from typing import Any, Sequence
@@ -69,6 +75,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.fail_prob import fail_prob
 from repro_torch.kernels.secded import syndrome
 from repro_torch.kernels.shuffle import apply_shuffle
+from repro_torch.sharding import DimmMesh, mesh_device
 
 TIMING_GRIDS = {p: AXES[p].grid for p in PARAMS}
 GRIDS = dict(TIMING_GRIDS, vdd=AXES["vdd"].grid, refresh=AXES["refresh"].grid)
@@ -196,6 +203,121 @@ def _geom_consts(geom: DimmGeometry):
                        np.float32)
     even = (np.arange(C) % 2) == 0 if geom.open_bitline else np.ones(C, bool)
     return d_wl, d_mat, even
+
+
+# ------------------------------------------------- DIMM-axis sharded dispatch
+
+def _map_leaves(fn, a):
+    """``fn`` over the tensor and numpy leaves of ``a``: a ``DimmBatch``
+    (its leaves; the geometry stays), a dict, list or tuple of them, or one
+    leaf.  Anything else (a number, a string, None) passes through."""
+    if isinstance(a, (torch.Tensor, np.ndarray)):
+        return fn(a)
+    if isinstance(a, DimmBatch):
+        return dataclasses.replace(
+            a, **{n: fn(getattr(a, n)) for n in _LEAVES})
+    if isinstance(a, dict):
+        return {k: _map_leaves(fn, v) for k, v in a.items()}
+    if isinstance(a, (list, tuple)):
+        return type(a)(_map_leaves(fn, v) for v in a)
+    return a
+
+
+def _pad0(a, pad: int):
+    """Pad dim 0 of every leaf of ``a`` by repeating its last entry ``pad``
+    times (tensors in torch, numpy arrays in numpy).  Padding clones a real
+    DIMM: its serial travels with it, so its (discarded) draws are that
+    DIMM's and every kept DIMM's draws are untouched."""
+    if pad == 0:
+        return a
+
+    def grow(x):
+        if isinstance(x, torch.Tensor):
+            return torch.cat([x, x[-1:].expand(pad, *x.shape[1:])], dim=0)
+        return np.concatenate([x, np.repeat(x[-1:], pad, axis=0)], axis=0)
+
+    return _map_leaves(grow, a)
+
+
+def _on(dev: torch.device):
+    """The current-device context a shard's launches need on a card."""
+    return torch.cuda.device(dev) if dev.type == "cuda" \
+        else contextlib.nullcontext()
+
+
+def _shard_outputs(mesh: DimmMesh, impl, args, statics: dict,
+                   batch_argnums: tuple):
+    """Run ``impl(*shard_args, **statics)`` once per mesh device with dim 0
+    of every ``batch_argnums`` argument (trees included) split into
+    ``mesh.size`` contiguous shards, D clone-padded up to a multiple of the
+    size first.  Every other argument's tensors are copied to each shard's
+    device.  All shards' inputs are placed before the first launch and every
+    shard is launched before any output is read, so shards on distinct cards
+    overlap (an ``impl`` that reads the device itself, as the sweeps' early
+    exit does, serializes them).  Returns (the shard outputs in mesh order,
+    D)."""
+    D = _lead(args[batch_argnums[0]])
+    pad = (-D) % mesh.size
+    per = (D + pad) // mesh.size
+    args = [_pad0(a, pad) if i in batch_argnums else a
+            for i, a in enumerate(args)]
+
+    def to(x, dev):
+        return x.to(dev) if isinstance(x, torch.Tensor) else x
+
+    shards = [[_map_leaves(lambda x: to(x[k * per:(k + 1) * per], dev), a)
+               if i in batch_argnums else _map_leaves(lambda x: to(x, dev), a)
+               for i, a in enumerate(args)]
+              for k, dev in enumerate(mesh.devices)]
+    del args
+    outs = []
+    for dev, shard in zip(mesh.devices, shards):
+        with _on(dev):
+            outs.append(impl(*shard, **statics))
+    return outs, D
+
+
+def _lead(a) -> int:
+    """D: dim 0 of a batch argument (its first leaf for a dict or tuple)."""
+    if isinstance(a, DimmBatch):
+        return a.n_dimms
+    if isinstance(a, (torch.Tensor, np.ndarray)):
+        return int(a.shape[0])
+    return _lead(next(iter(a.values() if isinstance(a, dict) else a)))
+
+
+def _gather(parts: list, dev: torch.device, D: int):
+    """Concatenate shard outputs (tensors, or dicts / tuples of them) along
+    dim 0 on ``dev`` and slice the padding off."""
+    first = parts[0]
+    if isinstance(first, dict):
+        return {k: _gather([p[k] for p in parts], dev, D) for k in first}
+    if isinstance(first, (tuple, list)):
+        return type(first)(_gather([p[i] for p in parts], dev, D)
+                           for i in range(len(first)))
+    if len(parts) == 1:
+        return first.to(dev)[:D]
+    return torch.cat([p.to(dev) for p in parts], dim=0)[:D]
+
+
+def _run_sharded(mesh: DimmMesh, impl, args, statics: dict,
+                 batch_argnums: tuple):
+    """``impl(*args, **statics)`` with the DIMM axis of the ``batch_argnums``
+    arguments split over ``mesh`` (``_shard_outputs``) and every output's
+    dim 0 gathered on ``mesh.devices[0]`` and sliced back to D, so any
+    population size runs on any mesh.  The port compiles nothing, so
+    there is no program cache."""
+    outs, D = _shard_outputs(mesh, impl, args, statics, batch_argnums)
+    return _gather(outs, mesh.devices[0], D)
+
+
+def _dispatch(mesh: DimmMesh | None, impl, args, statics: dict,
+              batch_argnums: tuple):
+    """One dispatch site for every population entry point: ``impl`` on the
+    arguments as they are without a mesh, the sharded route with one."""
+    if mesh is None:
+        return impl(*args, **statics)
+    return _run_sharded(mesh, impl, args, statics, batch_argnums)
 
 
 def condition_adders(batch: DimmBatch, temp_C: float,
@@ -561,7 +683,8 @@ def profile_population_arrays(batch: DimmBatch, *, region="worst",
                               patterns=DEFAULT_PATTERNS,
                               iters: int = DEFAULT_ITERS,
                               banks: int = 1, axes=PARAMS,
-                              retention: bool = False) -> np.ndarray:
+                              retention: bool = False,
+                              mesh: DimmMesh | None = None) -> np.ndarray:
     """(D, len(axes)) profiled operating values for every DIMM, or
     (D, banks, len(axes)) per-bank tables when ``banks > 1``; the first four
     columns are the timing table in PARAMS order.
@@ -574,7 +697,8 @@ def profile_population_arrays(batch: DimmBatch, *, region="worst",
     sweep beyond the four timings with "vdd" and "refresh", each swept one
     knob at a time at standard timing; ``vdd`` is the ambient supply of the
     timing sweeps, and ``retention`` adds the retention error channel to the
-    non-timing axes' evaluations.
+    non-timing axes' evaluations.  ``mesh`` shards the DIMM axis; the
+    tables are those of the unsharded call.
     """
     if batch.geom.subarrays % banks != 0:
         raise ValueError(f"banks={banks} must divide "
@@ -588,11 +712,15 @@ def profile_population_arrays(batch: DimmBatch, *, region="worst",
     stress = torch.as_tensor(pattern_stress(patterns), device=dev)
     ctx_d, ctx_g = _axis_context(batch, axes, temp_C=temp_C,
                                  refresh_ms=refresh_ms, vdd=vdd)
-    out = _profile_impl(batch, rows, stress, adder, ctx_d, ctx_g,
-                        guard_cycles=guard_cycles, iters=iters,
-                        multibit=multibit_only, banks=banks, axes=axes,
-                        retention=retention)
-    out = out.cpu().numpy()
+    args = (batch, rows, stress, adder)
+    # a per-DIMM region is batch-shaped: it shards with the DIMM axis
+    argnums = (0, 1, 3) if rows.dim() == 2 else (0, 3)
+    if ctx_d is not None:
+        args, argnums = args + (ctx_d, ctx_g), argnums + (4,)
+    statics = dict(guard_cycles=guard_cycles, iters=iters,
+                   multibit=multibit_only, banks=banks, axes=axes,
+                   retention=retention)
+    out = _dispatch(mesh, _profile_impl, args, statics, argnums).cpu().numpy()
     return out[:, 0] if banks == 1 else out
 
 
@@ -656,13 +784,14 @@ def lifetime_adders(batch: DimmBatch, ages, temps,
             + host(batch.aging_coef) * ages)
 
 
-def _lifetime_impl(batch: DimmBatch, rows, stress, adders_ed, ctx_d=None,
+def _lifetime_impl(batch: DimmBatch, rows, stress, adders_de, ctx_d=None,
                    ctx_g=None, *, guard_cycles: int, iters: int,
                    multibit: bool, diagnostics: bool, banks: int = 1,
                    axes=PARAMS, retention: bool = False):
     """Profiling epochs in a Python loop on the batch's device (the
-    reference's ``lax.scan``); ``adders_ed`` is the (E, D) f32 tensor of
-    per-epoch condition adders.
+    reference's ``lax.scan``); ``adders_de`` is the (D, E) f32 tensor of
+    per-epoch condition adders, DIMM-leading so that the sharded route splits
+    dim 0 as it does every other batch argument.
 
     Each epoch re-runs the full sweep under that epoch's conditions; with
     ``diagnostics`` it also reports, per (DIMM, bank):
@@ -675,9 +804,9 @@ def _lifetime_impl(batch: DimmBatch, rows, stress, adders_ed, ctx_d=None,
     stale test runs every subarray at its own bank's previous value.  The
     diagnostics evaluate the 4-timing prefix of ``axes``.
 
-    Returns epoch-leading trajectories: (E, D, banks, len(axes)) timings,
-    and with ``diagnostics`` (E, D, banks) bool stale decisions and
-    (E, D, banks) f32 ECC exposures.
+    Returns DIMM-leading trajectories: (D, E, banks, len(axes)) timings,
+    and with ``diagnostics`` (D, E, banks) bool stale decisions and
+    (D, E, banks) f32 ECC exposures.
     """
     D, S = batch.n_dimms, batch.geom.subarrays
     dev = batch.device
@@ -690,7 +819,8 @@ def _lifetime_impl(batch: DimmBatch, rows, stress, adders_ed, ctx_d=None,
               retention=retention)
     prev = std.expand(D, banks, len(axes))
     timings, stales, eccs = [], [], []
-    for adder in adders_ed:
+    for e in range(adders_de.shape[1]):
+        adder = adders_de[:, e]
         t_new = _profile_impl(batch, adder=adder, ctx_d=ctx_d, ctx_g=ctx_g,
                               **kw)                              # (D, banks, n_axes)
         timings.append(t_new)
@@ -711,9 +841,9 @@ def _lifetime_impl(batch: DimmBatch, rows, stress, adders_ed, ctx_d=None,
             stales.append(stale)
             eccs.append(ecc)
         prev = t_new
-    out = (torch.stack(timings),)
+    out = (torch.stack(timings, dim=1),)
     if diagnostics:
-        out += (torch.stack(stales), torch.stack(eccs))
+        out += (torch.stack(stales, dim=1), torch.stack(eccs, dim=1))
     return out
 
 
@@ -723,7 +853,8 @@ def lifetime_population(batch: DimmBatch, ages, temps, *,
                         multibit: bool = True, patterns=DEFAULT_PATTERNS,
                         iters: int = DEFAULT_ITERS, diagnostics: bool = True,
                         banks: int = 1, axes=PARAMS,
-                        retention: bool = False) -> dict:
+                        retention: bool = False,
+                        mesh: DimmMesh | None = None) -> dict:
     """The whole online re-profiling lifecycle of every DIMM, on the batch's
     device.
 
@@ -745,7 +876,7 @@ def lifetime_population(batch: DimmBatch, ages, temps, *,
     DivaProfiler wrappers.  ``axes``/``vdd``/``retention`` extend each
     epoch's sweep to the full operating-point space (see
     ``profile_population_arrays``); ``timings`` then carries len(axes)
-    columns per epoch.
+    columns per epoch.  ``mesh`` shards the DIMM axis.
     """
     if batch.geom.subarrays % banks != 0:
         raise ValueError(f"banks={banks} must divide "
@@ -759,13 +890,19 @@ def lifetime_population(batch: DimmBatch, ages, temps, *,
     # do not depend on the age/temperature schedule
     ctx_d, ctx_g = _axis_context(batch, axes, temp_C=85.0,
                                  refresh_ms=refresh_ms, vdd=vdd)
-    out = _lifetime_impl(
-        batch, rows, torch.as_tensor(pattern_stress(patterns), device=dev),
-        torch.as_tensor(adders, device=dev), ctx_d, ctx_g,
-        guard_cycles=guard_cycles, iters=iters, multibit=multibit,
-        diagnostics=diagnostics, banks=banks, axes=axes, retention=retention)
-    # drop the bank axis in whole-DIMM mode (timings (E,D,1,4) -> (E,D,4))
-    out = [(v[:, :, 0] if banks == 1 else v).cpu().numpy() for v in out]
+    args = (batch, rows, torch.as_tensor(pattern_stress(patterns), device=dev),
+            torch.as_tensor(np.ascontiguousarray(adders.T), device=dev))
+    argnums = (0, 1, 3) if rows.dim() == 2 else (0, 3)
+    if ctx_d is not None:
+        args, argnums = args + (ctx_d, ctx_g), argnums + (4,)
+    statics = dict(guard_cycles=guard_cycles, iters=iters, multibit=multibit,
+                   diagnostics=diagnostics, banks=banks, axes=axes,
+                   retention=retention)
+    out = _dispatch(mesh, _lifetime_impl, args, statics, argnums)
+    # drop the bank axis in whole-DIMM mode (timings (D,E,1,4) -> (D,E,4)),
+    # then epoch-leading
+    out = [np.ascontiguousarray(np.moveaxis(
+        (v[:, :, 0] if banks == 1 else v).cpu().numpy(), 0, 1)) for v in out]
     E, D = adders.shape
     # the resolved schedule: ages are consumed as f32, temps as f64
     to_ed = lambda v, dt: np.broadcast_to(
@@ -828,12 +965,13 @@ def operating_grid_arrays(batch: DimmBatch, points, *,
                           region="worst", patterns=DEFAULT_PATTERNS,
                           iters: int = DEFAULT_ITERS,
                           multibit_only: bool = False, banks: int = 1,
-                          retention: bool = True) -> dict:
+                          retention: bool = True,
+                          mesh: DimmMesh | None = None) -> dict:
     """Every DIMM at every ``OperatingPoint`` in ``points`` — the batched
     N-axis (timing x voltage x temperature x refresh) evaluation.  Returns
     ``fails`` (D, G[, banks]) bool Monte-Carlo region outcomes and ``lam``
     (D, G[, banks]) f32 expected failure counts (access + retention
-    channels), as numpy."""
+    channels), as numpy.  ``mesh`` shards the DIMM axis."""
     if batch.geom.subarrays % banks != 0:
         raise ValueError(f"banks={banks} must divide "
                          f"subarrays={batch.geom.subarrays}")
@@ -843,10 +981,12 @@ def operating_grid_arrays(batch: DimmBatch, points, *,
     t_g, adders_dg, shifts_dg, keys_g, retx_g = \
         operating_grid_tables(batch, points)
     as_t = lambda a: torch.as_tensor(a, device=dev)
-    fails, lam = _op_grid_impl(
-        batch, rows, as_t(pattern_stress(patterns)), as_t(t_g),
-        as_t(adders_dg), as_t(shifts_dg), keys_g, as_t(retx_g), iters=iters,
-        multibit=multibit_only, banks=banks, retention=retention)
+    args = (batch, rows, as_t(pattern_stress(patterns)), as_t(t_g),
+            as_t(adders_dg), as_t(shifts_dg), keys_g, as_t(retx_g))
+    statics = dict(iters=iters, multibit=multibit_only, banks=banks,
+                   retention=retention)
+    argnums = (0, 1, 4, 5) if rows.dim() == 2 else (0, 4, 5)
+    fails, lam = _dispatch(mesh, _op_grid_impl, args, statics, argnums)
     sq = (lambda a: a[..., 0]) if banks == 1 else (lambda a: a)
     return {"fails": sq(fails).cpu().numpy(), "lam": sq(lam).cpu().numpy()}
 
@@ -887,9 +1027,12 @@ def _pack_op_coeffs(batch: DimmBatch, pidx: int, t_op: float, stress: float,
 def fail_prob_grids(batch: DimmBatch, param: str, t_op: float, *,
                     temp_C: float = 85.0, refresh_ms: float = 64.0,
                     pattern: str = "0101", chip: int = 0,
-                    subarray: int = 0) -> torch.Tensor:
+                    subarray: int = 0,
+                    mesh: DimmMesh | None = None) -> torch.Tensor:
     """(D, mats, rows, cols) failure-probability grids for every DIMM, on the
-    batch's device — one ``fail_prob`` call (one kernel launch on CUDA)."""
+    batch's device — one ``fail_prob`` call (one kernel launch on CUDA).
+    ``mesh`` shards the DIMM axis (one launch a shard); the grids are then
+    gathered on ``mesh.devices[0]``."""
     pidx = PARAMS.index(param)
     dev = batch.device
     adder = torch.as_tensor(condition_adders(batch, temp_C, refresh_ms),
@@ -897,24 +1040,20 @@ def fail_prob_grids(batch: DimmBatch, param: str, t_op: float, *,
     coeffs = _pack_coeffs(batch, pidx, t_op, PATTERN_STRESS[pattern], adder,
                           chip, subarray)
     d_mat = torch.as_tensor(_geom_consts(batch.geom)[1], device=dev)
-    return fail_prob(batch.row_src[:, subarray].contiguous(), d_mat, coeffs,
-                     cols=batch.geom.cols_per_mat)
+    return _dispatch(mesh, fail_prob,
+                     (batch.row_src[:, subarray].contiguous(), d_mat, coeffs),
+                     dict(cols=batch.geom.cols_per_mat), (0, 2))
 
 
-def row_error_lambda(batch: DimmBatch, param: str, t_op: float, *,
-                     temp_C: float = 85.0, refresh_ms: float = 64.0,
-                     patterns=DEFAULT_PATTERNS, iters: int = DEFAULT_ITERS,
-                     internal_order: bool = False) -> np.ndarray:
-    """(D, subarrays*rows) expected error counts per row address for every
-    DIMM — the population-scale ``row_error_counts(sample=False)``.  One
-    ``fail_prob`` launch per (subarray, pattern), each over all DIMMs."""
+def _row_lambda_impl(batch: DimmBatch, stress, adder, *, pidx: int,
+                     t_op: float, iters: int, internal: bool):
+    """(D, subarrays*rows) expected error counts on the batch's device: one
+    ``fail_prob`` launch per (subarray, pattern), each over all DIMMs;
+    ``stress`` is the (P,) numpy pattern stresses, ``adder`` the (D,)
+    condition term."""
     g = batch.geom
-    pidx = PARAMS.index(param)
     dev = batch.device
     D, S, R = batch.n_dimms, g.subarrays, g.rows_per_mat
-    adder = torch.as_tensor(condition_adders(batch, temp_C, refresh_ms),
-                            device=dev)
-    stress = pattern_stress(patterns)
     d_mat = torch.as_tensor(_geom_consts(g)[1], device=dev)
     lam = []
     for s in range(S):
@@ -926,12 +1065,30 @@ def row_error_lambda(batch: DimmBatch, param: str, t_op: float, *,
             exp_row = exp_row + 2 * grids.sum(dim=(1, 3)) * g.chips
         lam.append(exp_row * iters)
     lam = torch.stack(lam, dim=1)                                # (D, S, R)
-    if not internal_order:
+    if not internal:
         # counts are produced in internal order then scattered to external
         # addressing: ext_counts[j] = counts[ext_to_int[j]]
         idx = batch.ext_to_int.to(torch.int64)[:, None, :].expand(D, S, R)
         lam = torch.gather(lam, 2, idx)
-    return lam.reshape(D, -1).cpu().numpy()
+    return lam.reshape(D, -1)
+
+
+def row_error_lambda(batch: DimmBatch, param: str, t_op: float, *,
+                     temp_C: float = 85.0, refresh_ms: float = 64.0,
+                     patterns=DEFAULT_PATTERNS, iters: int = DEFAULT_ITERS,
+                     internal_order: bool = False,
+                     mesh: DimmMesh | None = None) -> np.ndarray:
+    """(D, subarrays*rows) expected error counts per row address for every
+    DIMM — the population-scale ``row_error_counts(sample=False)``.  One
+    ``fail_prob`` launch per (subarray, pattern), each over all DIMMs (over
+    a shard's, once a shard, with ``mesh``)."""
+    adder = torch.as_tensor(condition_adders(batch, temp_C, refresh_ms),
+                            device=batch.device)
+    statics = dict(pidx=PARAMS.index(param), t_op=t_op, iters=iters,
+                   internal=internal_order)
+    return _dispatch(mesh, _row_lambda_impl,
+                     (batch, pattern_stress(patterns), adder), statics,
+                     (0, 2)).cpu().numpy()
 
 
 # ----------------------------------------------- batched DIVA Shuffling (Fig 17)
@@ -972,7 +1129,8 @@ def _shuffling_impl(probs, seeds, n_accesses: int):
 
 
 def shuffling_gain_population(bit_error_prob, *, seeds=None, seed: int = 0,
-                              n_accesses: int = 2000, device=None) -> dict:
+                              n_accesses: int = 2000, device=None,
+                              mesh: DimmMesh | None = None) -> dict:
     """Fig 17 at population scale: per-DIMM correctable-error fractions with
     and without DIVA Shuffling, for (D, 9, 64) burst-bit error profiles
     (numpy or a tensor; from ``burst_bit_profile_population`` or synthetic),
@@ -983,9 +1141,10 @@ def shuffling_gain_population(bit_error_prob, *, seeds=None, seed: int = 0,
     ``shuffling.shuffling_gain_loop`` count for count.  Beyond the loop's
     counts it reports uncorrectable and undetected (syndrome-aliased
     multi-bit) codewords per mode.  Counts return as int64 numpy arrays,
-    fractions as float64.
+    fractions as float64.  ``mesh`` shards the DIMM axis (each DIMM's draws
+    are keyed by its own seed); ``device`` is then ignored.
     """
-    dev = resolve_device(device)
+    dev = mesh_device(mesh, device)
     probs = torch.as_tensor(bit_error_prob).to(dev, torch.float32)
     if probs.dim() == 2:
         probs = probs[None]
@@ -1000,7 +1159,8 @@ def shuffling_gain_population(bit_error_prob, *, seeds=None, seed: int = 0,
     seeds = seeds.to(dev, torch.int64) & 0xFFFFFFFF
     if tuple(seeds.shape) != (D,):
         raise ValueError(f"seeds must be ({D},), got {tuple(seeds.shape)}")
-    out = _shuffling_impl(probs.contiguous(), seeds, n_accesses)
+    out = _dispatch(mesh, _shuffling_impl, (probs.contiguous(), seeds),
+                    dict(n_accesses=n_accesses), (0, 1))
     total, c_ns, c_s, unc_ns, unc_s, und_ns, und_s = (
         v.cpu().numpy().astype(np.int64) for v in out)
     denom = np.maximum(total, 1)
@@ -1015,7 +1175,8 @@ def shuffling_gain_population(bit_error_prob, *, seeds=None, seed: int = 0,
 def burst_bit_profile_population(batch: DimmBatch, param: str, t_op: float, *,
                                  temp_C: float = 85.0, refresh_ms: float = 64.0,
                                  pattern: str = "0101",
-                                 subarray: int = 0) -> np.ndarray:
+                                 subarray: int = 0,
+                                 mesh: DimmMesh | None = None) -> np.ndarray:
     """(D, 9, 64) per-access error probability per burst-bit position — the
     population-scale Fig 12 profile feeding ``shuffling_gain_population`` —
     on the batch's device.
@@ -1025,20 +1186,22 @@ def burst_bit_profile_population(batch: DimmBatch, param: str, t_op: float, *,
     probability at that (mat, col), from one ``fail_prob`` grid per data chip
     (``chips`` kernel launches).  Each grid is reduced on the device; only
     (D, 64) floats per chip cross to the host.  The ECC chip (row 8) gets the
-    across-data-chip mean profile.
+    across-data-chip mean profile.  ``mesh`` shards the grids' DIMM axis;
+    they are reduced after the gather, on ``mesh.devices[0]``.
     """
     g = batch.geom
+    dev = batch.device if mesh is None else mesh.devices[0]
     bits = np.arange(g.burst_bits)
-    mats = torch.as_tensor(burst_bit_to_mat(g, bits), device=batch.device)
+    mats = torch.as_tensor(burst_bit_to_mat(g, bits), device=dev)
     within = bits % g.bits_per_mat_in_burst
     cols = torch.as_tensor(
         within * (g.cols_per_mat // g.bits_per_mat_in_burst)
-        + g.cols_per_mat // (2 * g.bits_per_mat_in_burst), device=batch.device)
+        + g.cols_per_mat // (2 * g.bits_per_mat_in_burst), device=dev)
     out = np.zeros((batch.n_dimms, 9, g.burst_bits), np.float32)
     for chip in range(g.chips):
         grids = fail_prob_grids(batch, param, t_op, temp_C=temp_C,
                                 refresh_ms=refresh_ms, pattern=pattern,
-                                chip=chip, subarray=subarray)
+                                chip=chip, subarray=subarray, mesh=mesh)
         out[:, chip, :] = grids.mean(dim=2)[:, mats, cols].cpu().numpy()
         del grids
     out[:, 8, :] = out[:, :g.chips, :].mean(axis=1)

@@ -44,6 +44,7 @@ from repro_torch.discovery.recover import (mapping_tables,
                                            vote_mapping)
 from repro_torch.discovery.signatures import (bit_signature_population,
                                               signature_features)
+from repro_torch.sharding import mesh_device
 
 
 # ------------------------------------------------------------ the artifact
@@ -87,7 +88,7 @@ class BlindDiva:
     onset_min_count: float = 1024.0
 
     def discover(self, counts, expected, serials=None, *,
-                 device=None) -> BlindDiscovery:
+                 device=None, mesh=None) -> BlindDiscovery:
         """Run the discovery pipeline on observed error counts.
 
         ``counts``: (D, S, R) integer per-external-row counts, or
@@ -99,7 +100,8 @@ class BlindDiva:
         ones.  ``expected``: model-expected internal profiles, same leading
         shape options (or broadcastable).  ``serials``: (D,) DIMM identities
         (default 0..D-1).  The device passes (signatures and recovery) run
-        on ``device`` (default: the CUDA device).
+        on ``device`` (default: the CUDA device), or split over ``mesh``'s
+        devices by DIMM.
         """
         counts = np.asarray(counts)
         if counts.ndim == 2:
@@ -131,7 +133,8 @@ class BlindDiva:
         # or harsh-point signatures would not do: past saturation the
         # profile collapses toward the shared inverted-U shape and distinct
         # same-vendor dies become cosine-similar.
-        sigs_t = np.stack([bit_signature_population(counts_t[t], device=device)
+        sigs_t = np.stack([bit_signature_population(counts_t[t], device=device,
+                                                    mesh=mesh)
                            for t in range(T)])              # (T, D, S, nb)
         nbits = sigs_t.shape[3]
         feats = np.zeros((D, T * nbits))
@@ -147,7 +150,8 @@ class BlindDiva:
         # inverted-U profile identifies bits; what ruins recovery is mixing
         # points first)
         rec_t = [recover_mapping_population(counts_t[t], expected_t[t],
-                                            device=device) for t in range(T)]
+                                            device=device, mesh=mesh)
+                 for t in range(T)]
         # a (point, DIMM, subarray) recovery with no observed errors carries
         # no information — its deterministic tie-order junk must not vote
         has_signal = counts_t.max(axis=3) > 0               # (T, D, S)
@@ -210,17 +214,19 @@ class BlindDiva:
                               recovery={"per_point": rec_t, "onset": onset,
                                         "gen_onset": gen_onset})
 
-    def profile(self, batch: DimmBatch, disc: BlindDiscovery,
-                **kw) -> np.ndarray:
+    def profile(self, batch: DimmBatch, disc: BlindDiscovery, *,
+                mesh=None, **kw) -> np.ndarray:
         """The restricted DIVA sweep at the discovered addresses: (D, 4)
         profiled timings.  The *simulated* DIMM decodes the external
         addresses with its true scramble (``batch.ext_to_int``) — the address
         decode hardware performs on every activate; the pipeline's own
-        estimate never leaks in.  Runs on the batch's device."""
+        estimate never leaks in.  Runs on the batch's device, or split over
+        ``mesh``."""
         internal = np.take_along_axis(
             batch.ext_to_int.cpu().numpy().astype(np.int64), disc.ext_rows,
             axis=1)
-        return profile_population_arrays(batch, region=internal, **kw)
+        return profile_population_arrays(batch, region=internal, mesh=mesh,
+                                         **kw)
 
 
 # ------------------------------------------------------- campaign + metrics
@@ -228,7 +234,7 @@ class BlindDiva:
 def campaign_counts(pop, batch: DimmBatch | None = None, *,
                     param: str = "trp", t_ops=(10.0, 7.5, 5.0),
                     temp_C: float = 85.0, refresh_ms: float = 256.0,
-                    device=None):
+                    device=None, mesh=None):
     """The discovery error campaign: observed integer error counts (one
     batched lambda pass per operating point + the per-DIMM deterministic
     Poisson draws — the repo's default noise level) and the matching
@@ -244,13 +250,16 @@ def campaign_counts(pop, batch: DimmBatch | None = None, *,
     ``row_error_lambda`` per point on the batch's device (``batch``, else a
     batch of ``pop`` on ``device``, default the CUDA device) for the
     expensive grids; sampling stays on the per-DIMM numpy stream so each
-    point's counts match ``DimmModel.row_error_counts``.
+    point's counts match ``DimmModel.row_error_counts``.  ``mesh`` shards
+    the lambda passes over the DIMM axis (the batch of ``pop`` then lands on
+    its first device).
 
     Returns ``(counts, expected)`` stacked over the campaign points:
     (T, D, S, R) integer counts and (T, D, S, R) float expectations, in the
     given point order — what ``BlindDiva.discover`` consumes directly; sum
     over the T axis for a single-profile view."""
-    batch = DimmBatch.from_population(pop, device) if batch is None else batch
+    if batch is None:
+        batch = DimmBatch.from_population(pop, mesh_device(mesh, device))
     g = batch.geom
     D, S, R = len(pop), g.subarrays, g.rows_per_mat
     # the external-order view is the internal one gathered through each
@@ -263,8 +272,8 @@ def campaign_counts(pop, batch: DimmBatch | None = None, *,
     for t_op in np.atleast_1d(np.asarray(t_ops, np.float64)):
         t_op = float(t_op)
         lam_int = row_error_lambda(batch, param, t_op, temp_C=temp_C,
-                                   refresh_ms=refresh_ms,
-                                   internal_order=True).reshape(D, S, R)
+                                   refresh_ms=refresh_ms, internal_order=True,
+                                   mesh=mesh).reshape(D, S, R)
         lam_ext = np.take_along_axis(lam_int, e2i, axis=2)
         counts.append(np.stack([
             d.sample_row_counts(lam_ext[i].reshape(-1), param, t_op,
@@ -275,15 +284,16 @@ def campaign_counts(pop, batch: DimmBatch | None = None, *,
     return np.stack(counts), np.stack(expected)
 
 
-def blind_vs_oracle(batch: DimmBatch, disc: BlindDiscovery, **kw) -> dict:
+def blind_vs_oracle(batch: DimmBatch, disc: BlindDiscovery, *, mesh=None,
+                    **kw) -> dict:
     """Blind vs geometry-oracle DIVA on one population: per-DIMM timing
     agreement (exact (4,)-row equality — the hash never keys on the region,
     so a correctly discovered region reproduces the oracle bit for bit) and
     the test cost each mode pays per profiling pass.  Runs on the batch's
-    device."""
+    device, or split over ``mesh``."""
     diva = BlindDiva(k_rows=disc.ext_rows.shape[1])
-    blind = diva.profile(batch, disc, **kw)
-    oracle = profile_population_arrays(batch, region="worst", **kw)
+    blind = diva.profile(batch, disc, mesh=mesh, **kw)
+    oracle = profile_population_arrays(batch, region="worst", mesh=mesh, **kw)
     row_agree = np.all(blind == oracle, axis=1)
     g = batch.geom
     worst = worst_rows_internal(g)

@@ -27,9 +27,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.mapping import estimate_row_mapping
-from repro_torch.device import resolve_device
+from repro_torch.core.substrate import _dispatch
 from repro_torch.discovery.signatures import _nbits
 from repro_torch.kernels.bit_signature import bit_signature
+from repro_torch.sharding import DimmMesh, mesh_device
 
 
 # ------------------------------------------------------- expected-side prep
@@ -132,9 +133,10 @@ def _recover_impl(counts, exp32, inv_order, exp_sign, *, nbits: int):
 
 # ------------------------------------------------------------- entry points
 
-def recover_mapping_population(counts, expected, *, device=None) -> dict:
+def recover_mapping_population(counts, expected, *, device=None,
+                               mesh: DimmMesh | None = None) -> dict:
     """Recover every (DIMM, subarray) scramble in one program on ``device``
-    (default: the CUDA device).
+    (default: the CUDA device), or split over ``mesh``'s devices by DIMM.
 
     ``counts``: (D, S, R) — or (D, R) — INTEGER observed per-external-row
     error counts.  ``expected``: model-expected per-internal-row counts (the
@@ -150,7 +152,7 @@ def recover_mapping_population(counts, expected, *, device=None) -> dict:
     walks).  Decisions and confidences are identical to
     ``mapping.estimate_row_mapping`` run per subarray.
     """
-    dev = resolve_device(device)
+    dev = mesh_device(mesh, device)
     counts = np.asarray(counts)
     if counts.dtype.kind not in "biu":
         raise ValueError("recover_mapping_population wants integer error "
@@ -164,9 +166,10 @@ def recover_mapping_population(counts, expected, *, device=None) -> dict:
 
     as_t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a, dt),
                                          device=dev)
-    out = _recover_impl(as_t(counts, np.int32), as_t(exp32, np.float32),
-                        as_t(inv_order, np.int64), as_t(exp_sign, np.int32),
-                        nbits=nbits)
+    args = (as_t(counts, np.int32), as_t(exp32, np.float32),
+            as_t(inv_order, np.int64), as_t(exp_sign, np.int32))
+    out = _dispatch(mesh, _recover_impl, args, dict(nbits=nbits),
+                    (0, 1, 2, 3))
     ext_bit, xor, n_sig, n_agree_sig, n_agree_all = (
         v.cpu().numpy().astype(np.int64) for v in out[:5])
     # confidences from integer vote counts, on the host in float64 — the

@@ -5,7 +5,8 @@ difference between rows with b set and rows with b clear — the single-bit
 statistic Sec 5.3's mapping recovery ranks and sign-tests.  This module runs
 the masked row-reduction for every (DIMM, subarray) profile in one
 ``bit_signature`` call (kernels/bit_signature.py: the CUDA kernel on a card,
-its plain version on the CPU).
+its plain version on the CPU), shardable over the DIMM axis with ``mesh=``
+like every other population entry point.
 
 Values are identical to the per-subarray numpy reference
 (``core.mapping._bit_signature``): the reduction is exact integer arithmetic
@@ -17,8 +18,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.core.substrate import _dispatch
 from repro_torch.kernels.bit_signature import bit_signature
+from repro_torch.sharding import DimmMesh, mesh_device
 
 
 def _signature_impl(counts, *, nbits: int):
@@ -38,17 +40,20 @@ def _nbits(R: int) -> int:
     return nbits
 
 
-def bit_signature_population(counts, *, device=None) -> np.ndarray:
+def bit_signature_population(counts, *, device=None,
+                             mesh: DimmMesh | None = None) -> np.ndarray:
     """(D, S, nbits) f32 per-address-bit signatures for (D, S, R) (or
     (D, R)) integer error counts, on ``device`` (default: the CUDA device).
-    R must be a power of two; nbits = log2(R)."""
-    dev = resolve_device(device)
+    ``mesh`` shards the DIMM axis instead (a pure per-DIMM map: the split
+    cannot change a value).  R must be a power of two; nbits = log2(R)."""
+    dev = mesh_device(mesh, device)
     counts = np.asarray(counts)
     if counts.ndim == 2:
         counts = counts[:, None, :]
     nbits = _nbits(counts.shape[2])
     t = torch.as_tensor(np.ascontiguousarray(counts, np.int32), device=dev)
-    return _signature_impl(t, nbits=nbits).cpu().numpy()
+    return _dispatch(mesh, _signature_impl, (t,), dict(nbits=nbits),
+                     (0,)).cpu().numpy()
 
 
 def signature_features(sigs: np.ndarray) -> np.ndarray:

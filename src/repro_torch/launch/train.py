@@ -50,14 +50,14 @@ def main(argv=None) -> dict:
     ap.add_argument("--ckpt-every", type=int, default=10)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--production-mesh", action="store_true",
-                    help="not ported: the multi-GPU slice (ROADMAP queue 1 #5)")
+                    help="not ported: the multi-GPU slice (ROADMAP queue 1 #3)")
     ap.add_argument("--log-every", type=int, default=5)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
     args = ap.parse_args(argv)
     if args.production_mesh:
         ap.error("--production-mesh is not ported: the port trains on one "
-                 "device (ROADMAP queue 1 #5)")
+                 "device (ROADMAP queue 1 #3)")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     dev = resolve_device(args.device)

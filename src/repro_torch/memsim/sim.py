@@ -22,8 +22,9 @@ integer totals on the host in numpy float32, in one fixed operation order,
 so the card and the CPU give the same speedups from the same totals.
 
 Entry points take ``device=None`` (the current CUDA device; raises without
-one) or an explicit device.  Not ported: the ``mesh=`` DIMM sharding and the
-``N_TRACES`` retrace counter (eager PyTorch never retraces).
+one) or an explicit device; ``system_speedup_population`` also takes
+``mesh=``, which shards its DIMM tables over the mesh's devices.  Not
+ported: the ``N_TRACES`` retrace counter (eager PyTorch never retraces).
 """
 from __future__ import annotations
 
@@ -34,11 +35,13 @@ import numpy as np
 import torch
 
 from repro_torch.core.hashing import mix_uniform, trace_uniform
+from repro_torch.core.substrate import _dispatch
 from repro_torch.core.timing import (CYCLE_NS, PARAMS, STANDARD, TBL_CYCLES,
                                      TCL_NS, TCWL_NS, TFAW_CYCLES, TRRD_CYCLES,
                                      TimingParams)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.bank_sched import bank_maps, memsim_walk
+from repro_torch.sharding import DimmMesh, mesh_device
 
 CPU_GHZ = 3.2  # Table 1
 
@@ -429,6 +432,19 @@ def _scheduler_config(scheduler: str, banks: int) -> MemSimConfig:
     raise ValueError(f"unknown scheduler {scheduler!r}")
 
 
+def _speedup_impl(traces, tc_dimm, tc_base, *, cfg: MemSimConfig):
+    """(D, 2, W) int32 [own-table, base-table] total latencies: base + D
+    tables walked in one ``memsim_walk`` call.  Only ``tc_dimm`` is
+    DIMM-shaped: with a mesh each shard walks the base row again and echoes
+    its totals per DIMM, so that every output is DIMM-leading.  The totals
+    are exact integers, so a sharded run gives the unsharded one's bits."""
+    tc_all = torch.cat([tc_base[None], tc_dimm], dim=0)
+    lat, _ = memsim_walk(traces, tc_all, **_walk_kw(cfg))
+    tot = lat.sum(dim=-1, dtype=torch.int32)                     # (1+D, W)
+    own = tot[1:]
+    return torch.stack([own, tot[0][None].expand_as(own)], dim=1)
+
+
 def _speedups(totals: np.ndarray, n_requests: int) -> dict:
     """(1 + D, W) int32 totals, base first -> the per-DIMM speedup dict."""
     _, ratios = _score(totals, n=n_requests)                    # (D, W) f32
@@ -445,10 +461,14 @@ def system_speedup_population(timings, t_base: TimingParams = STANDARD, *,
                               n_requests: int = 20000, banks: int = 16,
                               seed: int = 0, scheduler: str = "frfcfs",
                               config: MemSimConfig | None = None,
-                              device=None) -> dict:
+                              device=None,
+                              mesh: DimmMesh | None = None) -> dict:
     """Per-DIMM (possibly per-bank) profiled timings -> per-DIMM mean system
     speedups: (base + D timing tables) x workloads simulated in ONE
-    ``memsim_walk`` call, then scored from the integer totals.
+    ``memsim_walk`` call, then scored from the integer totals.  ``mesh``
+    shards the DIMM tables (one call a shard, each walking the base table
+    too; traces replicate and are keyed by request index), gathers the
+    totals and scores them once; ``device`` is then ignored.
 
     ``timings``: sequence of `TimingParams`, a (D, 4) ns array (whole-DIMM
     tables) or a (D, banks_profiled, 4) per-bank array from
@@ -459,6 +479,11 @@ def system_speedup_population(timings, t_base: TimingParams = STANDARD, *,
     first — the exact surface the speedups are scored from.
     """
     cfg = config if config is not None else _scheduler_config(scheduler, banks)
-    tables = [t_base] + _resolve_tables(timings)
-    totals = _grid_totals(tables, cfg, n_requests, seed, device)
+    dev = mesh_device(mesh, device)
+    traces = _stack_traces(n_requests, cfg.banks, seed, dev)
+    as_tc = lambda tables: torch.as_tensor(np.stack(
+        [timing_cycles_banks(t, cfg.banks) for t in tables]), device=dev)
+    out = _dispatch(mesh, _speedup_impl, (traces, as_tc(_resolve_tables(
+        timings)), as_tc([t_base])[0]), dict(cfg=cfg), (1,)).cpu().numpy()
+    totals = np.concatenate([out[:1, 1], out[:, 0]], axis=0)    # (1+D, W)
     return _speedups(totals, n_requests)

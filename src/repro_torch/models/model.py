@@ -34,7 +34,7 @@ PORTED_FAMILIES = ("ssm",)
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise ValueError(f"family {cfg.family!r} is not ported (ported: "
-                         f"{PORTED_FAMILIES}); see ROADMAP queue 1 #6")
+                         f"{PORTED_FAMILIES}); see ROADMAP queue 1 #2")
 
 
 def _map_named(fn, tree, name=None):

@@ -102,7 +102,7 @@ def test_config_equals_reference_field_by_field():
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "jamba-1.5-large-398b", "nope"])
 def test_registry_lists_only_ported_archs(arch):
-    with pytest.raises(KeyError, match="queue 1 #6"):
+    with pytest.raises(KeyError, match="queue 1 #2"):
         get_config(arch)
 
 
