@@ -192,20 +192,50 @@ of 512x512 mats, 16 mats and 8 subarrays — it
      launches each kernel exactly N times as often as the unsharded one.
      Prints the seconds of every run, sharded and not, the launches and the
      largest float gap.  A repeated card measures the cost of the split and
-     the gather, not a speed-up across cards.
+     the gather, not a speed-up across cards;
+ 26. the dense and MoE families serving, bfloat16 compute, random parameters
+     from seed 0 (no port kernel: every run must launch none):
+     ``qwen2-0.5b`` at full width and depth (24 layers, d_model 896, 14 / 2
+     heads, vocab 151,936, tied embeddings, QKV bias) and ``qwen2.5-3b`` (36
+     layers, head_dim 128, 16 / 2 heads), each ``generate`` of 8 prompts of
+     512 tokens and 32 new tokens (prefill s, decode s, tok/s, memory peak);
+     ``qwen2-0.5b`` with the int8 KV cache (its bytes against the bfloat16
+     cache's, the share of greedy tokens that agree with the bfloat16 run,
+     reported, not gated); a 4096-token prompt, batch 1, 8 new tokens, whose
+     prefill takes blockwise attention, and on one layer's q, k, v at that
+     length ``blockwise_attention`` held to ``full_attention`` (float32:
+     rtol = atol = 1e-5; bfloat16: 2**-7 |full| + 2**-8 max |v|); then
+     ``moonshot-v1-16b-a3b`` at full width (64 experts, top 6, d_ff 1408,
+     vocab 163,840) cut to 4 of its 48 layers, the same 8 x 512 + 32, with
+     the assignments its capacity drops; decode against teacher-forced
+     ``forward`` in float32 on the card (prefill 8, decode 4; 2e-4 / 2e-3);
+     and the card against the CPU port at full width cut to 2 layers,
+     float32, batch 2 x 64, one set of host parameters, for ``qwen2-0.5b``
+     and moonshot: prefill and 4 decode steps' logits and the caches within
+     1e-4, greedy tokens and ``generate`` identical, every routing call's
+     expert ids, positions and kept assignments identical;
+ 27. dense training at full width and depth: ``launch.train.main`` on
+     ``qwen2-0.5b`` (float32 master weights, bfloat16 compute, per-layer
+     remat, AdamW), 8 steps of 8 x 512 tokens (no port kernel): step times,
+     tokens/s, memory peak, finite losses; one more step under
+     ``torch.profiler`` (kernel time by group, idle share); the card against
+     the CPU port at 2 layers in float32, batch 2 x 128 (phase 24's bounds);
+     then 2 steps of moonshot at full width cut to 2 layers (1.81B
+     parameters): finite losses, a nonzero aux loss, the memory peak.
 
 Every phase prints one JSON line.  The launch counts are set to 0 just before
 each path (phases 3-4, 6, 7, 8, 9, 12, 13, 14, 16, 17, 19, 20 (ingest; tick
-and checkpoint), 21, each scan of 22, 24 and each run of 25) and read just
-after it;
-every kernel of a path must have launched, and the ``kernels`` line sums the
-paths' counts.
+and checkpoint), 21, each scan of 22, 24, each run of 25, and each serving
+and training run of 26-27) and read just after it;
+every kernel of a path must have launched (26-27: none may), and the
+``kernels`` line sums the paths' counts.
 Any failed check raises; the last line is ``{"ok": true, "device": {...}}``
 only when all passed.  Exits non-zero, printing no result, when no CUDA
 device is available.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -279,8 +309,11 @@ from repro_torch.launch.serve import main as serve_main  # noqa: E402
 from repro_torch.launch.steps import make_train_step  # noqa: E402
 from repro_torch.launch.train import build_state  # noqa: E402
 from repro_torch.launch.train import main as train_main  # noqa: E402
+from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models import cache as model_cache  # noqa: E402
 from repro_torch.models import model  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models.layers import apply_norm  # noqa: E402
 from repro_torch.memsim import sim as memsim  # noqa: E402
 from repro_torch.optim import global_norm  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten  # noqa: E402
@@ -438,6 +471,28 @@ SHARD_LIFE_EPOCHS, SHARD_LIFE_SIZE = 2, 2
 # the fleet cell-sum adds the shards' float32 partials in mesh order: the
 # reference's bound for its sharded sum (tests/test_streaming.py)
 GRID_SUM_RTOL = 1e-6
+# the dense and MoE families (phases 26-27): qwen2-0.5b, the reference's
+# default arch, and qwen2.5-3b at full width and depth; moonshot-v1-16b-a3b
+# at full width, its 48 layers cut to 4 (serving) and 2 (training: ~29 GB of
+# float32 parameters, gradients and AdamW moments)
+DENSE_ARCH, DENSE_3B, MOE_ARCH = "qwen2-0.5b", "qwen2.5-3b", "moonshot-v1-16b-a3b"
+MOE_SERVE_LAYERS, MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 4, 2, 2
+# a prompt past the reference's 2048-token full-attention threshold: its
+# prefill takes blockwise attention over chunks of 2048 keys
+LONG_PROMPT, LONG_NEW = 4096, 8
+# blockwise against full attention on one layer's q, k, v at LONG_PROMPT:
+# float32 sums the same 4096 weighted values in two chunks with a rescale
+# (1e-6 at outputs of order 1); in bfloat16, full_attention rounds its
+# weights to bfloat16 before the second product (at most 2**-9 of each
+# weight: 2**-9 of max |v| over the sum) and both round the output (2**-8
+# of it), so |blockwise - full| <= 2**-7 |full| + 2**-8 max |v|
+BLOCKWISE_F32_TOL = 1e-5
+BLOCKWISE_BF16_RTOL, BLOCKWISE_BF16_VTOL = 2.0 ** -7, 2.0 ** -8
+# decode against teacher-forced forward in float32 (tests/test_models.py:52-66)
+DENSE_TF_PROMPT, DENSE_TF_DECODE = 8, 4
+DENSE_TF_PREFILL_TOL, DENSE_TF_DECODE_TOL = 2e-4, 2e-3
+# the card against the CPU port: full width cut to 2 layers, float32
+DENSE_CPU_BATCH, DENSE_CPU_PROMPT = 2, 64
 # phases 3-17 keep the dense results that phases 22 and 25 hold the scans and
 # the sharded runs to
 DENSE: dict = {}
@@ -1867,11 +1922,12 @@ PROFILE_GROUPS = (("wkv6_bwd", ("wkv6_bwd_kernel", "wkv6_du_kernel")), ("wkv6", 
                   ("matmul", ("gemm", "nvjet", "xmma")))
 
 
-def profile_train_step(cfg, dev) -> dict:
+def profile_train_step(cfg, dev, required=("wkv6_bwd", "wkv6")) -> dict:
     """One full-size train step (after a warm-up step) under
     ``torch.profiler``: wall ms, kernel ms by group and the idle share
     (1 - kernel time / wall time; the profiler's own host cost slows the
-    launches, so it reads high), and the 10 longest kernels."""
+    launches, so it reads high), and the 10 longest kernels.  Raises unless
+    each group in ``required`` shows kernel time."""
     state = build_state(cfg, device=dev)
     step = make_train_step(cfg)
     batch = make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, step=0)
@@ -1894,8 +1950,8 @@ def profile_train_step(cfg, dev) -> dict:
         if group == "matmul" and ("f32f32" in name or "sgemm" in name):
             fp32_mm += ms
     kernel_ms = sum(groups.values())
-    if not groups["wkv6_bwd"] or not groups["wkv6"]:
-        raise AssertionError(f"the profiled step shows no wkv6 / wkv6_bwd kernel: {groups}")
+    if not all(groups[g] for g in required):
+        raise AssertionError(f"the profiled step shows no {required} kernel: {groups}")
     return dict(wall_ms=wall_ms, kernel_ms=kernel_ms, idle_share=1 - kernel_ms / wall_ms,
                 kernel_ms_by_group=groups, fp32_matmul_ms=fp32_mm,
                 top=[dict(kernel=name[:90], count=n, ms=ms)
@@ -1936,6 +1992,15 @@ def rwkv6_training_phase(dev) -> dict:
     torch.cuda.empty_cache()
 
     # the card against the port on the CPU: 2 layers, full width, float32
+    emit("rwkv6_training_card_vs_cpu", **train_card_vs_cpu(cfg, dev))
+    return launches
+
+
+def train_card_vs_cpu(cfg, dev) -> dict:
+    """``loss_fn`` and its gradients of ``cfg`` cut to TRAIN_CPU_LAYERS
+    layers, float32 compute, one set of host parameters, on the card and on
+    the CPU: the loss, the global gradient norm and every gradient leaf held
+    to the CPU's (phase 24's bounds), or raise."""
     small = cfg.replace(n_layers=TRAIN_CPU_LAYERS, compute_dtype="float32")
     host = model.init_params(SERVE_SEED, small, device="cpu")
     batch = make_batch(small, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, seed=5, step=0)
@@ -1959,13 +2024,12 @@ def rwkv6_training_phase(dev) -> dict:
     if max(leaf_err) > TRAIN_GRAD_TOL:
         raise AssertionError(f"card vs CPU gradients: {max(leaf_err)} of the leaf's "
                              f"largest (bound {TRAIN_GRAD_TOL})")
-    emit("rwkv6_training_card_vs_cpu", n_layers=TRAIN_CPU_LAYERS, d_model=small.d_model,
-         vocab=small.vocab_size, compute_dtype="float32", batch=TRAIN_CPU_BATCH,
-         seq=TRAIN_CPU_SEQ, loss_cpu=loss_c, loss_card=loss_g, gnorm_cpu=gn_c,
-         gnorm_card=gn_g, leaves=len(leaf_err), max_scaled_grad_err=max(leaf_err),
-         bounds=dict(loss_rtol=TRAIN_LOSS_RTOL, gnorm_rtol=TRAIN_GNORM_RTOL,
-                     grad_scaled=TRAIN_GRAD_TOL))
-    return launches
+    return dict(arch=cfg.arch_id, n_layers=TRAIN_CPU_LAYERS, d_model=small.d_model,
+                vocab=small.vocab_size, compute_dtype="float32", batch=TRAIN_CPU_BATCH,
+                seq=TRAIN_CPU_SEQ, loss_cpu=loss_c, loss_card=loss_g, gnorm_cpu=gn_c,
+                gnorm_card=gn_g, leaves=len(leaf_err), max_scaled_grad_err=max(leaf_err),
+                bounds=dict(loss_rtol=TRAIN_LOSS_RTOL, gnorm_rtol=TRAIN_GNORM_RTOL,
+                            grad_scaled=TRAIN_GRAD_TOL))
 
 
 def _flip_lanes(step_dir: Path, leaf: int) -> None:
@@ -2498,6 +2562,300 @@ def sharded_phase(batch, diva) -> dict:
     return total
 
 
+@contextlib.contextmanager
+def recorded_routes():
+    """Record each ``moe._route`` call while inside: (device, expert ids,
+    positions, the call's capacity); the tensors stay where they are, so
+    recording adds no host read."""
+    seen, plain = [], moe_mod._route
+
+    def spy(cfg, xt, wr):
+        out = plain(cfg, xt, wr)
+        seen.append((xt.device.type, out[0], out[1],
+                     moe_mod.expert_capacity(cfg, xt.shape[0])))
+        return out
+
+    moe_mod._route = spy
+    try:
+        yield seen
+    finally:
+        moe_mod._route = plain
+
+
+def dropped(routes) -> list:
+    """Assignments past their expert's capacity, a ``_route`` call each."""
+    return [int((pos >= cap).sum()) for _, _, pos, cap in routes]
+
+
+def serve_at_full_width(cfg, params, dev, batch: int, prompt: int, new: int,
+                        seed: int = 0) -> tuple[torch.Tensor, dict]:
+    """``generate`` of ``batch`` prompts of ``prompt`` tokens and ``new``
+    tokens on the card with the launch counts from 0: the dense and MoE
+    paths launch no port kernel.  Returns (tokens, stats)."""
+    prompts = make_batch(cfg, batch, prompt, seed=seed, step=0)
+    prompts["tokens"] = prompts["tokens"][:, :-1]
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    toks, stats = generate(cfg, params, prompts, max_new=new, device=dev)
+    launches = counted({})
+    if toks.shape != (batch, new) or toks.dtype != torch.int32 \
+            or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"generate gave {tuple(toks.shape)} {toks.dtype}")
+    return toks, dict(batch=batch, prompt_len=prompt, new_tokens=new, **stats,
+                      launches=launches, max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+
+
+def init_on_card(cfg, dev) -> tuple[dict, dict]:
+    """Random parameters from SERVE_SEED on the card, the peak memory reset
+    before: (params, {params, init_s})."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init_params(SERVE_SEED, cfg, device=dev)
+    torch.cuda.synchronize()
+    return params, dict(arch=cfg.arch_id, n_layers=cfg.n_layers, d_model=cfg.d_model,
+                        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.dh,
+                        d_ff=cfg.d_ff, vocab=cfg.vocab_size, compute_dtype=cfg.compute_dtype,
+                        params=sum(t.numel() for t in tree_leaves(params)),
+                        init_s=time.perf_counter() - t0)
+
+
+def blockwise_vs_full(cfg, params, dev) -> dict:
+    """One layer's q, k, v of a LONG_PROMPT-token prompt on the card, in
+    float32 and in bfloat16: ``blockwise_attention`` (chunks of 2048 keys)
+    held to ``full_attention`` within the stated bounds."""
+    seq = torch.as_tensor(make_batch(cfg, 1, LONG_PROMPT, seed=4, step=0)["tokens"][:, :-1],
+                          device=dev)
+    positions = torch.arange(LONG_PROMPT, dtype=torch.int32, device=dev)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        c = cfg.replace(compute_dtype=dtype)
+        p = model.cast_params(params, c)
+        lp = model._layer_slice(p["layers"], 0)["attn"]
+        q, k, v = attn.qkv(c, lp, apply_norm(c, lp["ln"], model._embed(c, p, seq)), positions)
+        full = attn.full_attention(q, k, v, q_pos=positions, kv_pos=positions).float()
+        blk = attn.blockwise_attention(q, k, v, block_kv=2048).float()
+        diff = (blk - full).abs()
+        if dtype == "float32":
+            bound = BLOCKWISE_F32_TOL * (1 + full.abs())
+        else:
+            bound = BLOCKWISE_BF16_RTOL * full.abs() \
+                + BLOCKWISE_BF16_VTOL * float(v.float().abs().max())
+        if not torch.isfinite(blk).all() or bool((diff > bound).any()):
+            raise AssertionError(f"blockwise vs full attention ({dtype}): max "
+                                 f"|difference| {float(diff.max())}")
+        out[dtype] = dict(max_abs_err=float(diff.max()), mean_abs_err=float(diff.mean()),
+                          max_share_of_bound=float((diff / bound).max()),
+                          out_abs_max=float(full.abs().max()))
+    return dict(seq=LONG_PROMPT, block_kv=2048, layer=0, shape=list(q.shape), **out,
+                bounds=dict(float32=BLOCKWISE_F32_TOL,
+                            bfloat16=[BLOCKWISE_BF16_RTOL, BLOCKWISE_BF16_VTOL]))
+
+
+def dense_teacher_forced(cfg, params, dev) -> dict:
+    """Float32 compute on the card: prefill DENSE_TF_PROMPT tokens and
+    decode DENSE_TF_DECODE, against teacher-forced ``forward``."""
+    f32 = cfg.replace(compute_dtype="float32")
+    n = DENSE_TF_PROMPT + DENSE_TF_DECODE
+    seq = torch.as_tensor(make_batch(cfg, 1, n, seed=2, step=0)["tokens"][:, :-1], device=dev)
+    full, _ = model.forward(f32, params, {"tokens": seq})
+    logits, cache = model_cache.prefill(f32, params, {"tokens": seq[:, :DENSE_TF_PROMPT]},
+                                        max_seq=n)
+    pre = allclose_err(logits[0, -1], full[0, DENSE_TF_PROMPT - 1], DENSE_TF_PREFILL_TOL,
+                       "prefill against forward")
+    dec = 0.0
+    for t in range(DENSE_TF_PROMPT, n):
+        logits, cache = model_cache.decode_step(f32, params, cache, seq[:, t:t + 1])
+        dec = max(dec, allclose_err(logits[0, -1], full[0, t], DENSE_TF_DECODE_TOL,
+                                    "decode against forward"))
+    return dict(compute_dtype="float32", prompt=DENSE_TF_PROMPT, decode=DENSE_TF_DECODE,
+                prefill_max_abs_err=pre, decode_max_abs_err=dec,
+                bounds=[DENSE_TF_PREFILL_TOL, DENSE_TF_DECODE_TOL])
+
+
+def dense_card_vs_cpu(arch: str, dev) -> dict:
+    """``arch`` at full width cut to CPU_LAYERS layers, float32 compute,
+    one set of host parameters on the card and on the CPU: prefill and
+    CPU_DECODE decode steps' logits within CARD_CPU_TOL, the caches too,
+    greedy tokens and ``generate`` identical, and every MoE routing call's
+    expert ids, positions and kept assignments identical."""
+    cfg = get_config(arch).replace(n_layers=CPU_LAYERS, compute_dtype="float32")
+    host = model.init_params(SERVE_SEED, cfg, device="cpu")
+    card = model.params_to(host, dev)
+    prompts = make_batch(cfg, DENSE_CPU_BATCH, DENSE_CPU_PROMPT, seed=1, step=0)
+    prompts["tokens"] = prompts["tokens"][:, :-1]
+    tok_h = torch.as_tensor(prompts["tokens"])
+    max_seq = DENSE_CPU_PROMPT + CPU_DECODE
+    with recorded_routes() as routes:
+        lh, ch = model_cache.prefill(cfg, host, {"tokens": tok_h}, max_seq=max_seq)
+        lg, cg = model_cache.prefill(cfg, card, {"tokens": tok_h.to(dev)}, max_seq=max_seq)
+        errs = [allclose_err(lg, lh, CARD_CPU_TOL, "prefill logits, card vs CPU")]
+        for _ in range(CPU_DECODE):
+            th, tg = greedy(lh), greedy(lg)
+            if not torch.equal(tg.cpu(), th):
+                raise AssertionError(f"greedy tokens differ: card {tg.tolist()}, "
+                                     f"CPU {th.tolist()}")
+            lh, ch = model_cache.decode_step(cfg, host, ch, th[:, None])
+            lg, cg = model_cache.decode_step(cfg, card, cg, tg[:, None])
+            errs.append(allclose_err(lg, lh, CARD_CPU_TOL, "decode logits, card vs CPU"))
+    cache_err = max(allclose_err(cg[k], ch[k], CARD_CPU_TOL, f"cache {k}")
+                    for k in ("k", "v"))
+    # the calls alternate by CPU_LAYERS: the CPU's prefill, the card's, then
+    # the CPU's and the card's layers of each decode step
+    L = CPU_LAYERS if cfg.n_experts else 0
+    on = {"cpu": [r for i, r in enumerate(routes) if (i // L) % 2 == 0] if L else [],
+          "card": [r for i, r in enumerate(routes) if (i // L) % 2 == 1] if L else []}
+    if len(routes) != 2 * L * (1 + CPU_DECODE) \
+            or {r[0] for r in on["card"]} - {torch.device(dev).type}:
+        raise AssertionError(f"{len(routes)} routing calls")
+    for (_, eh, ph, cap), (_, eg, pg, _) in zip(on["cpu"], on["card"]):
+        if not (torch.equal(eg.cpu(), eh) and torch.equal(pg.cpu(), ph)
+                and torch.equal(pg.cpu() < cap, ph < cap)):
+            raise AssertionError("MoE routing differs on the card and the CPU")
+    gen_h, _ = generate(cfg, host, prompts, max_new=CPU_DECODE + 1, device="cpu")
+    gen_g, _ = generate(cfg, card, prompts, max_new=CPU_DECODE + 1, device=dev)
+    if not torch.equal(gen_g.cpu(), gen_h):
+        raise AssertionError(f"generate differs: card {gen_g.tolist()}, CPU {gen_h.tolist()}")
+    return dict(arch=arch, n_layers=CPU_LAYERS, d_model=cfg.d_model, vocab=cfg.vocab_size,
+                compute_dtype="float32", batch=DENSE_CPU_BATCH, prompt_len=DENSE_CPU_PROMPT,
+                decode_steps=CPU_DECODE, prefill_max_abs_err=errs[0],
+                decode_max_abs_err=max(errs[1:]), cache_max_abs_err=cache_err,
+                bound=CARD_CPU_TOL, greedy_tokens_identical=True,
+                routing_calls_identical=len(on["cpu"]),
+                prefill_dropped=dropped(on["cpu"][:CPU_LAYERS]), tokens=gen_h.tolist())
+
+
+def dense_serving_phase(dev) -> dict:
+    """Phase 26: dense and MoE serving at full width (bfloat16 compute), the
+    int8 cache, a long prompt through blockwise attention, decode against
+    teacher-forced forward and the card against the CPU port; returns the
+    launches of its serving runs (none)."""
+    cfg = get_config(DENSE_ARCH)
+    params, info = init_on_card(cfg, dev)
+    toks, stats = serve_at_full_width(cfg, params, dev, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW)
+    launches = stats["launches"]
+    emit("dense_serving", **info, **stats, first_tokens=toks[:2, :8].tolist())
+
+    # the int8 KV cache, same parameters and prompts
+    q8 = cfg.replace(kv_quant=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    toks_q, stats_q = serve_at_full_width(q8, params, dev, SERVE_BATCH, SERVE_PROMPT,
+                                          SERVE_NEW)
+    max_seq = SERVE_PROMPT + SERVE_NEW
+    cache_b = {name: sum(t.numel() * t.element_size() for t in tree_leaves(
+        model_cache.init_cache(c, SERVE_BATCH, max_seq, device="meta")))
+        for name, c in (("bfloat16", cfg), ("int8", q8))}
+    emit("dense_serving_int8_cache", arch=cfg.arch_id, **stats_q,
+         cache_bytes=cache_b, bytes_ratio=cache_b["bfloat16"] / cache_b["int8"],
+         greedy_agreement=float((toks_q == toks).float().mean()),
+         first_agreeing_run=float((toks_q == toks).int().cumprod(1).sum(1).float().mean()))
+
+    # a LONG_PROMPT-token prompt: prefill through blockwise attention
+    torch.cuda.reset_peak_memory_stats(dev)
+    _, stats_l = serve_at_full_width(cfg, params, dev, 1, LONG_PROMPT, LONG_NEW, seed=3)
+    emit("dense_serving_long_prompt", arch=cfg.arch_id, **stats_l,
+         attention="blockwise" if LONG_PROMPT > model_cache.FULL_THRESH else "full",
+         blockwise_vs_full=blockwise_vs_full(cfg, params, dev))
+    emit("dense_teacher_forced", arch=cfg.arch_id, **dense_teacher_forced(cfg, params, dev))
+    del params
+
+    # qwen2.5-3b at full width and depth
+    cfg3 = get_config(DENSE_3B)
+    params, info = init_on_card(cfg3, dev)
+    toks, stats = serve_at_full_width(cfg3, params, dev, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW)
+    emit("dense_serving", **info, **stats, first_tokens=toks[:2, :8].tolist())
+    del params
+
+    # moonshot-v1-16b-a3b at full width, its depth cut
+    mcfg = get_config(MOE_ARCH).replace(n_layers=MOE_SERVE_LAYERS)
+    params, info = init_on_card(mcfg, dev)
+    with recorded_routes() as routes:
+        toks, stats = serve_at_full_width(mcfg, params, dev, SERVE_BATCH, SERVE_PROMPT,
+                                          SERVE_NEW)
+    drops = dropped(routes)
+    T = SERVE_BATCH * SERVE_PROMPT
+    emit("moe_serving", **info, full_depth=get_config(MOE_ARCH).n_layers,
+         n_experts=mcfg.n_experts, top_k=mcfg.experts_per_token, **stats,
+         capacity_prefill=moe_mod.expert_capacity(mcfg, T),
+         dropped_prefill_by_layer=drops[:MOE_SERVE_LAYERS],
+         dropped_share_prefill=sum(drops[:MOE_SERVE_LAYERS])
+         / (MOE_SERVE_LAYERS * T * mcfg.experts_per_token),
+         dropped_decode=sum(drops[MOE_SERVE_LAYERS:]), first_tokens=toks[:2, :8].tolist())
+    del params
+    torch.cuda.empty_cache()
+
+    for arch in (DENSE_ARCH, MOE_ARCH):
+        emit("dense_card_vs_cpu", **dense_card_vs_cpu(arch, dev))
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dense_training_phase(dev) -> dict:
+    """Phase 27: qwen2-0.5b training at full width and depth through
+    ``launch.train.main``, a profiled step, the card against the CPU port at
+    2 layers, and moonshot at full width cut to 2 layers; returns the
+    training run's launches (none)."""
+    cfg = get_config(DENSE_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = train_main(["--arch", DENSE_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+                      str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--log-every", "1"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = counted({})
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = out["losses"]
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"training losses {losses}")
+    steady = statistics.median(out["step_s"][1:])
+    emit("dense_training", arch=DENSE_ARCH, n_layers=cfg.n_layers, d_model=cfg.d_model,
+         d_ff=cfg.d_ff, vocab=cfg.vocab_size, param_dtype=cfg.param_dtype,
+         compute_dtype=cfg.compute_dtype, remat=cfg.remat, optimizer=cfg.optimizer,
+         batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS, losses=losses,
+         step_s=out["step_s"], first_step_s=out["step_s"][0], median_step_s=steady,
+         tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / steady, run_s=run_s,
+         max_memory_allocated=peak, launches=launches)
+    torch.cuda.empty_cache()
+    emit("dense_training_profile", arch=DENSE_ARCH, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+         **profile_train_step(cfg, dev, required=("matmul",)))
+    torch.cuda.empty_cache()
+    emit("dense_training_card_vs_cpu", **train_card_vs_cpu(cfg, dev))
+
+    # moonshot-v1-16b-a3b at full width, 2 of its 48 layers
+    mcfg = get_config(MOE_ARCH).replace(n_layers=MOE_TRAIN_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = build_state(mcfg, device=dev)
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    step = make_train_step(mcfg)
+    ops.reset_launches()
+    step_s, rows = [], []
+    for i in range(MOE_TRAIN_STEPS):
+        batch = make_batch(mcfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, step=i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        rows.append({k: float(v) for k, v in metrics.items()})
+    moe_launches = counted({})
+    peak = torch.cuda.max_memory_allocated(dev)
+    del state
+    torch.cuda.empty_cache()
+    if not all(math.isfinite(r["loss"]) and r["aux"] > 0 for r in rows):
+        raise AssertionError(f"moe training metrics {rows}")
+    emit("moe_training", arch=MOE_ARCH, n_layers=MOE_TRAIN_LAYERS,
+         full_depth=get_config(MOE_ARCH).n_layers, d_model=mcfg.d_model,
+         n_experts=mcfg.n_experts, top_k=mcfg.experts_per_token, params=n_params,
+         batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=MOE_TRAIN_STEPS, metrics=rows,
+         step_s=step_s, max_memory_allocated=peak, launches=moe_launches)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU host",
@@ -2675,6 +3033,13 @@ def main() -> int:
 
     # ---- 25. the DIVA path with the DIMM axis split over a mesh
     paths.append(sharded_phase(batch, diva))
+
+    # ---- 26-27. the dense and MoE families: serving and training
+    t0 = time.perf_counter()
+    paths.append(dense_serving_phase(dev))
+    t1 = time.perf_counter()
+    paths.append(dense_training_phase(dev))
+    emit("dense_phases", serving_s=t1 - t0, training_s=time.perf_counter() - t1)
     DENSE.clear()
     total = {name: sum(p[name] for p in paths) for name in ops.KERNELS}
 

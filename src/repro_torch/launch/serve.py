@@ -2,7 +2,9 @@
 with ``--fleet``, the DIMM-fleet timing-table service
 (``repro_torch.serve.FleetServer``).
 
-    python -m repro_torch.launch.serve --arch rwkv6-1.6b                 # on the card
+    python -m repro_torch.launch.serve                     # qwen2-0.5b, on the card
+    python -m repro_torch.launch.serve --arch qwen2-0.5b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch rwkv6-1.6b   # on the card
     python -m repro_torch.launch.serve --arch rwkv6-1.6b --smoke --device cpu
     python -m repro_torch.launch.serve --fleet 256 --chunk 128 [--ckpt-dir D]
     python -m repro_torch.launch.serve --fleet 64 --chunk 32 --device cpu
@@ -35,10 +37,11 @@ def _sync(dev: torch.device) -> None:
 def generate(cfg, params, prompt_batch, *, max_new: int = 16, device=None):
     """Greedy generation for a batch of prompts (``prompt_batch["tokens"]``:
     (B, S) integers) on ``device`` (default: the CUDA device), where
-    ``params`` must lie.  Returns (generated tokens (B, max_new) int32,
-    stats).  The stats' wall times come from ``obs`` spans, host clocks
-    around work that ends in a ``torch.cuda.synchronize`` on the card
-    (``Span.bind``): compute, not the enqueue."""
+    ``params`` must lie; a dense/MoE cache holds S + max_new positions.
+    Returns (generated tokens (B, max_new) int32, stats).  The stats' wall
+    times come from ``obs`` spans, host clocks around work that ends in a
+    ``torch.cuda.synchronize`` on the card (``Span.bind``): compute, not
+    the enqueue."""
     dev = resolve_device(device)
     if model_mod.param_device(params) != dev:
         raise ValueError(f"params lie on {model_mod.param_device(params)}, "
@@ -46,11 +49,11 @@ def generate(cfg, params, prompt_batch, *, max_new: int = 16, device=None):
     # cast once: prefill and decode cast again, a no-op on a cast tree
     params = model_mod.cast_params(params, cfg)
     tokens = torch.as_tensor(np.asarray(prompt_batch["tokens"]), device=dev)
-    B = tokens.shape[0]
-    prefill = steps_mod.make_prefill_step(cfg)
+    B, S = tokens.shape
+    prefill = steps_mod.make_prefill_step(cfg, max_seq=S + max_new)
     decode = steps_mod.make_decode_step(cfg)
     _sync(dev)
-    with obs.span("serve.prefill", batch=B, prompt_len=tokens.shape[1]) as sp:
+    with obs.span("serve.prefill", batch=B, prompt_len=S) as sp:
         logits, cache = prefill(params, {"tokens": tokens})
         tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         sp.bind(tok)
@@ -98,7 +101,7 @@ def serve_fleet(n_dimms: int, chunk_size: int,
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="rwkv6-1.6b", choices=list(ARCH_IDS))
+    ap.add_argument("--arch", default="qwen2-0.5b", choices=list(ARCH_IDS))
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--prompt-len", type=int, default=32)

@@ -1,14 +1,16 @@
 """Training entry point: ``python -m repro_torch.launch.train --arch <id> [--smoke]``.
 
-    python -m repro_torch.launch.train --arch rwkv6-1.6b              # on the card
+    python -m repro_torch.launch.train --batch 8 --seq 512    # qwen2-0.5b, on the card
+    python -m repro_torch.launch.train --arch qwen2-0.5b --smoke --device cpu
+    python -m repro_torch.launch.train --arch rwkv6-1.6b      # on the card
     python -m repro_torch.launch.train --arch rwkv6-1.6b --smoke --device cpu
 
 The counterpart of ``repro.launch.train``: config -> parameters (random,
-from a seed) -> train step (``launch/steps.make_train_step``: loss, autograd
-through the ``wkv6`` kernels, clipping, schedule, optimizer) -> synthetic
-data pipeline (prefetched) -> ECC-protected checkpoints -> DIVA-style canary
-straggler monitor, on one device.  As in the reference, the data stream
-starts at its step 0 also after ``--resume``.
+from a seed) -> train step (``launch/steps.make_train_step``: loss, autograd,
+through the ``wkv6`` kernels for rwkv6, clipping, schedule, optimizer) ->
+synthetic data pipeline (prefetched) -> ECC-protected checkpoints ->
+DIVA-style canary straggler monitor, on one device.  As in the reference,
+the data stream starts at its step 0 also after ``--resume``.
 """
 from __future__ import annotations
 
@@ -41,7 +43,7 @@ def main(argv=None) -> dict:
     losses) as the reference does, and ``"step_s"``: each step's wall seconds
     (host clock; on a card, up to a synchronize)."""
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="rwkv6-1.6b", choices=list(ARCH_IDS))
+    ap.add_argument("--arch", default="qwen2-0.5b", choices=list(ARCH_IDS))
     ap.add_argument("--smoke", action="store_true", help="reduced config")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=4)

@@ -1,9 +1,15 @@
-"""Shared model building blocks: dtypes, init, norms and the loss (the part
-of ``repro.models.layers`` that the rwkv6 family uses; the MLP and rotary
-helpers wait for the other families)."""
+"""Shared model building blocks: dtypes, init, norms, rotary embeddings, the
+MLP and the loss (the counterpart of ``repro.models.layers``; its
+``sinusoidal_positions`` waits for the audio family).
+
+The reference's ``stacked`` (a ``vmap`` of a per-layer init) is the ``lead=``
+argument here: every init draws its leaves with the leading axes ``lead``
+(``(n_layers,)`` for a layer stack) in one call.
+"""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 
@@ -23,6 +29,12 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, scale: float 
     w = torch.randn((*lead, d_in, d_out), generator=gen, device=gen.device,
                     dtype=torch.float32)
     return (w * std).to(dtype)
+
+
+def mm(a, b):
+    """``a @ b`` with JAX's dtype promotion (bfloat16 @ float32 is float32)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
 
 
 # ---------------------------------------------------------------- norms
@@ -55,6 +67,60 @@ def apply_norm(cfg: ModelConfig, p, x):
     if cfg.norm == "rmsnorm":
         return rmsnorm(x, p["scale"])
     return layernorm(x, p["scale"], p["bias"])
+
+
+# ---------------------------------------------------------------- rotary
+
+def rope_freqs(dh: int, theta: float, device=None):
+    """(dh/2,) float32 inverse frequencies, the power taken in float32."""
+    return 1.0 / (theta ** (torch.arange(0, dh, 2, dtype=torch.float32,
+                                         device=device) / dh))
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., S, H, dh); positions: (..., S) integers.  Rotates the two
+    halves of each head (not interleaved pairs), angles in float32."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, device=x.device)  # (dh/2,)
+    ang = positions.float()[..., None] * freqs  # (..., S, dh/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------- MLP
+
+def mlp_params(gen: torch.Generator, cfg: ModelConfig, dtype, *, lead: tuple = ()):
+    """The MLP sublayer's parameters (a gated pair for ``swiglu`` /
+    ``gelu_glu``, one projection with biases for plain ``gelu``)."""
+    dev = gen.device
+    D, F_ = cfg.d_model, cfg.d_ff
+    p = {"ln": norm_params(cfg, dtype, lead=lead, device=dev)}
+    p["wi"] = dense_init(gen, D, F_, dtype, lead=lead)
+    if cfg.act in ("swiglu", "gelu_glu"):
+        p["wg"] = dense_init(gen, D, F_, dtype, lead=lead)
+    else:  # plain gelu (whisper)
+        p["bi"] = torch.zeros((*lead, F_), dtype=dtype, device=dev)
+        p["bo"] = torch.zeros((*lead, D), dtype=dtype, device=dev)
+    p["wo"] = dense_init(gen, F_, D, dtype, 1.0 / max(cfg.n_layers, 1) ** 0.5, lead=lead)
+    return p
+
+
+def mlp_apply(cfg: ModelConfig, p, x):
+    """Pre-norm MLP sublayer (no residual add).  ``jax.nn.gelu`` is the tanh
+    approximation by default, and so is this one."""
+    x = apply_norm(cfg, p["ln"], x)
+    if cfg.act == "swiglu":
+        h = F.silu(x @ p["wg"]) * (x @ p["wi"])
+    elif cfg.act == "gelu_glu":
+        h = F.gelu(x @ p["wg"], approximate="tanh") * (x @ p["wi"])
+    else:
+        h = F.gelu(x @ p["wi"] + p["bi"].to(x.dtype), approximate="tanh")
+    out = h @ p["wo"]
+    if "bo" in p:
+        out = out + p["bo"].to(x.dtype)
+    return out
 
 
 def cross_entropy(logits, labels, mask=None):

@@ -1,6 +1,10 @@
-"""Model wiring: init / forward for the ported families (ssm: rwkv6).
+"""Model wiring: init / forward for the ported families.
 
-The counterpart of ``repro.models.model`` for the ssm family: parameters
+Families:
+  dense | moe : uniform decoder layers (attention + MLP-or-MoE)
+  ssm (rwkv6) : time-mix + channel-mix layers
+
+The counterpart of ``repro.models.model`` for these families: parameters
 are nested dicts of tensors with the reference's keys and its layer-stacked
 layout (a leading ``n_layers`` axis on every leaf under ``"layers"``), so a
 reference parameter tree carries across one to one (``params_from_numpy``).
@@ -9,9 +13,12 @@ The layer stack is a plain Python loop over the stacked leaves, unbound once
 ``cfg.remat == "full"`` and autograd on, each layer runs under
 ``torch.utils.checkpoint`` (non-reentrant), the counterpart of the
 reference's ``jax.checkpoint`` in ``_scan_layers``: only a layer's input is
-kept, and the backward recomputes the layer, its ``wkv6`` included.  The
-reference's ``unroll`` and sequence-sharding switches belong to its XLA cost
-analysis and to sharding, which are not ported.  Any other family raises
+kept, and the backward recomputes the layer (its ``wkv6`` or its attention
+and MoE routing included).  A uniform-MoE arch (every layer MoE) has
+``"moe"`` in place of ``"mlp"`` in each layer, and ``forward`` returns the
+sum of the layers' aux losses.  The reference's ``unroll`` and
+sequence-sharding switches belong to its XLA cost analysis and to sharding,
+which are not ported.  The vlm, hybrid and audio families raise
 ``ValueError``.
 """
 from __future__ import annotations
@@ -22,13 +29,18 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rwkv
-from repro_torch.models.layers import apply_norm, cross_entropy, dtype_of, norm_params
+from repro_torch.models.layers import (apply_norm, cross_entropy, dtype_of, mlp_apply,
+                                       mlp_params, norm_params)
 
 # Param leaves kept in fp32 regardless of compute dtype (routing / SSM dynamics
 # / norm statistics are precision-sensitive).
 _FP32_KEEP = {"wr", "alog", "u", "w0", "gn_scale", "dskip", "scale", "bias"}
-PORTED_FAMILIES = ("ssm",)
+PORTED_FAMILIES = ("dense", "moe", "ssm")
+ATTENTION_FAMILIES = ("dense", "moe")
+BLOCK_KV = 2048   # keys a chunk of blockwise attention (sequences past 2048)
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -100,7 +112,16 @@ def init_params(seed: int, cfg: ModelConfig, device=None):
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = {"wlm": (torch.randn((D, V), **f32) / D ** 0.5).to(pdt)}
-    params["layers"] = rwkv.rwkv_params(gen, cfg, pdt, lead=(cfg.n_layers,))
+    lead = (cfg.n_layers,)
+    if cfg.family in ATTENTION_FAMILIES:
+        params["layers"] = {"attn": attn.attn_params(gen, cfg, pdt, lead=lead)}
+        if cfg.n_experts and cfg.is_moe_layer(0):
+            # uniform-MoE archs (kimi, moonshot): every layer MoE
+            params["layers"]["moe"] = moe_mod.moe_params(gen, cfg, pdt, lead=lead)
+        else:
+            params["layers"]["mlp"] = mlp_params(gen, cfg, pdt, lead=lead)
+    else:
+        params["layers"] = rwkv.rwkv_params(gen, cfg, pdt, lead=lead)
     return params
 
 
@@ -130,35 +151,54 @@ def _unbind_layers(stacked, n: int) -> list:
 
 # =============================================================== forward
 
-def _layer(cfg, lp, x):
-    t, _ = rwkv.rwkv_time_mix(cfg, lp, x)
-    x = x + t
-    c, _ = rwkv.rwkv_channel_mix(cfg, lp, x)
-    return x + c
+def ffn(cfg, lp, x):
+    """The layer's MLP or MoE sublayer: (output, aux loss or None)."""
+    if "moe" in lp:
+        return moe_mod.moe_ffn(cfg, lp["moe"], x)
+    return mlp_apply(cfg, lp["mlp"], x), None
+
+
+def _layer(cfg, lp, x, positions):
+    """One layer: (x, aux or None)."""
+    if cfg.family == "ssm":
+        t, _ = rwkv.rwkv_time_mix(cfg, lp, x)
+        x = x + t
+        c, _ = rwkv.rwkv_channel_mix(cfg, lp, x)
+        return x + c, None
+    x = x + attn.attention_block(cfg, lp["attn"], x, positions=positions,
+                                 block_kv=BLOCK_KV)
+    d, aux = ffn(cfg, lp, x)
+    return x + d, aux
 
 
 def forward(cfg: ModelConfig, params, batch):
-    """Returns (logits (B, S, V), aux_loss 0).  ``batch["tokens"]``: (B, S)
-    integer tokens (inputs only); runs on the parameters' device.  With
-    ``cfg.remat == "full"`` the backward recomputes each layer; without
-    autograd that changes nothing."""
+    """Returns (logits (B, S, V), aux_loss: the layers' MoE aux losses
+    summed, 0 without MoE).  ``batch["tokens"]``: (B, S) integer tokens
+    (inputs only); runs on the parameters' device.  With ``cfg.remat ==
+    "full"`` the backward recomputes each layer; without autograd that
+    changes nothing."""
     _check_family(cfg)
     params = cast_params(params, cfg)
     remat = cfg.remat == "full"
     x = _embed(cfg, params, batch["tokens"])
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in _unbind_layers(params["layers"], cfg.n_layers):
         if remat and torch.is_grad_enabled():
-            x = checkpoint(_layer, cfg, lp, x, use_reentrant=False)
+            x, a = checkpoint(_layer, cfg, lp, x, positions, use_reentrant=False)
         else:
-            x = _layer(cfg, lp, x)
+            x, a = _layer(cfg, lp, x, positions)
+        if a is not None:
+            aux = aux + a
     x = apply_norm(cfg, params["final_norm"], x)
-    return _logits(cfg, params, x), torch.zeros((), dtype=torch.float32, device=x.device)
+    return _logits(cfg, params, x), aux
 
 
 # =============================================================== loss
 
 def loss_fn(cfg: ModelConfig, params, batch, *, aux_weight: float = 0.01):
-    """batch["tokens"]: (B, S+1); loss = CE(next token) + aux (0 for ssm).
+    """batch["tokens"]: (B, S+1); loss = CE(next token) + aux_weight * aux
+    (the MoE aux loss; 0 without MoE).
     Returns (loss, {"ce", "aux"})."""
     tokens = torch.as_tensor(batch["tokens"], device=param_device(params))
     logits, aux = forward(cfg, params, {**batch, "tokens": tokens[:, :-1]})

@@ -12,7 +12,7 @@ alike.
 
 The dtypes flow as in the reference: the norms return the compute dtype,
 ``wr`` stays float32 (``model._FP32_KEEP``), so ``r`` is float32 as JAX's
-promotion of a bfloat16 @ float32 product makes it (``_mm``); the recurrence
+promotion of a bfloat16 @ float32 product makes it (``layers.mm``); the recurrence
 and the group norm run in float32, and the shift states are float32.
 """
 from __future__ import annotations
@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.wkv6 import wkv6
-from repro_torch.models.layers import apply_norm, dense_init, norm_params
+from repro_torch.models.layers import apply_norm, dense_init, mm, norm_params
 
 
 def rwkv_params(gen: torch.Generator, cfg: ModelConfig, dtype, *, lead: tuple = ()):
@@ -61,12 +61,6 @@ def rwkv_params(gen: torch.Generator, cfg: ModelConfig, dtype, *, lead: tuple = 
     }
 
 
-def _mm(a, b):
-    """``a @ b`` with JAX's dtype promotion (bfloat16 @ float32 is float32)."""
-    dt = torch.promote_types(a.dtype, b.dtype)
-    return a.to(dt) @ b.to(dt)
-
-
 def _token_shift(x, x_prev):
     """x: (B,S,D); x_prev: (B,1,D) last token of previous segment (or zeros)."""
     return torch.cat([x_prev.to(x.dtype), x[:, :-1]], dim=1)
@@ -83,11 +77,11 @@ def rwkv_time_mix(cfg: ModelConfig, p, x, state=None):
     xp = _token_shift(h, prev)
     mu = p["mu"].to(h.dtype)
     xr, xk, xv, xw, xg = (h + mu[i] * (xp - h) for i in range(5))
-    r = _mm(xr, p["wr"]).reshape(B, S, H, HD)
-    k = _mm(xk, p["wk"]).reshape(B, S, H, HD)
-    v = _mm(xv, p["wv"]).reshape(B, S, H, HD)
-    g = F.silu(_mm(xg, p["wg"]))
-    wlog = p["w0"].float() + _mm(torch.tanh(_mm(xw, p["wa"])), p["wb"]).float()
+    r = mm(xr, p["wr"]).reshape(B, S, H, HD)
+    k = mm(xk, p["wk"]).reshape(B, S, H, HD)
+    v = mm(xv, p["wv"]).reshape(B, S, H, HD)
+    g = F.silu(mm(xg, p["wg"]))
+    wlog = p["w0"].float() + mm(torch.tanh(mm(xw, p["wa"])), p["wb"]).float()
     wlog = wlog.reshape(B, S, H, HD)
     u = p["u"].reshape(H, HD)
     y, s = wkv6(r, k, v, wlog, u, state["wkv"] if state is not None else None)
@@ -96,7 +90,7 @@ def rwkv_time_mix(cfg: ModelConfig, p, x, state=None):
     var = y.var(-1, keepdim=True, correction=0)
     y = (y - mean) * torch.rsqrt(var + 1e-5)
     y = (y.reshape(B, S, D) * p["gn_scale"]).to(x.dtype)
-    out = _mm(y * g, p["wo"])
+    out = mm(y * g, p["wo"])
     new_state = {"shift_t": h[:, -1:].float(), "wkv": s}
     return out, new_state
 
@@ -109,8 +103,8 @@ def rwkv_channel_mix(cfg: ModelConfig, p, x, state=None):
     xp = _token_shift(h, prev)
     mu = p["mu_ck"].to(h.dtype)
     xk = h + mu * (xp - h)
-    kk = torch.square(F.relu(_mm(xk, p["wck"])))
-    out = _mm(kk, p["wcv"])
+    kk = torch.square(F.relu(mm(xk, p["wck"])))
+    out = mm(kk, p["wcv"])
     return out, {"shift_c": h[:, -1:].float()}
 
 

@@ -287,3 +287,35 @@ def test_resolve_device_gives_an_indexed_cuda_device_or_raises(device):
     dev = resolve_device(device)
     assert dev.type == "cuda" and dev.index is not None
     assert dev == torch.zeros(1, device=device or "cuda").device
+
+
+def test_slice13_entry_points_raise_without_cuda_and_without_device():
+    """The dense and MoE families: no CUDA and no device raises; with
+    ``device="cpu"`` each runs."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.launch.train import build_state
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.models.cache import init_cache
+    from repro_torch.models.model import init_params
+    prompts = {"tokens": np.zeros((1, 4), np.int32)}
+    for arch in ("qwen2-0.5b", "moonshot-v1-16b-a3b"):
+        cfg = get_smoke_config(arch)
+        params = init_params(0, cfg, device="cpu")
+        toks, _ = generate(cfg, params, prompts, max_new=2, device="cpu")
+        assert toks.shape == (1, 2)
+        assert init_cache(cfg, 1, 8, device="cpu")["k"].device.type == "cpu"
+        if torch.cuda.is_available():
+            continue
+        for call in (lambda: init_params(0, cfg),
+                     lambda: init_cache(cfg, 1, 8),
+                     lambda: build_state(cfg),
+                     lambda: generate(cfg, params, prompts),
+                     lambda: serve_main(["--arch", arch, "--smoke"]),
+                     lambda: train_main(["--arch", arch, "--smoke", "--steps", "1"])):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                call()
+    if not torch.cuda.is_available():   # the default arch is qwen2-0.5b
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serve_main(["--smoke"])

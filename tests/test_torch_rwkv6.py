@@ -38,6 +38,7 @@ import jax
 import jax.numpy as jnp
 
 from repro.configs import base as ref_base
+from repro.configs.registry import ARCH_IDS as REF_ARCH_IDS
 from repro.configs.registry import get_config as ref_get_config
 from repro.data.pipeline import make_batch as ref_make_batch
 from repro.launch.serve import generate as ref_generate
@@ -56,6 +57,7 @@ from repro_torch.models import model as port_model
 from repro_torch.models import rwkv6 as port_rwkv6
 
 ARCH = "rwkv6-1.6b"
+UNPORTED = ("jamba-1.5-large-398b", "paligemma-3b", "whisper-medium")
 BLOCK_TOL = 1e-5
 LOGIT_TOL = 1e-4
 FORWARD_TOL = 2e-4
@@ -88,7 +90,8 @@ def _close_bf16(got, want):
 # ------------------------------------------------------------ configs, data
 
 def test_config_equals_reference_field_by_field():
-    assert ARCH_IDS == (ARCH,)
+    # the reference's archs but the three whose families are still to port
+    assert ARCH_IDS == tuple(a for a in REF_ARCH_IDS if a not in UNPORTED)
     ref = ref_get_config(ARCH)
     assert dataclasses.asdict(get_config(ARCH)) == dataclasses.asdict(ref)
     assert dataclasses.asdict(get_smoke_config(ARCH)) == \
@@ -100,7 +103,7 @@ def test_config_equals_reference_field_by_field():
             cfg.rwkv_heads, cfg.rwkv_decay_lora) == (24, 2048, 7168, 65536, 32, 64)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "jamba-1.5-large-398b", "nope"])
+@pytest.mark.parametrize("arch", ["paligemma-3b", "jamba-1.5-large-398b", "nope"])
 def test_registry_lists_only_ported_archs(arch):
     with pytest.raises(KeyError, match="queue 1 #2"):
         get_config(arch)
@@ -183,12 +186,13 @@ def test_cast_params_keeps_fp32_leaves_and_is_idempotent(smoke):
 
 
 def test_other_families_raise(smoke):
-    cfg = smoke[0].replace(family="dense")
-    for call in (lambda: port_model.init_params(0, cfg, device="cpu"),
-                 lambda: port_cache.init_cache(cfg, 1, device="cpu"),
-                 lambda: port_model.forward(cfg, smoke[2], {"tokens": np.zeros((1, 2))})):
-        with pytest.raises(ValueError, match="not ported"):
-            call()
+    for family in ("hybrid", "vlm", "audio"):
+        cfg = smoke[0].replace(family=family)
+        for call in (lambda: port_model.init_params(0, cfg, device="cpu"),
+                     lambda: port_cache.init_cache(cfg, 1, device="cpu"),
+                     lambda: port_model.forward(cfg, smoke[2], {"tokens": np.zeros((1, 2))})):
+            with pytest.raises(ValueError, match="not ported"):
+                call()
 
 
 # ------------------------------------------------------------ the block

@@ -371,7 +371,7 @@ def test_train_main_refuses_what_is_not_ported(capsys):
         train_mod.main(["--smoke", "--production-mesh", "--device", "cpu"])
     assert "not ported" in capsys.readouterr().err
     with pytest.raises(SystemExit):
-        train_mod.main(["--arch", "qwen2-0.5b", "--smoke", "--device", "cpu"])
+        train_mod.main(["--arch", "jamba-1.5-large-398b", "--smoke", "--device", "cpu"])
     if not torch.cuda.is_available():   # no card: ``main`` does not fall back
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train_mod.main(["--smoke", "--steps", "1"])
