@@ -221,13 +221,43 @@ of 512x512 mats, 16 mats and 8 subarrays — it
      ``torch.profiler`` (kernel time by group, idle share); the card against
      the CPU port at 2 layers in float32, batch 2 x 128 (phase 24's bounds);
      then 2 steps of moonshot at full width cut to 2 layers (1.81B
-     parameters): finite losses, a nonzero aux loss, the memory peak.
+     parameters): finite losses, a nonzero aux loss, the memory peak;
+ 28. the hybrid, vlm and audio families serving, bfloat16 compute, random
+     parameters from seed 0 (no port kernel: every run must launch none):
+     ``jamba-1.5-large-398b`` cut to one period-8 block (8 of 72 layers: 7
+     Mamba + 1 attention sublayer, 4 dense + 4 MoE FFNs) at full width with
+     4 of its 16 experts (top 2; 16.2B parameters, 32.5 GB: all 16 experts
+     do not fit), ``generate`` of 8 prompts of 512 tokens and 32 new
+     (prefill s, decode s, tok/s, memory peak, the share of the prefill's
+     assignments its capacity drops); ``paligemma-3b`` at full width and
+     depth, 8 x (256 patches + 256 text tokens) + 32 new; ``whisper-medium``
+     at full width and depth, 8 x (1500 frames + 384 text tokens) + 32 new;
+     decode against teacher-forced ``forward`` in float32 on the card,
+     paligemma and whisper at full width cut to 2 layers (whisper 2 + 2;
+     prefill 8 text tokens, decode 4; 2e-4 / 2e-3); and the card against the
+     CPU port in float32, one set of host parameters: paligemma and whisper
+     at full width cut to 2 layers, batch 2 x 64 text tokens plus all
+     patches / frames, and Jamba at its smoke widths with a 2 x 256 prompt
+     (the Mamba scan's chunked path): prefill and 4 decode steps' logits and
+     the caches within 1e-4, greedy tokens and ``generate`` identical, every
+     routing call's expert ids, positions and kept assignments identical;
+ 29. the families training: ``launch.train.main`` on ``whisper-medium`` at
+     full width and depth (float32 master weights, bfloat16 compute,
+     per-layer remat, AdamW), 8 steps of 8 x 448 decoder tokens with 1500
+     frames each: step times, tokens/s, memory peak, finite losses; one more
+     step under ``torch.profiler``; ``paligemma-3b`` at full width cut to 8
+     of 18 layers (18 do not fit with AdamW), 3 steps of 8 x 512 positions;
+     Jamba at its smoke widths in bfloat16 under Adafactor, 3 steps of 8 x
+     512 tokens (the scan's chunked path under the block's remat): finite
+     losses, a nonzero aux loss; the card against the CPU port in float32
+     (phase 24's bounds) for whisper cut to 2 + 2 layers at 2 x 128 and
+     Jamba at smoke widths at 2 x 256.
 
 Every phase prints one JSON line.  The launch counts are set to 0 just before
 each path (phases 3-4, 6, 7, 8, 9, 12, 13, 14, 16, 17, 19, 20 (ingest; tick
 and checkpoint), 21, each scan of 22, 24, each run of 25, and each serving
-and training run of 26-27) and read just after it;
-every kernel of a path must have launched (26-27: none may), and the
+and training run of 26-29) and read just after it;
+every kernel of a path must have launched (26-29: none may), and the
 ``kernels`` line sums the paths' counts.
 Any failed check raises; the last line is ``{"ok": true, "device": {...}}``
 only when all passed.  Exits non-zero, printing no result, when no CUDA
@@ -252,7 +282,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.configs.registry import get_config  # noqa: E402
+from repro_torch.configs.registry import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core.geometry import FULL, TINY  # noqa: E402
 from repro_torch.core.latency import (  # noqa: E402
     DEFAULT_PATTERNS, PATTERN_STRESS, access_vdd_shift, retention_stress)
@@ -493,6 +523,34 @@ DENSE_TF_PROMPT, DENSE_TF_DECODE = 8, 4
 DENSE_TF_PREFILL_TOL, DENSE_TF_DECODE_TOL = 2e-4, 2e-3
 # the card against the CPU port: full width cut to 2 layers, float32
 DENSE_CPU_BATCH, DENSE_CPU_PROMPT = 2, 64
+# the hybrid, vlm and audio families (phases 28-29).  jamba-1.5-large-398b:
+# one period-8 block (8 of its 72 layers) at full width (d_model 8192,
+# d_inner 16384, 64 / 8 heads, d_ff 24576, vocab 65536) with 4 of its 16
+# experts, top 2 kept so that routing still decides: 16.2B parameters, 32.5
+# GB in its bfloat16 (with all 16 experts 45.2B, ~90 GB: over the card).
+# Init draws each leaf in float32 and scales it in place: the largest, the
+# block's 4 MoE sublayers' experts (1, 4, 4, 8192, 24576), 3.2B elements,
+# holds a 12.9 GB float32 temporary, a peak of ~45 GB
+JAMBA, PALIGEMMA, WHISPER = "jamba-1.5-large-398b", "paligemma-3b", "whisper-medium"
+JAMBA_LAYERS, JAMBA_EXPERTS = 8, 4
+# paligemma-3b serves 8 x (256 patches + 256 text tokens): SERVE_PROMPT
+# positions; whisper-medium 8 x (1500 frames + 384 text tokens), + 32 new
+# within its 448-token text context, and trains on 8 x 448
+WHISPER_PROMPT, WHISPER_TRAIN_SEQ = 384, 448
+# paligemma trains at full width cut to 8 of 18 layers: AdamW costs ~29.5
+# bytes a parameter in this port (moonshot at 2 layers: 1.81B -> 53.5 GB), so 18
+# layers (2.51B) need ~74 GB beside the 257,216-wide logits; 8 layers
+# (1.41B) ~42 GB and ~10 GB of logits and their gradients.  Jamba trains at
+# its smoke widths: a full-width block does not fit at any expert count
+# that still routes (its bfloat16 parameters, gradients and new values,
+# plus Adafactor's float32 temporaries, ~13 GB each over a 3.2B-element
+# expert leaf)
+PALIGEMMA_TRAIN_LAYERS, FAMILY_TRAIN_STEPS = 8, 3
+# the card against the CPU port in float32: paligemma and whisper at full
+# width cut to 2 layers (whisper 2 + 2), 2 x 64 text tokens and all patches
+# or frames; Jamba at smoke widths with 2 x 256 tokens, past the scan's
+# 128-step chunk (training the same at 2 x 256)
+FAMILY_CPU_LAYERS, FAMILY_CPU_PROMPT, JAMBA_CPU_PROMPT = 2, 64, 256
 # phases 3-17 keep the dense results that phases 22 and 25 hold the scans and
 # the sharded runs to
 DENSE: dict = {}
@@ -1922,15 +1980,15 @@ PROFILE_GROUPS = (("wkv6_bwd", ("wkv6_bwd_kernel", "wkv6_du_kernel")), ("wkv6", 
                   ("matmul", ("gemm", "nvjet", "xmma")))
 
 
-def profile_train_step(cfg, dev, required=("wkv6_bwd", "wkv6")) -> dict:
-    """One full-size train step (after a warm-up step) under
-    ``torch.profiler``: wall ms, kernel ms by group and the idle share
-    (1 - kernel time / wall time; the profiler's own host cost slows the
-    launches, so it reads high), and the 10 longest kernels.  Raises unless
-    each group in ``required`` shows kernel time."""
+def profile_train_step(cfg, dev, required=("wkv6_bwd", "wkv6"), seq=TRAIN_SEQ) -> dict:
+    """One full-size train step of TRAIN_BATCH x ``seq`` tokens (after a
+    warm-up step) under ``torch.profiler``: wall ms, kernel ms by group and
+    the idle share (1 - kernel time / wall time; the profiler's own host
+    cost slows the launches, so it reads high), and the 10 longest kernels.
+    Raises unless each group in ``required`` shows kernel time."""
     state = build_state(cfg, device=dev)
     step = make_train_step(cfg)
-    batch = make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, step=0)
+    batch = make_batch(cfg, TRAIN_BATCH, seq, seed=0, step=0)
     state, _ = step(state, batch)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -1996,14 +2054,16 @@ def rwkv6_training_phase(dev) -> dict:
     return launches
 
 
-def train_card_vs_cpu(cfg, dev) -> dict:
-    """``loss_fn`` and its gradients of ``cfg`` cut to TRAIN_CPU_LAYERS
-    layers, float32 compute, one set of host parameters, on the card and on
-    the CPU: the loss, the global gradient norm and every gradient leaf held
-    to the CPU's (phase 24's bounds), or raise."""
-    small = cfg.replace(n_layers=TRAIN_CPU_LAYERS, compute_dtype="float32")
+def train_card_vs_cpu(cfg, dev, small=None, seq: int = TRAIN_CPU_SEQ) -> dict:
+    """``loss_fn`` and its gradients of ``small`` (default: ``cfg`` cut to
+    TRAIN_CPU_LAYERS layers, float32 compute) on TRAIN_CPU_BATCH x ``seq``
+    tokens, one set of host parameters, on the card and on the CPU: the
+    loss, the global gradient norm and every gradient leaf held to the CPU's
+    (phase 24's bounds), or raise."""
+    if small is None:
+        small = cfg.replace(n_layers=TRAIN_CPU_LAYERS, compute_dtype="float32")
     host = model.init_params(SERVE_SEED, small, device="cpu")
-    batch = make_batch(small, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, seed=5, step=0)
+    batch = make_batch(small, TRAIN_CPU_BATCH, seq, seed=5, step=0)
     res = {}
     for name, params in (("cpu", host), ("card", model.params_to(host, dev))):
         p = tree_map(lambda t: t.detach().requires_grad_(), params)
@@ -2024,9 +2084,10 @@ def train_card_vs_cpu(cfg, dev) -> dict:
     if max(leaf_err) > TRAIN_GRAD_TOL:
         raise AssertionError(f"card vs CPU gradients: {max(leaf_err)} of the leaf's "
                              f"largest (bound {TRAIN_GRAD_TOL})")
-    return dict(arch=cfg.arch_id, n_layers=TRAIN_CPU_LAYERS, d_model=small.d_model,
-                vocab=small.vocab_size, compute_dtype="float32", batch=TRAIN_CPU_BATCH,
-                seq=TRAIN_CPU_SEQ, loss_cpu=loss_c, loss_card=loss_g, gnorm_cpu=gn_c,
+    return dict(arch=cfg.arch_id, n_layers=small.n_layers, n_enc_layers=small.n_enc_layers,
+                d_model=small.d_model, vocab=small.vocab_size,
+                compute_dtype=small.compute_dtype, batch=TRAIN_CPU_BATCH,
+                seq=seq, loss_cpu=loss_c, loss_card=loss_g, gnorm_cpu=gn_c,
                 gnorm_card=gn_g, leaves=len(leaf_err), max_scaled_grad_err=max(leaf_err),
                 bounds=dict(loss_rtol=TRAIN_LOSS_RTOL, gnorm_rtol=TRAIN_GNORM_RTOL,
                             grad_scaled=TRAIN_GRAD_TOL))
@@ -2653,63 +2714,92 @@ def blockwise_vs_full(cfg, params, dev) -> dict:
                             bfloat16=[BLOCKWISE_BF16_RTOL, BLOCKWISE_BF16_VTOL]))
 
 
-def dense_teacher_forced(cfg, params, dev) -> dict:
-    """Float32 compute on the card: prefill DENSE_TF_PROMPT tokens and
-    decode DENSE_TF_DECODE, against teacher-forced ``forward``."""
+def cut(arch: str, layers: int):
+    """``arch`` at full width, ``layers`` layers (an encoder-decoder's
+    encoder too), float32 compute."""
+    cfg = get_config(arch)
+    enc = dict(n_enc_layers=layers) if cfg.is_encoder_decoder else {}
+    return cfg.replace(n_layers=layers, compute_dtype="float32", **enc)
+
+
+def prompts_of(cfg, batch: int, text: int, seed: int) -> dict:
+    """``make_batch``'s prompts with ``text`` text tokens each (a vlm's
+    patches and an audio model's frames whole), the last token dropped."""
+    prompts = make_batch(cfg, batch, cfg.n_vision_tokens + text, seed=seed, step=0)
+    prompts["tokens"] = prompts["tokens"][:, :-1]
+    return prompts
+
+
+def teacher_forced(cfg, params, prompts, dev) -> dict:
+    """Float32 compute on the card: prefill DENSE_TF_PROMPT tokens of
+    ``prompts`` (numpy, one sequence; its patches or frames whole) and
+    decode the rest of its tokens, against teacher-forced ``forward``."""
     f32 = cfg.replace(compute_dtype="float32")
-    n = DENSE_TF_PROMPT + DENSE_TF_DECODE
-    seq = torch.as_tensor(make_batch(cfg, 1, n, seed=2, step=0)["tokens"][:, :-1], device=dev)
-    full, _ = model.forward(f32, params, {"tokens": seq})
-    logits, cache = model_cache.prefill(f32, params, {"tokens": seq[:, :DENSE_TF_PROMPT]},
-                                        max_seq=n)
-    pre = allclose_err(logits[0, -1], full[0, DENSE_TF_PROMPT - 1], DENSE_TF_PREFILL_TOL,
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in prompts.items()}
+    seq = batch["tokens"]
+    n, P = seq.shape[1], (batch["patches"].shape[1] if "patches" in batch else 0)
+    full, _ = model.forward(f32, params, batch)
+    logits, cache = model_cache.prefill(f32, params, {**batch, "tokens": seq[:, :DENSE_TF_PROMPT]},
+                                        max_seq=P + n)
+    pre = allclose_err(logits[0, -1], full[0, P + DENSE_TF_PROMPT - 1], DENSE_TF_PREFILL_TOL,
                        "prefill against forward")
     dec = 0.0
     for t in range(DENSE_TF_PROMPT, n):
         logits, cache = model_cache.decode_step(f32, params, cache, seq[:, t:t + 1])
-        dec = max(dec, allclose_err(logits[0, -1], full[0, t], DENSE_TF_DECODE_TOL,
+        dec = max(dec, allclose_err(logits[0, -1], full[0, P + t], DENSE_TF_DECODE_TOL,
                                     "decode against forward"))
-    return dict(compute_dtype="float32", prompt=DENSE_TF_PROMPT, decode=DENSE_TF_DECODE,
-                prefill_max_abs_err=pre, decode_max_abs_err=dec,
+    return dict(compute_dtype="float32", prompt=DENSE_TF_PROMPT, decode=n - DENSE_TF_PROMPT,
+                prefix=P, prefill_max_abs_err=pre, decode_max_abs_err=dec,
                 bounds=[DENSE_TF_PREFILL_TOL, DENSE_TF_DECODE_TOL])
 
 
-def dense_card_vs_cpu(arch: str, dev) -> dict:
-    """``arch`` at full width cut to CPU_LAYERS layers, float32 compute,
-    one set of host parameters on the card and on the CPU: prefill and
-    CPU_DECODE decode steps' logits within CARD_CPU_TOL, the caches too,
-    greedy tokens and ``generate`` identical, and every MoE routing call's
+def moe_calls(cfg) -> int:
+    """The routing calls one pass over ``cfg``'s model makes."""
+    if not cfg.n_experts:
+        return 0
+    if cfg.family == "hybrid":
+        P = cfg.attn_period
+        return cfg.n_layers // P * sum(cfg.is_moe_layer(i) for i in range(P))
+    return cfg.n_layers if cfg.is_moe_layer(0) else 0
+
+
+def card_vs_cpu(cfg, prompts, dev) -> dict:
+    """``cfg`` (float32 compute) with one set of host parameters, on the CPU
+    and then on the card, each prefilling ``prompts`` (numpy: tokens and
+    any patches or frames) and decoding CPU_DECODE greedy tokens: the greedy
+    tokens identical, every step's logits and the caches within
+    CARD_CPU_TOL, ``generate`` identical, and every MoE routing call's
     expert ids, positions and kept assignments identical."""
-    cfg = get_config(arch).replace(n_layers=CPU_LAYERS, compute_dtype="float32")
     host = model.init_params(SERVE_SEED, cfg, device="cpu")
     card = model.params_to(host, dev)
-    prompts = make_batch(cfg, DENSE_CPU_BATCH, DENSE_CPU_PROMPT, seed=1, step=0)
-    prompts["tokens"] = prompts["tokens"][:, :-1]
-    tok_h = torch.as_tensor(prompts["tokens"])
-    max_seq = DENSE_CPU_PROMPT + CPU_DECODE
-    with recorded_routes() as routes:
-        lh, ch = model_cache.prefill(cfg, host, {"tokens": tok_h}, max_seq=max_seq)
-        lg, cg = model_cache.prefill(cfg, card, {"tokens": tok_h.to(dev)}, max_seq=max_seq)
-        errs = [allclose_err(lg, lh, CARD_CPU_TOL, "prefill logits, card vs CPU")]
-        for _ in range(CPU_DECODE):
-            th, tg = greedy(lh), greedy(lg)
-            if not torch.equal(tg.cpu(), th):
-                raise AssertionError(f"greedy tokens differ: card {tg.tolist()}, "
-                                     f"CPU {th.tolist()}")
-            lh, ch = model_cache.decode_step(cfg, host, ch, th[:, None])
-            lg, cg = model_cache.decode_step(cfg, card, cg, tg[:, None])
-            errs.append(allclose_err(lg, lh, CARD_CPU_TOL, "decode logits, card vs CPU"))
+    prefix = prompts["patches"].shape[1] if "patches" in prompts else 0
+    S = prompts["tokens"].shape[1]
+    max_seq = prefix + S + CPU_DECODE
+    runs = {}
+    for name, params, d in (("cpu", host, "cpu"), ("card", card, dev)):
+        batch = {k: torch.as_tensor(v, device=d) for k, v in prompts.items()}
+        with recorded_routes() as routes:
+            logits, cache = model_cache.prefill(cfg, params, batch, max_seq=max_seq)
+            out, toks = [logits], []
+            for _ in range(CPU_DECODE):
+                toks.append(greedy(logits))
+                logits, cache = model_cache.decode_step(cfg, params, cache, toks[-1][:, None])
+                out.append(logits)
+        runs[name] = (out, [t.cpu() for t in toks], cache, routes)
+    (lh, th, ch, rh), (lg, tg, cg, rg) = runs["cpu"], runs["card"]
+    for a, b in zip(tg, th):
+        if not torch.equal(a, b):
+            raise AssertionError(f"greedy tokens differ: card {a.tolist()}, CPU {b.tolist()}")
+    errs = [allclose_err(g, h, CARD_CPU_TOL, f"logits after step {i}, card vs CPU")
+            for i, (g, h) in enumerate(zip(lg, lh))]
     cache_err = max(allclose_err(cg[k], ch[k], CARD_CPU_TOL, f"cache {k}")
-                    for k in ("k", "v"))
-    # the calls alternate by CPU_LAYERS: the CPU's prefill, the card's, then
-    # the CPU's and the card's layers of each decode step
-    L = CPU_LAYERS if cfg.n_experts else 0
-    on = {"cpu": [r for i, r in enumerate(routes) if (i // L) % 2 == 0] if L else [],
-          "card": [r for i, r in enumerate(routes) if (i // L) % 2 == 1] if L else []}
-    if len(routes) != 2 * L * (1 + CPU_DECODE) \
-            or {r[0] for r in on["card"]} - {torch.device(dev).type}:
-        raise AssertionError(f"{len(routes)} routing calls")
-    for (_, eh, ph, cap), (_, eg, pg, _) in zip(on["cpu"], on["card"]):
+                    for k in ch if k != "pos")
+    n = moe_calls(cfg)
+    if len(rh) != len(rg) or len(rh) != n * (1 + CPU_DECODE) \
+            or {r[0] for r in rh} - {"cpu"} or {r[0] for r in rg} - {torch.device(dev).type}:
+        raise AssertionError(f"{len(rh)} / {len(rg)} routing calls, expected "
+                             f"{n * (1 + CPU_DECODE)} each")
+    for (_, eh, ph, cap), (_, eg, pg, _) in zip(rh, rg):
         if not (torch.equal(eg.cpu(), eh) and torch.equal(pg.cpu(), ph)
                 and torch.equal(pg.cpu() < cap, ph < cap)):
             raise AssertionError("MoE routing differs on the card and the CPU")
@@ -2717,13 +2807,14 @@ def dense_card_vs_cpu(arch: str, dev) -> dict:
     gen_g, _ = generate(cfg, card, prompts, max_new=CPU_DECODE + 1, device=dev)
     if not torch.equal(gen_g.cpu(), gen_h):
         raise AssertionError(f"generate differs: card {gen_g.tolist()}, CPU {gen_h.tolist()}")
-    return dict(arch=arch, n_layers=CPU_LAYERS, d_model=cfg.d_model, vocab=cfg.vocab_size,
-                compute_dtype="float32", batch=DENSE_CPU_BATCH, prompt_len=DENSE_CPU_PROMPT,
+    return dict(arch=cfg.arch_id, n_layers=cfg.n_layers, n_enc_layers=cfg.n_enc_layers,
+                d_model=cfg.d_model, vocab=cfg.vocab_size, compute_dtype=cfg.compute_dtype,
+                batch=prompts["tokens"].shape[0], prompt_len=S, prefix=prefix,
                 decode_steps=CPU_DECODE, prefill_max_abs_err=errs[0],
                 decode_max_abs_err=max(errs[1:]), cache_max_abs_err=cache_err,
                 bound=CARD_CPU_TOL, greedy_tokens_identical=True,
-                routing_calls_identical=len(on["cpu"]),
-                prefill_dropped=dropped(on["cpu"][:CPU_LAYERS]), tokens=gen_h.tolist())
+                routing_calls_identical=len(rh), prefill_dropped=dropped(rh[:n]),
+                tokens=gen_h.tolist())
 
 
 def dense_serving_phase(dev) -> dict:
@@ -2757,7 +2848,8 @@ def dense_serving_phase(dev) -> dict:
     emit("dense_serving_long_prompt", arch=cfg.arch_id, **stats_l,
          attention="blockwise" if LONG_PROMPT > model_cache.FULL_THRESH else "full",
          blockwise_vs_full=blockwise_vs_full(cfg, params, dev))
-    emit("dense_teacher_forced", arch=cfg.arch_id, **dense_teacher_forced(cfg, params, dev))
+    emit("dense_teacher_forced", arch=cfg.arch_id, **teacher_forced(
+        cfg, params, prompts_of(cfg, 1, DENSE_TF_PROMPT + DENSE_TF_DECODE, seed=2), dev))
     del params
 
     # qwen2.5-3b at full width and depth
@@ -2786,7 +2878,9 @@ def dense_serving_phase(dev) -> dict:
     torch.cuda.empty_cache()
 
     for arch in (DENSE_ARCH, MOE_ARCH):
-        emit("dense_card_vs_cpu", **dense_card_vs_cpu(arch, dev))
+        cfg = cut(arch, CPU_LAYERS)
+        emit("dense_card_vs_cpu", **card_vs_cpu(
+            cfg, prompts_of(cfg, DENSE_CPU_BATCH, DENSE_CPU_PROMPT, seed=1), dev))
     torch.cuda.empty_cache()
     return launches
 
@@ -2797,28 +2891,9 @@ def dense_training_phase(dev) -> dict:
     2 layers, and moonshot at full width cut to 2 layers; returns the
     training run's launches (none)."""
     cfg = get_config(DENSE_ARCH)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
-    ops.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = train_main(["--arch", DENSE_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
-                      str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--log-every", "1"])
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
-    launches = counted({})
-    peak = torch.cuda.max_memory_allocated(dev)
-    losses = out["losses"]
-    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"training losses {losses}")
-    steady = statistics.median(out["step_s"][1:])
-    emit("dense_training", arch=DENSE_ARCH, n_layers=cfg.n_layers, d_model=cfg.d_model,
-         d_ff=cfg.d_ff, vocab=cfg.vocab_size, param_dtype=cfg.param_dtype,
-         compute_dtype=cfg.compute_dtype, remat=cfg.remat, optimizer=cfg.optimizer,
-         batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS, losses=losses,
-         step_s=out["step_s"], first_step_s=out["step_s"][0], median_step_s=steady,
-         tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / steady, run_s=run_s,
-         max_memory_allocated=peak, launches=launches)
+    run = train_main_run(cfg, dev)
+    launches = run["launches"]
+    emit("dense_training", **run)
     torch.cuda.empty_cache()
     emit("dense_training_profile", arch=DENSE_ARCH, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
          **profile_train_step(cfg, dev, required=("matmul",)))
@@ -2827,33 +2902,161 @@ def dense_training_phase(dev) -> dict:
 
     # moonshot-v1-16b-a3b at full width, 2 of its 48 layers
     mcfg = get_config(MOE_ARCH).replace(n_layers=MOE_TRAIN_LAYERS)
+    run = train_steps(mcfg, dev, MOE_TRAIN_STEPS)
+    if not all(r["aux"] > 0 for r in run["metrics"]):
+        raise AssertionError(f"moe training metrics {run['metrics']}")
+    emit("moe_training", arch=MOE_ARCH, n_layers=MOE_TRAIN_LAYERS,
+         full_depth=get_config(MOE_ARCH).n_layers, d_model=mcfg.d_model,
+         n_experts=mcfg.n_experts, top_k=mcfg.experts_per_token, **run)
+    return launches
+
+
+def families_serving_phase(dev) -> dict:
+    """Phase 28: the hybrid, vlm and audio families serving (bfloat16
+    compute), decode against teacher-forced forward and the card against
+    the CPU port in float32; returns the launches of its serving runs
+    (none)."""
+    # jamba-1.5-large-398b: one block, 4 of its 16 experts
+    full = get_config(JAMBA)
+    jcfg = full.replace(n_layers=JAMBA_LAYERS, n_experts=JAMBA_EXPERTS)
+    params, info = init_on_card(jcfg, dev)
+    with recorded_routes() as routes:
+        toks, stats = serve_at_full_width(jcfg, params, dev, SERVE_BATCH, SERVE_PROMPT,
+                                          SERVE_NEW)
+    launches = stats["launches"]
+    n, T = moe_calls(jcfg), SERVE_BATCH * SERVE_PROMPT
+    drops = dropped(routes)
+    emit("hybrid_serving", **info, full_depth=full.n_layers, full_experts=full.n_experts,
+         n_experts=jcfg.n_experts, top_k=jcfg.experts_per_token, d_inner=jcfg.d_inner,
+         **stats, capacity_prefill=moe_mod.expert_capacity(jcfg, T),
+         dropped_prefill_by_layer=drops[:n],
+         dropped_share_prefill=sum(drops[:n]) / (n * T * jcfg.experts_per_token),
+         dropped_decode=sum(drops[n:]), first_tokens=toks[:2, :8].tolist())
+    del params
+    # paligemma-3b and whisper-medium at full width and depth
+    for arch, prompt, phase in ((PALIGEMMA, SERVE_PROMPT, "vlm_serving"),
+                                (WHISPER, WHISPER_PROMPT, "audio_serving")):
+        cfg = get_config(arch)
+        params, info = init_on_card(cfg, dev)
+        toks, stats = serve_at_full_width(cfg, params, dev, SERVE_BATCH, prompt, SERVE_NEW)
+        emit(phase, **info, n_vision_tokens=cfg.n_vision_tokens, n_enc_layers=cfg.n_enc_layers,
+             enc_seq=cfg.enc_seq if cfg.is_encoder_decoder else 0, **stats,
+             first_tokens=toks[:2, :8].tolist())
+        del params
+        torch.cuda.empty_cache()
+
+    # float32 on the card: decode against teacher-forced forward, 2 layers
+    for arch in (PALIGEMMA, WHISPER):
+        cfg = cut(arch, FAMILY_CPU_LAYERS)
+        params = model.init_params(SERVE_SEED, cfg, device=dev)
+        prompts = prompts_of(cfg, 1, DENSE_TF_PROMPT + DENSE_TF_DECODE, seed=2)
+        emit("family_teacher_forced", arch=arch, n_layers=cfg.n_layers,
+             n_enc_layers=cfg.n_enc_layers, **teacher_forced(cfg, params, prompts, dev))
+        del params
+    torch.cuda.empty_cache()
+    # the card against the CPU port, float32
+    for cfg, text in ((cut(PALIGEMMA, FAMILY_CPU_LAYERS), FAMILY_CPU_PROMPT),
+                      (cut(WHISPER, FAMILY_CPU_LAYERS), FAMILY_CPU_PROMPT),
+                      (get_smoke_config(JAMBA), JAMBA_CPU_PROMPT)):
+        emit("family_card_vs_cpu", **card_vs_cpu(cfg, prompts_of(cfg, CPU_BATCH, text, seed=1),
+                                                 dev))
+    torch.cuda.empty_cache()
+    return launches
+
+
+def families_training_phase(dev) -> dict:
+    """Phase 29: whisper-medium training at full width and depth through
+    ``launch.train.main`` with a profiled step, paligemma-3b at full width
+    cut to 8 layers, Jamba at smoke widths in bfloat16 under Adafactor, and
+    the card against the CPU port in float32; returns the whisper run's
+    launches (none)."""
+    cfg = get_config(WHISPER)
+    run = train_main_run(cfg, dev, WHISPER_TRAIN_SEQ)
+    launches = run["launches"]
+    emit("audio_training", **run, enc_seq=cfg.enc_seq, n_enc_layers=cfg.n_enc_layers)
+    torch.cuda.empty_cache()
+    emit("audio_training_profile", arch=WHISPER, batch=TRAIN_BATCH, seq=WHISPER_TRAIN_SEQ,
+         **profile_train_step(cfg, dev, required=("matmul",), seq=WHISPER_TRAIN_SEQ))
+    torch.cuda.empty_cache()
+    emit("audio_training_card_vs_cpu", **train_card_vs_cpu(
+        cfg, dev, small=cut(WHISPER, TRAIN_CPU_LAYERS)))
+
+    pcfg = get_config(PALIGEMMA).replace(n_layers=PALIGEMMA_TRAIN_LAYERS)
+    emit("vlm_training", arch=PALIGEMMA, n_layers=pcfg.n_layers,
+         full_depth=get_config(PALIGEMMA).n_layers, d_model=pcfg.d_model,
+         vocab=pcfg.vocab_size, n_vision_tokens=pcfg.n_vision_tokens,
+         **train_steps(pcfg, dev, FAMILY_TRAIN_STEPS))
+
+    smoke = get_smoke_config(JAMBA)
+    jcfg = smoke.replace(param_dtype="bfloat16", compute_dtype="bfloat16")
+    run = train_steps(jcfg, dev, FAMILY_TRAIN_STEPS)
+    if not all(r["aux"] > 0 for r in run["metrics"]):
+        raise AssertionError(f"hybrid training metrics {run['metrics']}")
+    emit("hybrid_training", arch=JAMBA, n_layers=jcfg.n_layers, d_model=jcfg.d_model,
+         param_dtype=jcfg.param_dtype, compute_dtype=jcfg.compute_dtype,
+         optimizer=jcfg.optimizer, chunked_scan=run["seq"] > 128 and run["seq"] % 128 == 0,
+         **run)
+    emit("hybrid_training_card_vs_cpu", **train_card_vs_cpu(
+        jcfg, dev, small=smoke, seq=JAMBA_CPU_PROMPT))
+    return launches
+
+
+def train_main_run(cfg, dev, seq: int = TRAIN_SEQ) -> dict:
+    """``launch.train.main`` on ``cfg.arch_id`` at full width and depth,
+    TRAIN_STEPS steps of TRAIN_BATCH x ``seq`` tokens, launch counts from 0
+    (none may launch): finite losses, step times, tokens/s, memory peak."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    state = build_state(mcfg, device=dev)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = train_main(["--arch", cfg.arch_id, "--steps", str(TRAIN_STEPS), "--batch",
+                      str(TRAIN_BATCH), "--seq", str(seq), "--log-every", "1"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = counted({})
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = out["losses"]
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"training losses {losses}")
+    steady = statistics.median(out["step_s"][1:])
+    return dict(arch=cfg.arch_id, n_layers=cfg.n_layers, d_model=cfg.d_model,
+                d_ff=cfg.d_ff, vocab=cfg.vocab_size, param_dtype=cfg.param_dtype,
+                compute_dtype=cfg.compute_dtype, remat=cfg.remat, optimizer=cfg.optimizer,
+                batch=TRAIN_BATCH, seq=seq, steps=TRAIN_STEPS, losses=losses,
+                step_s=out["step_s"], first_step_s=out["step_s"][0], median_step_s=steady,
+                tokens_per_s=TRAIN_BATCH * seq / steady, run_s=run_s,
+                max_memory_allocated=peak, launches=launches)
+
+
+def train_steps(cfg, dev, steps: int, seq: int = TRAIN_SEQ) -> dict:
+    """``steps`` train steps of ``cfg`` (``build_state``,
+    ``make_train_step``) on TRAIN_BATCH x ``seq`` tokens on the card, launch
+    counts from 0 (none may launch): finite losses, metrics a step, step
+    seconds, parameters, memory peak."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = build_state(cfg, device=dev)
     n_params = sum(t.numel() for t in tree_leaves(state["params"]))
-    step = make_train_step(mcfg)
+    step = make_train_step(cfg)
     ops.reset_launches()
     step_s, rows = [], []
-    for i in range(MOE_TRAIN_STEPS):
-        batch = make_batch(mcfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, step=i)
+    for i in range(steps):
+        batch = make_batch(cfg, TRAIN_BATCH, seq, seed=0, step=i)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, metrics = step(state, batch)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         rows.append({k: float(v) for k, v in metrics.items()})
-    moe_launches = counted({})
+    launches = counted({})
     peak = torch.cuda.max_memory_allocated(dev)
     del state
     torch.cuda.empty_cache()
-    if not all(math.isfinite(r["loss"]) and r["aux"] > 0 for r in rows):
-        raise AssertionError(f"moe training metrics {rows}")
-    emit("moe_training", arch=MOE_ARCH, n_layers=MOE_TRAIN_LAYERS,
-         full_depth=get_config(MOE_ARCH).n_layers, d_model=mcfg.d_model,
-         n_experts=mcfg.n_experts, top_k=mcfg.experts_per_token, params=n_params,
-         batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=MOE_TRAIN_STEPS, metrics=rows,
-         step_s=step_s, max_memory_allocated=peak, launches=moe_launches)
-    return launches
+    if not all(math.isfinite(r["loss"]) for r in rows):
+        raise AssertionError(f"training metrics {rows}")
+    return dict(params=n_params, batch=TRAIN_BATCH, seq=seq, steps=steps, metrics=rows,
+                step_s=step_s, max_memory_allocated=peak, launches=launches)
 
 
 def main() -> int:
@@ -3041,6 +3244,13 @@ def main() -> int:
     paths.append(dense_training_phase(dev))
     emit("dense_phases", serving_s=t1 - t0, training_s=time.perf_counter() - t1)
     DENSE.clear()
+
+    # ---- 28-29. the hybrid, vlm and audio families: serving and training
+    t0 = time.perf_counter()
+    paths.append(families_serving_phase(dev))
+    t1 = time.perf_counter()
+    paths.append(families_training_phase(dev))
+    emit("family_phases", serving_s=t1 - t0, training_s=time.perf_counter() - t1)
     total = {name: sum(p[name] for p in paths) for name in ops.KERNELS}
 
     rows = [dict(name="fail_prob",

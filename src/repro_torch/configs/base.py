@@ -108,6 +108,19 @@ SHAPES: dict[str, ShapeConfig] = {
 }
 
 
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Whether an (arch x shape) cell is runnable, plus the reason if not.
+
+    ``long_500k`` requires sub-quadratic sequence mixing: only SSM/hybrid
+    archs qualify. Full-attention archs are skipped
+    per the assignment. All archs here have a decoder, so decode shapes apply
+    everywhere.
+    """
+    if shape.name == "long_500k" and cfg.family not in ("ssm", "hybrid"):
+        return False, "long_500k skipped: pure full-attention arch (no sub-quadratic path)"
+    return True, ""
+
+
 def smoke_reduce(cfg: ModelConfig) -> ModelConfig:
     """A tiny config of the same family for CPU smoke tests."""
     n_layers = min(cfg.n_layers, cfg.attn_period if cfg.attn_period > 1 else 2)

@@ -6,6 +6,9 @@ with ``--fleet``, the DIMM-fleet timing-table service
     python -m repro_torch.launch.serve --arch qwen2-0.5b --smoke --device cpu
     python -m repro_torch.launch.serve --arch rwkv6-1.6b   # on the card
     python -m repro_torch.launch.serve --arch rwkv6-1.6b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch jamba-1.5-large-398b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch paligemma-3b   # on the card
+    python -m repro_torch.launch.serve --arch whisper-medium --smoke --device cpu
     python -m repro_torch.launch.serve --fleet 256 --chunk 128 [--ckpt-dir D]
     python -m repro_torch.launch.serve --fleet 64 --chunk 32 --device cpu
 
@@ -18,7 +21,6 @@ from __future__ import annotations
 
 import argparse
 
-import numpy as np
 import torch
 
 from repro_torch import obs
@@ -36,29 +38,33 @@ def _sync(dev: torch.device) -> None:
 
 def generate(cfg, params, prompt_batch, *, max_new: int = 16, device=None):
     """Greedy generation for a batch of prompts (``prompt_batch["tokens"]``:
-    (B, S) integers) on ``device`` (default: the CUDA device), where
-    ``params`` must lie; a dense/MoE cache holds S + max_new positions.
-    Returns (generated tokens (B, max_new) int32, stats).  The stats' wall
-    times come from ``obs`` spans, host clocks around work that ends in a
+    (B, S) integers, with vlm's ``"patches"`` or audio's ``"frames"``; each
+    moved to ``device``) on ``device`` (default: the CUDA device), where
+    ``params`` must lie.  An attention cache holds the positions the run
+    writes: S + max_new, and a vlm's patches in front (the reference sizes
+    it S + max_new there too, short of its patches).  Returns (generated
+    tokens (B, max_new) int32, stats).  The stats' wall times come from
+    ``obs`` spans, host clocks around work that ends in a
     ``torch.cuda.synchronize`` on the card (``Span.bind``): compute, not
-    the enqueue."""
+    the enqueue.  Runs without autograd."""
     dev = resolve_device(device)
     if model_mod.param_device(params) != dev:
         raise ValueError(f"params lie on {model_mod.param_device(params)}, "
                          f"generate runs on {dev}")
     # cast once: prefill and decode cast again, a no-op on a cast tree
     params = model_mod.cast_params(params, cfg)
-    tokens = torch.as_tensor(np.asarray(prompt_batch["tokens"]), device=dev)
-    B, S = tokens.shape
-    prefill = steps_mod.make_prefill_step(cfg, max_seq=S + max_new)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in prompt_batch.items()}
+    B, S = batch["tokens"].shape
+    prefix = batch["patches"].shape[1] if cfg.family == "vlm" else 0
+    prefill = steps_mod.make_prefill_step(cfg, max_seq=prefix + S + max_new)
     decode = steps_mod.make_decode_step(cfg)
     _sync(dev)
-    with obs.span("serve.prefill", batch=B, prompt_len=S) as sp:
-        logits, cache = prefill(params, {"tokens": tokens})
+    with torch.no_grad(), obs.span("serve.prefill", batch=B, prompt_len=S) as sp:
+        logits, cache = prefill(params, batch)
         tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         sp.bind(tok)
     t_prefill = sp.duration_s
-    with obs.span("serve.decode", batch=B, tokens=max_new) as sp:
+    with torch.no_grad(), obs.span("serve.decode", batch=B, tokens=max_new) as sp:
         out = [tok]
         for _ in range(max_new - 1):
             tok, cache = decode(params, cache, {"tokens": tok[:, None]})

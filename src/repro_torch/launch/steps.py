@@ -42,8 +42,9 @@ def make_train_step(cfg: ModelConfig, *, base_lr: float = 3e-4, warmup: int = 10
 
 
 def make_prefill_step(cfg: ModelConfig, max_seq: int | None = None):
-    """``prefill_step(params, batch) -> (logits, cache)``; a dense/MoE cache
-    holds ``max_seq`` positions (default: the prompt's)."""
+    """``prefill_step(params, batch) -> (logits, cache)``; an attention cache
+    holds ``max_seq`` positions (default: the prompt's, a vlm's patches
+    included)."""
     def prefill_step(params, batch):
         return cache_mod.prefill(cfg, params, batch, max_seq=max_seq)
     return prefill_step

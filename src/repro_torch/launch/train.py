@@ -4,6 +4,9 @@
     python -m repro_torch.launch.train --arch qwen2-0.5b --smoke --device cpu
     python -m repro_torch.launch.train --arch rwkv6-1.6b      # on the card
     python -m repro_torch.launch.train --arch rwkv6-1.6b --smoke --device cpu
+    python -m repro_torch.launch.train --arch jamba-1.5-large-398b --smoke --device cpu
+    python -m repro_torch.launch.train --arch paligemma-3b --smoke --device cpu
+    python -m repro_torch.launch.train --arch whisper-medium --batch 8 --seq 448   # on the card
 
 The counterpart of ``repro.launch.train``: config -> parameters (random,
 from a seed) -> train step (``launch/steps.make_train_step``: loss, autograd,

@@ -1,3 +1,4 @@
-"""Models of the port: ``layers`` (norms, init), ``rwkv6`` (the RWKV-6
-block), ``model`` (parameters and the forward pass) and ``cache`` (prefill
-and decode).  Only the ssm family (rwkv6) is ported so far."""
+"""Models of the port: ``layers`` (norms, init, position embeddings),
+``attention``, ``moe``, ``mamba`` (with ``scan_utils``), ``rwkv6``, ``model``
+(parameters and the forward pass of every family) and ``cache`` (prefill
+and decode)."""

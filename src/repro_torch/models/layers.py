@@ -1,12 +1,14 @@
-"""Shared model building blocks: dtypes, init, norms, rotary embeddings, the
-MLP and the loss (the counterpart of ``repro.models.layers``; its
-``sinusoidal_positions`` waits for the audio family).
+"""Shared model building blocks: dtypes, init, norms, rotary and sinusoidal
+position embeddings, the MLP and the loss (the counterpart of
+``repro.models.layers``).
 
 The reference's ``stacked`` (a ``vmap`` of a per-layer init) is the ``lead=``
 argument here: every init draws its leaves with the leading axes ``lead``
 (``(n_layers,)`` for a layer stack) in one call.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -24,11 +26,13 @@ def dtype_of(name: str) -> torch.dtype:
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, scale: float = 1.0,
                *, lead: tuple = ()) -> torch.Tensor:
     """(*lead, d_in, d_out) normal weights of std ``scale / sqrt(d_in)``,
-    drawn in float32 on ``gen``'s device, then cast to ``dtype``."""
+    drawn in float32 on ``gen``'s device, then cast to ``dtype``.  Scaled in
+    place: a large leaf (one Jamba block's experts, 3.2B elements) holds one
+    float32 temporary beside its cast, not two."""
     std = scale / (d_in ** 0.5)
     w = torch.randn((*lead, d_in, d_out), generator=gen, device=gen.device,
                     dtype=torch.float32)
-    return (w * std).to(dtype)
+    return w.mul_(std).to(dtype)
 
 
 def mm(a, b):
@@ -87,6 +91,21 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=16)
+def sinusoidal_positions(seq: int, d_model: int, device=None):
+    """Whisper-style absolute sinusoidal embeddings, (seq, d_model) float32.
+    Built with torch on the CPU in the reference's operation order, then
+    moved to ``device``: angles reach ``seq`` rad, where one ulp of the
+    power moves ``sin`` / ``cos`` by ~1e-4, so the card and the CPU share
+    the CPU's bits.  Cached per (seq, d_model, device), so a decode step
+    neither rebuilds the table nor waits on its copy; callers must not
+    write into the returned tensor."""
+    pos = torch.arange(seq, dtype=torch.float32)[:, None]
+    i = torch.arange(d_model // 2, dtype=torch.float32)[None, :]
+    ang = pos / (10000.0 ** (2 * i / d_model))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(device)
 
 
 # ---------------------------------------------------------------- MLP

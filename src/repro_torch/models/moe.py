@@ -25,7 +25,8 @@ from repro_torch.models.layers import apply_norm, dense_init, norm_params
 
 def moe_params(gen: torch.Generator, cfg: ModelConfig, dtype, *, lead: tuple = ()):
     """One MoE sublayer's parameters, each leaf with the leading axes
-    ``lead``; the router ``wr`` is drawn and kept in float32."""
+    ``lead``; the router ``wr`` is drawn and kept in float32.  The experts
+    are scaled in place (one float32 temporary a leaf)."""
     D, F_, E = cfg.d_model, cfg.d_ff, cfg.n_experts
     dev = gen.device
     out_scale = 1.0 / max(cfg.n_layers, 1) ** 0.5
@@ -33,9 +34,10 @@ def moe_params(gen: torch.Generator, cfg: ModelConfig, dtype, *, lead: tuple = (
     return {
         "ln": norm_params(cfg, dtype, lead=lead, device=dev),
         "wr": dense_init(gen, D, E, torch.float32, lead=lead),  # router kept fp32
-        "wei": (torch.randn((*lead, E, D, F_), **f32) / D ** 0.5).to(dtype),
-        "weg": (torch.randn((*lead, E, D, F_), **f32) / D ** 0.5).to(dtype),
-        "weo": (torch.randn((*lead, E, F_, D), **f32) * out_scale / F_ ** 0.5).to(dtype),
+        "wei": torch.randn((*lead, E, D, F_), **f32).div_(D ** 0.5).to(dtype),
+        "weg": torch.randn((*lead, E, D, F_), **f32).div_(D ** 0.5).to(dtype),
+        "weo": torch.randn((*lead, E, F_, D), **f32).mul_(out_scale).div_(F_ ** 0.5)
+        .to(dtype),
     }
 
 

@@ -128,8 +128,7 @@ def test_config_equals_reference_field_by_field(arch):
 
 def test_registry_lists_the_ported_archs_in_the_reference_order():
     from repro.configs.registry import ARCH_IDS as REF_IDS
-    assert ARCH_IDS == tuple(a for a in REF_IDS if a not in
-                             ("jamba-1.5-large-398b", "paligemma-3b", "whisper-medium"))
+    assert ARCH_IDS == REF_IDS
     assert set(ARCHS) < set(ARCH_IDS)
 
 

@@ -57,7 +57,6 @@ from repro_torch.models import model as port_model
 from repro_torch.models import rwkv6 as port_rwkv6
 
 ARCH = "rwkv6-1.6b"
-UNPORTED = ("jamba-1.5-large-398b", "paligemma-3b", "whisper-medium")
 BLOCK_TOL = 1e-5
 LOGIT_TOL = 1e-4
 FORWARD_TOL = 2e-4
@@ -90,8 +89,8 @@ def _close_bf16(got, want):
 # ------------------------------------------------------------ configs, data
 
 def test_config_equals_reference_field_by_field():
-    # the reference's archs but the three whose families are still to port
-    assert ARCH_IDS == tuple(a for a in REF_ARCH_IDS if a not in UNPORTED)
+    # the reference's ten archs, in its order
+    assert ARCH_IDS == REF_ARCH_IDS
     ref = ref_get_config(ARCH)
     assert dataclasses.asdict(get_config(ARCH)) == dataclasses.asdict(ref)
     assert dataclasses.asdict(get_smoke_config(ARCH)) == \
@@ -105,8 +104,14 @@ def test_config_equals_reference_field_by_field():
 
 @pytest.mark.parametrize("arch", ["paligemma-3b", "jamba-1.5-large-398b", "nope"])
 def test_registry_lists_only_ported_archs(arch):
-    with pytest.raises(KeyError, match="queue 1 #2"):
-        get_config(arch)
+    """Every arch of the reference is ported; an unknown one raises."""
+    if arch == "nope":
+        with pytest.raises(KeyError, match="unknown arch 'nope'"):
+            get_config(arch)
+        return
+    assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(ref_get_config(arch))
+    assert dataclasses.asdict(get_smoke_config(arch)) == \
+        dataclasses.asdict(ref_base.smoke_reduce(ref_get_config(arch)))
 
 
 @pytest.mark.parametrize("batch,seq,seed,step,shard,n_shards",
@@ -186,13 +191,13 @@ def test_cast_params_keeps_fp32_leaves_and_is_idempotent(smoke):
 
 
 def test_other_families_raise(smoke):
-    for family in ("hybrid", "vlm", "audio"):
-        cfg = smoke[0].replace(family=family)
-        for call in (lambda: port_model.init_params(0, cfg, device="cpu"),
-                     lambda: port_cache.init_cache(cfg, 1, device="cpu"),
-                     lambda: port_model.forward(cfg, smoke[2], {"tokens": np.zeros((1, 2))})):
-            with pytest.raises(ValueError, match="not ported"):
-                call()
+    """Every family of the reference is ported; one it does not know raises."""
+    cfg = smoke[0].replace(family="nope")
+    for call in (lambda: port_model.init_params(0, cfg, device="cpu"),
+                 lambda: port_cache.init_cache(cfg, 1, device="cpu"),
+                 lambda: port_model.forward(cfg, smoke[2], {"tokens": np.zeros((1, 2))})):
+        with pytest.raises(ValueError, match="unknown family 'nope'"):
+            call()
 
 
 # ------------------------------------------------------------ the block
