@@ -251,12 +251,35 @@ of 512x512 mats, 16 mats and 8 subarrays — it
      512 tokens (the scan's chunked path under the block's remat): finite
      losses, a nonzero aux loss; the card against the CPU port in float32
      (phase 24's bounds) for whisper cut to 2 + 2 layers at 2 x 128 and
-     Jamba at smoke widths at 2 x 256.
+     Jamba at smoke widths at 2 x 256;
+ 30. the training mesh over NCCL: a one-rank NCCL process group (a
+     ``HashStore``, no port) and ``make_host_mesh()`` on it (1 x 1, its
+     groups real: every collective of the sharded step runs through NCCL);
+     ``qwen2-0.5b`` at full width and depth, 3 sharded steps of 8 x 512
+     (``make_sharded_train_step``) against 3 unsharded steps from the same
+     seed: metrics and parameters within rel 1e-5 (bit-identical reported);
+     ``moonshot-v1-16b-a3b`` at full width cut to 1 of 48 layers, the ep and
+     a2a paths' float32 logits on 4 x 512 tokens against the local path's
+     (rtol = atol = 2e-5, ``tests/test_sharding_moe.py``'s bounds), routing
+     identical, then 2 sharded steps of each in bfloat16 compute (finite, a
+     nonzero aux loss), each of these runs counted from 0 (no kernel may
+     launch); ``rwkv6-1.6b`` at full width cut to 4 of 24 layers,
+     2 sharded steps of 8 x 512 (exactly 16 ``wkv6`` and 8 ``wkv6_bwd``
+     launches, counted into the ``kernels`` line), losses equal to 2
+     unsharded steps'; ``compress_grads`` over qwen's gradients on the card
+     against the CPU (q, scales and residuals identical); a sharded save of
+     a moonshot smoke state trained one step on the mesh, restored with
+     ``shardings=`` from its shards, bit for bit, the codec's launches
+     counted (``secded_encode`` and ``diva_shuffle`` a leaf to save,
+     ``diva_shuffle`` and ``secded_syndrome`` a leaf to restore, into the
+     ``kernels`` line); each step's seconds sharded and unsharded,
+     the memory peaks and the bytes of the gathered copies; the group is
+     destroyed at the end.
 
 Every phase prints one JSON line.  The launch counts are set to 0 just before
 each path (phases 3-4, 6, 7, 8, 9, 12, 13, 14, 16, 17, 19, 20 (ingest; tick
 and checkpoint), 21, each scan of 22, 24, each run of 25, and each serving
-and training run of 26-29) and read just after it;
+and training run of 26-29, and 30's rwkv6 sharded run) and read just after it;
 every kernel of a path must have launched (26-29: none may), and the
 ``kernels`` line sums the paths' counts.
 Any failed check raises; the last line is ``{"ok": true, "device": {...}}``
@@ -282,6 +305,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs.registry import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core.geometry import FULL, TINY  # noqa: E402
 from repro_torch.core.latency import (  # noqa: E402
@@ -336,7 +360,10 @@ from repro_torch.kernels.wkv6 import (  # noqa: E402
     wkv6, wkv6_bwd, wkv6_bwd_ref, wkv6_bwd_resources, wkv6_ref)
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.launch.serve import main as serve_main  # noqa: E402
-from repro_torch.launch.steps import make_train_step  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.launch.steps import (make_sharded_train_step, make_train_step,  # noqa: E402
+                                      state_shardings)
+from repro_torch.runtime.compression import compress_grads, init_compression_state  # noqa: E402
 from repro_torch.launch.train import build_state  # noqa: E402
 from repro_torch.launch.train import main as train_main  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
@@ -349,7 +376,8 @@ from repro_torch.optim import global_norm  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten  # noqa: E402
 from repro_torch.memsys.codec import (  # noqa: E402
     corrupt_run, interleave_permutation, protect_blob, recover_blob)
-from repro_torch.sharding import DimmMesh, dimm_mesh  # noqa: E402
+from repro_torch.sharding import (DimmMesh, dimm_mesh, gather_tree, shard_tree,  # noqa: E402
+                                  use_mesh)
 from repro_torch.serve import (  # noqa: E402
     PATH_CONVENTIONAL, PATH_DISCOVER, PATH_HIT, FleetConfig, FleetServer,
     take_batch)
@@ -551,6 +579,14 @@ PALIGEMMA_TRAIN_LAYERS, FAMILY_TRAIN_STEPS = 8, 3
 # or frames; Jamba at smoke widths with 2 x 256 tokens, past the scan's
 # 128-step chunk (training the same at 2 x 256)
 FAMILY_CPU_LAYERS, FAMILY_CPU_PROMPT, JAMBA_CPU_PROMPT = 2, 64, 256
+# the training mesh (phase 30) at world size 1 over NCCL: qwen2-0.5b whole
+# (3 steps, sharded against unsharded), moonshot at full width cut to 1 of 48
+# layers (1.25B parameters: AdamW's ~29.5 bytes a parameter plus the
+# gathered copy of the parameters, ~42 GB), 4 x 512 tokens; rwkv6-1.6b at
+# full width cut to 4 of 24 layers, 2 steps of 8 x 512
+MESH_STEPS, MESH_MOE_LAYERS, MESH_MOE_BATCH, MESH_MOE_STEPS = 3, 1, 4, 2
+MESH_RWKV_LAYERS, MESH_RWKV_STEPS = 4, 2
+MESH_RTOL, MOE_PATH_TOL = 1e-5, 2e-5
 # phases 3-17 keep the dense results that phases 22 and 25 hold the scans and
 # the sharded runs to
 DENSE: dict = {}
@@ -3001,6 +3037,250 @@ def families_training_phase(dev) -> dict:
     return launches
 
 
+def _step_run(step, state, cfg, batch: int, seq: int, steps: int, dev):
+    """``steps`` steps of ``step`` on make_batch(seed 0) batches: (state,
+    metrics a step, seconds a step)."""
+    rows, secs = [], []
+    for i in range(steps):
+        b = make_batch(cfg, batch, seq, seed=0, step=i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, b)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        rows.append({k: float(v) for k, v in metrics.items()})
+    if not all(math.isfinite(r["loss"]) and math.isfinite(r["gnorm"]) for r in rows):
+        raise AssertionError(f"training metrics {rows}")
+    return state, rows, secs
+
+
+def sharded_vs_unsharded(cfg, dev, mesh, batch: int, steps: int, seq: int = TRAIN_SEQ,
+                         keep_grads: bool = False) -> tuple[dict, dict | None]:
+    """``steps`` unsharded steps (``make_train_step``) and as many sharded
+    ones on ``mesh`` from the same seed: metrics within MESH_RTOL, the
+    parameters after the last step within MESH_RTOL of the largest |value|
+    of each leaf; the sharded run's launches are counted from 0.  Returns
+    the record and, with ``keep_grads``, the gradients of the first batch
+    (unsharded)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = build_state(cfg, device=dev)
+    grads = None
+    if keep_grads:
+        params = tree_map(lambda t: t.detach().requires_grad_(), state["params"])
+        with torch.enable_grad():
+            loss, _ = model.loss_fn(cfg, params, make_batch(cfg, batch, seq, seed=0, step=0))
+            grads = tree_unflatten(params, torch.autograd.grad(loss, tree_leaves(params)))
+        del params, loss
+    state, plain_rows, plain_s = _step_run(make_train_step(cfg), state, cfg, batch, seq,
+                                           steps, dev)
+    want = tree_map(lambda t: t.detach().clone(), state["params"])
+    plain_peak = torch.cuda.max_memory_allocated(dev)
+    del state
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    full = build_state(cfg, device=dev)
+    sh = state_shardings(full, mesh)
+    state = shard_tree(full, sh)
+    del full
+    gathered = sum(t.numel() * t.element_size() for t in tree_leaves(state["params"]))
+    step = make_sharded_train_step(cfg, mesh, sh)
+    ops.reset_launches()
+    state, rows, secs = _step_run(step, state, cfg, batch, seq, steps, dev)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    got = gather_tree(state["params"], sh["params"])
+    worst = {}
+    for r, w in zip(rows, plain_rows):
+        for k in w:
+            worst[k] = max(worst.get(k, 0.0), abs(r[k] - w[k]) / max(abs(w[k]), 1e-30))
+    param_rel = max(float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30))
+                    for a, b in zip(tree_leaves(got), tree_leaves(want)))
+    identical = rows == plain_rows and all(torch.equal(a, b) for a, b in
+                                           zip(tree_leaves(got), tree_leaves(want)))
+    kept = sum(t.numel() * t.element_size() for t in tree_leaves(want))
+    del state, got, want
+    torch.cuda.empty_cache()
+    if max(worst.values()) > MESH_RTOL or param_rel > MESH_RTOL:
+        raise AssertionError(f"{cfg.arch_id}: sharded against unsharded steps: metrics "
+                             f"{worst}, parameters {param_rel}")
+    return dict(arch=cfg.arch_id, n_layers=cfg.n_layers, d_model=cfg.d_model,
+                vocab=cfg.vocab_size, compute_dtype=cfg.compute_dtype, batch=batch, seq=seq,
+                steps=steps, metrics=rows, unsharded_metrics=plain_rows,
+                max_rel_metric=worst, max_rel_param=param_rel, bit_identical=identical,
+                step_s=secs, unsharded_step_s=plain_s, max_memory_allocated=peak,
+                unsharded_max_memory_allocated=plain_peak, gathered_copy_bytes=gathered,
+                kept_unsharded_params_bytes=kept,
+                launches=launches), grads
+
+
+def moe_paths_phase(dev, mesh) -> dict:
+    """moonshot at full width, MESH_MOE_LAYERS layer(s): the ep and a2a
+    paths' float32 logits against the local path's, routing identical; then
+    MESH_MOE_STEPS sharded steps of each in bfloat16 compute."""
+    import os
+    full = get_config(MOE_ARCH)
+    cfg = full.replace(n_layers=MESH_MOE_LAYERS)
+    f32 = cfg.replace(compute_dtype="float32")
+    torch.cuda.empty_cache()
+    params = model.init_params(SERVE_SEED, f32, device=dev)
+    tokens = make_batch(cfg, MESH_MOE_BATCH, TRAIN_SEQ, seed=3, step=0)
+    tokens = {"tokens": tokens["tokens"][:, :-1]}
+    out = {}
+    with torch.no_grad():
+        ops.reset_launches()
+        with recorded_routes() as routes:
+            want, _ = model.forward(f32, params, tokens)
+        counted({})                                      # the MoE path runs no kernel
+        want_routes = [(e.cpu(), p.cpu()) for _, e, p, _ in routes]
+        for path in ("ep", "a2a"):
+            os.environ["REPRO_MOE_A2A"] = "1" if path == "a2a" else "0"
+            ops.reset_launches()
+            with use_mesh(mesh), recorded_routes() as routes:
+                got, _ = model.forward(f32, params, tokens)
+            counted({})
+            same_routes = [(e.cpu(), p.cpu()) for _, e, p, _ in routes]
+            ok = len(same_routes) == len(want_routes) and all(
+                torch.equal(a, c) and torch.equal(b, d)
+                for (a, b), (c, d) in zip(same_routes, want_routes))
+            err = float((got - want).abs().max())
+            if not ok or not torch.allclose(got, want, rtol=MOE_PATH_TOL, atol=MOE_PATH_TOL):
+                raise AssertionError(f"moe {path} at 1x1: routing same {ok}, logits "
+                                     f"max |diff| {err}")
+            out[path] = dict(max_abs_logit_err=err, logits_equal=torch.equal(got, want),
+                             routing_calls=len(same_routes))
+            del got
+    del params, want
+    torch.cuda.empty_cache()
+    for path in ("ep", "a2a"):
+        os.environ["REPRO_MOE_A2A"] = "1" if path == "a2a" else "0"
+        torch.cuda.reset_peak_memory_stats(dev)
+        full_state = build_state(cfg, device=dev)
+        sh = state_shardings(full_state, mesh)
+        state = shard_tree(full_state, sh)
+        del full_state
+        calls = {"ep": 0, "a2a": 0}
+        plain = {k: getattr(moe_mod, f"_moe_ffn_{k}") for k in calls}
+
+        def spy(name):
+            def fn(*a):
+                calls[name] += 1
+                return plain[name](*a)
+            return fn
+
+        for k in calls:
+            setattr(moe_mod, f"_moe_ffn_{k}", spy(k))
+        ops.reset_launches()
+        try:
+            state, rows, secs = _step_run(make_sharded_train_step(cfg, mesh, sh), state, cfg,
+                                          MESH_MOE_BATCH, TRAIN_SEQ, MESH_MOE_STEPS, dev)
+        finally:
+            for k in calls:
+                setattr(moe_mod, f"_moe_ffn_{k}", plain[k])
+        counted({})
+        if not all(r["aux"] > 0 for r in rows) or calls[path] == 0 or \
+                calls["a2a" if path == "ep" else "ep"]:
+            raise AssertionError(f"moe {path} steps: {rows}, path calls {calls}")
+        out[path].update(metrics=rows, step_s=secs, path_calls=calls[path],
+                         max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+        del state
+        torch.cuda.empty_cache()
+    os.environ.pop("REPRO_MOE_A2A", None)
+    return dict(arch=MOE_ARCH, n_layers=cfg.n_layers, full_depth=full.n_layers,
+                d_model=cfg.d_model, n_experts=cfg.n_experts, top_k=cfg.experts_per_token,
+                batch=MESH_MOE_BATCH, seq=TRAIN_SEQ, tol=MOE_PATH_TOL, **out)
+
+
+def mesh_training_phase(dev) -> dict:
+    """Phase 30: the training mesh over a one-rank NCCL group; returns the
+    launches of the rwkv6 sharded run and of the sharded checkpoint's
+    codec."""
+    import torch.distributed as dist
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=dev)
+    try:
+        mesh = make_host_mesh(device=dev)
+        if len(mesh.groups) != 2 or dist.get_backend(mesh.groups[0]) != "nccl":
+            raise AssertionError(f"the host mesh has no NCCL groups: {mesh}")
+        t0 = time.perf_counter()
+        qwen, grads = sharded_vs_unsharded(get_config(DENSE_ARCH), dev, mesh, TRAIN_BATCH,
+                                           MESH_STEPS, keep_grads=True)
+        counted({})
+        # int8 compression of qwen's gradients: the card against the CPU
+        t1 = time.perf_counter()
+        q, scales, err = compress_grads(grads, init_compression_state(grads))
+        cpu = tree_map(lambda g: g.cpu(), grads)
+        cq, cs, ce = compress_grads(cpu, init_compression_state(cpu))
+        same_q = all(torch.equal(a.cpu(), b) for a, b in zip(tree_leaves(q), tree_leaves(cq)))
+        same_s = all(torch.equal(a.cpu(), b) for a, b in
+                     zip(tree_leaves(scales), tree_leaves(cs)))
+        same_e = all(torch.equal(a.cpu(), b) for a, b in zip(tree_leaves(err), tree_leaves(ce)))
+        n_grad = sum(g.numel() for g in tree_leaves(grads))
+        counted({})                                      # plain torch: no kernel
+        del grads, q, scales, err, cpu, cq, cs, ce
+        if not (same_q and same_s):
+            raise AssertionError(f"compress_grads: q identical {same_q}, scales {same_s}")
+        compression = dict(elements=n_grad, q_identical=same_q, scales_identical=same_s,
+                           residuals_identical=same_e, seconds=time.perf_counter() - t1)
+        torch.cuda.empty_cache()
+        t2 = time.perf_counter()
+        moe = moe_paths_phase(dev, mesh)
+        t3 = time.perf_counter()
+        rcfg = get_config(ARCH).replace(n_layers=MESH_RWKV_LAYERS)
+        rwkv, _ = sharded_vs_unsharded(rcfg, dev, mesh, TRAIN_BATCH, MESH_RWKV_STEPS)
+        want = {"wkv6": 2 * MESH_RWKV_LAYERS * MESH_RWKV_STEPS,
+                "wkv6_bwd": MESH_RWKV_LAYERS * MESH_RWKV_STEPS}
+        launches = rwkv["launches"]
+        if launches != {name: want.get(name, 0) for name in launches}:
+            raise AssertionError(f"rwkv6 sharded steps launched {launches}, expected {want}")
+        if [r["loss"] for r in rwkv["metrics"]] != [r["loss"] for r in rwkv["unsharded_metrics"]]:
+            raise AssertionError(f"rwkv6 sharded losses {rwkv['metrics']} differ from "
+                                 f"{rwkv['unsharded_metrics']}")
+        t4 = time.perf_counter()
+        ckpt = mesh_checkpoint(dev, mesh)
+        launches = {name: launches.get(name, 0) + ckpt["launches"].get(name, 0)
+                    for name in launches}
+        emit("mesh_training", nvidia_smi=subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.strip(),
+            backend="nccl", world_size=dist.get_world_size(), mesh=mesh.shape,
+            qwen=qwen, compression=compression, moe=moe, rwkv6=rwkv, checkpoint=ckpt,
+            seconds=dict(qwen=t1 - t0, compression=t2 - t1, moe=t3 - t2, rwkv6=t4 - t3,
+                         checkpoint=time.perf_counter() - t4))
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mesh_checkpoint(dev, mesh) -> dict:
+    """A moonshot smoke state trained one sharded step, saved from the mesh
+    (the codec on the card) and restored with ``shardings=`` from the
+    shards as the example: bit for bit, the codec's launches counted (one
+    encode and one shuffle a leaf to save, one shuffle and one syndrome a
+    leaf to restore)."""
+    cfg = get_smoke_config(MOE_ARCH)
+    full = build_state(cfg, device=dev)
+    sh = state_shardings(full, mesh)
+    ops.reset_launches()
+    state, _, _ = _step_run(make_sharded_train_step(cfg, mesh, sh), shard_tree(full, sh),
+                            cfg, 2, 64, 1, dev)
+    counted({})
+    del full
+    leaves = sum(1 for t in tree_leaves(state) if t.numel())
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d)
+        mgr.save(1, state, shardings=sh)
+        back, info = mgr.restore(state, shardings=sh)
+    launches = counted({"secded_encode": leaves, "diva_shuffle": 2 * leaves,
+                        "secded_syndrome": leaves})
+    same = all(a.dtype == b.dtype and torch.equal(a, b)
+               for a, b in zip(tree_leaves(back), tree_leaves(state)))
+    if not same or info != {"step": 1, "corrected_codewords": 0}:
+        raise AssertionError(f"sharded checkpoint: identical {same}, {info}")
+    return dict(arch=cfg.arch_id, leaves=leaves, identical=same, launches=launches, **info)
+
+
 def train_main_run(cfg, dev, seq: int = TRAIN_SEQ) -> dict:
     """``launch.train.main`` on ``cfg.arch_id`` at full width and depth,
     TRAIN_STEPS steps of TRAIN_BATCH x ``seq`` tokens, launch counts from 0
@@ -3251,6 +3531,11 @@ def main() -> int:
     t1 = time.perf_counter()
     paths.append(families_training_phase(dev))
     emit("family_phases", serving_s=t1 - t0, training_s=time.perf_counter() - t1)
+
+    # ---- 30. the training mesh over NCCL
+    t0 = time.perf_counter()
+    paths.append(mesh_training_phase(dev))
+    emit("mesh_phase", seconds=time.perf_counter() - t0)
     total = {name: sum(p[name] for p in paths) for name in ops.KERNELS}
 
     rows = [dict(name="fail_prob",

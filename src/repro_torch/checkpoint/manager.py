@@ -16,9 +16,17 @@ checkpoints:
     <dir>/step_<k>/meta.json + leaf_<i>.npy (+ leaf_<i>.ecc.npy: packed lanes)
 
 ``meta.json`` carries a ``treedef`` string so the reference's reader finds
-every key it expects; ``restore`` here ignores it.  The reference's
-``shardings=`` (re-sharding onto another mesh) is left out (ROADMAP queue 1
-#3).
+every key it expects; ``restore`` here ignores it.
+
+On a mesh (``shardings=``: a tree of ``sharding.NamedSharding`` matching
+the state), ``save`` takes each rank's shards and gathers one leaf at a
+time; rank (0, ..., 0) of the mesh copies it to the host and writes it
+before the next is gathered, so all of them write the same layout.
+``restore`` reads one whole leaf at a time on the host, keeps this rank's
+shard of it and moves only that shard to the mesh's device — a checkpoint
+saved on one mesh lands on another (elastic restore).  The device then
+holds the shards and at most one whole leaf (with the codec's buffers for
+it).
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from repro_torch import sharding as shd
 from repro_torch.device import resolve_device
 from repro_torch.memsys import codec
 from repro_torch.obs import REGISTRY as _OBS_REGISTRY
@@ -114,15 +123,44 @@ class CheckpointManager:
 
     # ----------------------------------------------------------------- save
 
-    def save(self, step: int, state: dict, *, device=None) -> Path:
+    def save(self, step: int, state: dict, *, device=None, shardings=None) -> Path:
         """Write ``state`` as step ``step``; the codec runs on ``device``
-        (default: the CUDA device)."""
+        (default: the CUDA device, or the mesh's device with
+        ``shardings``).  With ``shardings`` ``state`` holds this rank's
+        shards: every rank of the mesh calls ``save``, the leaves are
+        gathered one at a time and the mesh's first rank writes each before
+        the next, and every rank returns once the step is published."""
+        if shardings is None:
+            return self._timed_save(step, state, device)
+        shs = tree_leaves(shardings)
+        mesh = shs[0].mesh
+
+        def whole(i, leaf):   # a collective: every rank gathers leaf i in turn
+            with torch.no_grad():
+                return shs[i].gather(leaf)
+
+        path = self.dir / f"step_{step}"
+        # every rank has made its manager (whose start sweeps .tmp_step_*
+        # dirs) before the writer makes its own
+        _barrier(mesh)
+        if not any(mesh.coords):
+            path = self._timed_save(step, state, mesh.device if device is None else device,
+                                    whole)
+        else:
+            for i, leaf in enumerate(_flatten(state)):
+                whole(i, leaf)
+        _barrier(mesh)
+        return path
+
+    def _timed_save(self, step, state, device, whole=None) -> Path:
         with _span("checkpoint.save", _M_SAVE_S, step=step):
-            out = self._save(step, state, device)
+            out = self._save(step, state, device, whole)
         _M_SAVES.inc()
         return out
 
-    def _save(self, step: int, state: dict, device) -> Path:
+    def _save(self, step: int, state: dict, device, whole=None) -> Path:
+        """``whole(i, leaf)``, where given, makes leaf ``i`` whole before it
+        goes to the host."""
         flat = _flatten(state)
         dev = resolve_device(device) if self.protect else None
         tmp = self.dir / f".tmp_step_{step}"
@@ -132,7 +170,7 @@ class CheckpointManager:
         meta = {"step": step, "treedef": f"PyTreeDef({_treedef(state)})",
                 "leaves": []}
         for i, leaf in enumerate(flat):
-            arr, dtype = _host(leaf)
+            arr, dtype = _host(leaf if whole is None else whole(i, leaf))
             meta["leaves"].append({"shape": list(arr.shape), "dtype": dtype,
                                    "nbytes": int(arr.nbytes)})
             np.save(tmp / f"leaf_{i}.npy", arr, allow_pickle=False)
@@ -169,23 +207,32 @@ class CheckpointManager:
     # -------------------------------------------------------------- restore
 
     def restore(self, example_state: dict, step: int | None = None, *,
-                device=None, verify: bool = True):
+                device=None, shardings=None, verify: bool = True):
         """Restore into the structure, shapes and dtypes of ``example_state``
         (step: the newest by default).  The codec runs on ``device``
         (default: the CUDA device); a leaf whose example is a tensor comes
-        back as a tensor on ``device``, any other as numpy.  Returns
-        ``(state, {"step", "corrected_codewords"})``."""
+        back as a tensor on ``device``, any other as numpy.  With
+        ``shardings`` (a tree of ``NamedSharding`` over the whole leaves'
+        specs) each leaf comes back as a tensor, this rank's shard on the
+        mesh's device (only the shard is moved there), whatever mesh saved
+        it; ``example_state`` may then hold the whole leaves or this rank's
+        shards.  Returns ``(state, {"step",
+        "corrected_codewords"})``."""
+        shs = None if shardings is None else tree_leaves(shardings)
+        if shs is not None and device is None:
+            device = shs[0].mesh.device
         with _span("checkpoint.restore", _M_RESTORE_S) as sp:
-            state, info = self._restore(example_state, step, device, verify)
+            state, info = self._restore(example_state, step, device, verify, shs)
             sp.set(step=info["step"])
         _M_RESTORES.inc()
         _M_CORRECTED.inc(info["corrected_codewords"])
         return state, info
 
     def _restore(self, example_state: dict, step: int | None, device,
-                 verify: bool):
+                 verify: bool, shs=None):
+        """``shs``: the leaves' shardings in flattened order, or ``None``."""
         flat = _flatten(example_state)
-        wants_tensors = any(isinstance(x, torch.Tensor) for x in flat)
+        wants_tensors = shs is not None or any(isinstance(x, torch.Tensor) for x in flat)
         dev = resolve_device(device) \
             if wants_tensors or (verify and self.protect) else None
         steps = self.steps()
@@ -214,11 +261,25 @@ class CheckpointManager:
                 arr = np.frombuffer(raw, dtype=dtype).reshape(info["shape"]).copy()
             if info["dtype"] == _BF16:
                 t = _words_to_bf16(arr)
-                arr = t if isinstance(leaf, torch.Tensor) else t.float().numpy()
-            if isinstance(leaf, torch.Tensor):
+                arr = t if isinstance(leaf, torch.Tensor) or shs is not None \
+                    else t.float().numpy()
+            if shs is not None:
+                # the whole leaf stays on the host: only this rank's shard moves
+                t = torch.as_tensor(arr).reshape(info["shape"])
+                dtype = leaf.dtype if isinstance(leaf, torch.Tensor) \
+                    else torch.from_numpy(np.empty(0, np.asarray(leaf).dtype)).dtype
+                out.append(shs[i].shard(t).to(dev, dtype, copy=True))
+            elif isinstance(leaf, torch.Tensor):
                 out.append(torch.as_tensor(arr).to(dev, leaf.dtype).reshape(leaf.shape))
             else:
                 ex = np.asarray(leaf)
                 out.append(arr.astype(ex.dtype).reshape(ex.shape))
         return tree_unflatten(example_state, out), {"step": step,
                                                     "corrected_codewords": n_corrected}
+
+
+def _barrier(mesh) -> None:
+    """Every rank of ``mesh`` waits for every other (an all-reduce over each
+    axis, read back on the host)."""
+    t = torch.zeros((), device=mesh.device)
+    shd.all_reduce_(t, mesh, mesh.axis_names).item()

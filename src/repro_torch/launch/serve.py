@@ -15,7 +15,9 @@ with ``--fleet``, the DIMM-fleet timing-table service
 The counterpart of ``repro.launch.serve``, with random model parameters from
 a seed (the repo has no weights).  ``--metrics-out F`` dumps the obs registry
 (Prometheus text) and ``--trace-out F`` records the run as Chrome
-trace-event JSON.
+trace-event JSON.  A model is served under the 1x1 host mesh
+(``use_mesh(make_host_mesh())``), as the reference does: MoE layers take
+the expert-parallel path, which on one rank equals the local path.
 """
 from __future__ import annotations
 
@@ -28,7 +30,9 @@ from repro_torch.configs.registry import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.data.pipeline import make_batch
 from repro_torch.device import resolve_device
 from repro_torch.launch import steps as steps_mod
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import model as model_mod
+from repro_torch.sharding import use_mesh
 
 
 def _sync(dev: torch.device) -> None:
@@ -139,8 +143,9 @@ def main(argv=None) -> dict:
             batch = make_batch(cfg, args.batch, args.prompt_len, seed=0,
                                step=0)
             batch["tokens"] = batch["tokens"][:, :-1]
-            toks, stats = generate(cfg, params, batch, max_new=args.tokens,
-                                   device=args.device)
+            with use_mesh(make_host_mesh(device=args.device)):
+                toks, stats = generate(cfg, params, batch, max_new=args.tokens,
+                                       device=args.device)
             print(f"{args.arch}: generated {tuple(toks.shape)} on "
                   f"{toks.device} prefill={stats['prefill_s']:.2f}s "
                   f"decode={stats['decode_s']:.2f}s "

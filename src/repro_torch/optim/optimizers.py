@@ -11,6 +11,12 @@ schedules stay out of the state.  The states have the reference's leaves
 operations.  Weight decay follows the reference's rule ``p.ndim >= 2``: on
 the layer-stacked ``(L, ...)`` leaves of a model it also decays norms and
 the per-channel vectors, as the reference does.
+
+On a mesh, ``update(..., shardings=)`` takes each leaf as this rank's shard
+(``sharding.NamedSharding`` per parameter): AdamW and SGD are elementwise,
+and Adafactor's means over a split dim (the factored ``vr``/``vc``, their
+row mean, the update's RMS) are summed over that dim's axes, so every rank
+updates its shard as the whole leaf would be.
 """
 from __future__ import annotations
 
@@ -40,12 +46,36 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(leaf.float())) for leaf in leaves))
 
 
+def clip_to_norm(tree, gn, max_norm: float):
+    """``tree`` scaled so that a global norm ``gn`` becomes at most
+    ``max_norm``; each leaf keeps its dtype."""
+    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
+    return tree_map(lambda g: (g.float() * scale).to(g.dtype), tree)
+
+
 def clip_by_global_norm(tree, max_norm: float):
     """``(tree scaled so that its global norm is at most max_norm, the norm
     before)``; each leaf keeps its dtype."""
     gn = global_norm(tree)
-    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
-    return tree_map(lambda g: (g.float() * scale).to(g.dtype), tree), gn
+    return clip_to_norm(tree, gn, max_norm), gn
+
+
+def _mean(x, dim, sh, pdim: int, ndim: int, keepdim=False):
+    """``x.mean(dim)`` where x's dim ``dim`` is dim ``pdim`` of an
+    ``ndim``-dim parameter whose shard's sharding is ``sh``: the mean over
+    every rank's block when ``sh`` splits that dim (equal blocks)."""
+    m = x.mean(dim=dim, keepdim=keepdim)
+    return _mean_over(m, sh, sh.axes(pdim, ndim)) if sh is not None else m
+
+
+def _mean_over(m, sh, axes):
+    if not axes:
+        return m
+    from repro_torch.sharding import all_reduce_
+    n = 1
+    for a in axes:
+        n *= sh.mesh.shape[a]
+    return all_reduce_(m.clone(), sh.mesh, axes) / n
 
 
 def adamw(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1) -> Optimizer:
@@ -54,7 +84,7 @@ def adamw(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1) -> Optimizer:
                 "count": _count(params)}
 
     @torch.no_grad()
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, shardings=None):  # elementwise
         c = state["count"] + 1
         bc1 = 1 - b1 ** c.float()
         bc2 = 1 - b2 ** c.float()
@@ -96,27 +126,29 @@ def adafactor(eps=1e-30, clip_threshold=1.0, decay=0.8, weight_decay=0.0,
         return {"f": tree_map(one, params), "count": _count(params)}
 
     @torch.no_grad()
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, shardings=None):
         c = state["count"] + 1
         rho = 1.0 - c.float() ** (-decay)
 
-        def one(g, st, p):
+        def one(g, st, p, sh=None):
             g = g.float()
             g2 = g * g + eps
             new_st = dict(st)
-            if p.ndim >= 2:
-                vr = rho * st["vr"] + (1 - rho) * g2.mean(dim=-1)
-                vc = rho * st["vc"] + (1 - rho) * g2.mean(dim=-2)
+            n = p.ndim
+            if n >= 2:
+                vr = rho * st["vr"] + (1 - rho) * _mean(g2, -1, sh, -1, n)
+                vc = rho * st["vc"] + (1 - rho) * _mean(g2, -2, sh, -2, n)
                 new_st["vr"], new_st["vc"] = vr, vc
                 denom = (vr[..., None] * vc[..., None, :]) / torch.clamp(
-                    vr.mean(dim=-1, keepdim=True)[..., None], min=eps)
+                    _mean(vr, -1, sh, -2, n, keepdim=True)[..., None], min=eps)
                 u = g * torch.rsqrt(torch.clamp(denom, min=eps))
             else:
                 v = rho * st["v"] + (1 - rho) * g2
                 new_st["v"] = v
                 u = g * torch.rsqrt(torch.clamp(v, min=eps))
             # update clipping (RMS)
-            rms = torch.sqrt(torch.mean(u * u))
+            ms = torch.mean(u * u)
+            rms = torch.sqrt(_mean_over(ms, sh, sh.all_axes()) if sh is not None else ms)
             u = u / torch.clamp(rms / clip_threshold, min=1.0)
             if momentum:
                 m = 0.9 * st["m"].float() + u
@@ -126,7 +158,8 @@ def adafactor(eps=1e-30, clip_threshold=1.0, decay=0.8, weight_decay=0.0,
                 u = u + weight_decay * p.float()
             return (p.float() - lr * u).to(p.dtype), new_st
 
-        new_params, new_f = tree_unzip(tree_map(one, grads, state["f"], params), 2)
+        rest = (state["f"], params) + (() if shardings is None else (shardings,))
+        new_params, new_f = tree_unzip(tree_map(one, grads, *rest), 2)
         return new_params, {"f": new_f, "count": c}
 
     return Optimizer(init, update, "adafactor")
@@ -137,7 +170,7 @@ def sgd_momentum(beta=0.9) -> Optimizer:
         return {"m": tree_map(_zeros, params), "count": _count(params)}
 
     @torch.no_grad()
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, shardings=None):  # elementwise
         def upd(g, m, p):
             m = beta * m + g.float()
             return (p.float() - lr * m).to(p.dtype), m

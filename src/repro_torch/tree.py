@@ -32,3 +32,13 @@ def tree_unflatten(tree, leaves):
     place of its own."""
     it = iter(leaves)
     return tree_map(lambda _: next(it), tree)
+
+
+def tree_map_with_path(fn, tree, *rest, _path=()):
+    """``fn(path, leaf, *leaves at the same path of rest)``, ``path`` the
+    tuple of keys down to the leaf (``jax.tree_util.tree_map_with_path``'s
+    key path, as strings)."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, tree[k], *(r[k] for r in rest),
+                                      _path=_path + (k,)) for k in sorted(tree)}
+    return fn(_path, tree, *rest)
