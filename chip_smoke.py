@@ -274,12 +274,30 @@ of 512x512 mats, 16 mats and 8 subarrays — it
      ``diva_shuffle`` and ``secded_syndrome`` a leaf to restore, into the
      ``kernels`` line); each step's seconds sharded and unsharded,
      the memory peaks and the bytes of the gathered copies; the group is
-     destroyed at the end.
+     destroyed at the end;
+ 31. the dry run and the roofline (``launch/dryrun.py``; no new kernel):
+     (a) three cells traced in the fake world of the production meshes on
+     the host's CPU, ``qwen2-0.5b train_4k`` and ``rwkv6-1.6b train_4k`` on
+     (16, 16) (48 ``wkv6`` and 24 ``wkv6_bwd`` calls counted by the kernels'
+     formulas) and ``jamba-1.5-large-398b long_500k`` on (2, 16, 16), each
+     with its per-rank FLOPs, bytes, collectives, memory peak and the three
+     H100 roofline terms; (b) predicted against measured on the 1 x 1 mesh:
+     the sharded ``qwen2-0.5b`` train step at 8 x 512 (phase 30's step),
+     ``rwkv6-1.6b`` sharded prefill at 8 x 512 and one sharded train step of
+     ``rwkv6-1.6b`` cut to 4 layers at 8 x 512, each dry-run on fake tensors
+     and then run on the card under the same counter (the kernels counted by
+     the same formulas), fresh: the FLOPs by dtype identical, the predicted
+     peak within 15% of ``max_memory_allocated`` (above what the card held
+     before), the ``wkv6`` / ``wkv6_bwd`` launches equal to the calls the dry
+     run counted; each step then timed without the counter beside its three
+     roofline terms (exactly 64 ``wkv6`` and 8 ``wkv6_bwd`` launches over
+     the phase, into the ``kernels`` line).
 
 Every phase prints one JSON line.  The launch counts are set to 0 just before
 each path (phases 3-4, 6, 7, 8, 9, 12, 13, 14, 16, 17, 19, 20 (ingest; tick
 and checkpoint), 21, each scan of 22, 24, each run of 25, and each serving
-and training run of 26-29, and 30's rwkv6 sharded run) and read just after it;
+and training run of 26-29, 30's rwkv6 sharded run, and 31(b)) and read just
+after it;
 every kernel of a path must have launched (26-29: none may), and the
 ``kernels`` line sums the paths' counts.
 Any failed check raises; the last line is ``{"ok": true, "device": {...}}``
@@ -357,7 +375,13 @@ from repro_torch.kernels.shuffle import (  # noqa: E402
     _perm_tensor, apply_shuffle, apply_shuffle_ref, shuffle_permutation)
 from repro_torch.kernels.wkv6 import DH as WKV_DH  # noqa: E402
 from repro_torch.kernels.wkv6 import (  # noqa: E402
-    wkv6, wkv6_bwd, wkv6_bwd_ref, wkv6_bwd_resources, wkv6_ref)
+    wkv6, wkv6_bwd, wkv6_bwd_ref, wkv6_bwd_resources, wkv6_bwd_work, wkv6_ref,
+    wkv6_work)
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.counting import WorkCounter  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.roofline import roofline_terms  # noqa: E402
+from repro_torch.sharding import counting_mesh, reset_collectives  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.launch.serve import main as serve_main  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
@@ -472,12 +496,6 @@ WKV_TOL = {torch.float32: 3e-4, torch.float16: 2e-3}
 WKV_CHUNK = 12
 WKV_AROUND_CHUNK = (WKV_CHUNK - 1, WKV_CHUNK, WKV_CHUNK + 1, 2 * WKV_CHUNK + 1)
 WKV_DECODE_RUN = 200   # decode-shape launches timed back to back
-# fp32 operations the recurrence needs per (b, h, t), whatever the kernel
-# does: 5 per (i, j) (r.S: a product and a sum; w*S + k*v: two products and
-# a sum) and 8 per i, because the u term is rank one, v_j * sum_i r_i u_i k_i
-# (the decay's negation and two expf; r*u*k and its sum; v_j times it and
-# the add to y_j)
-WKV_FLOPS_PER_IJ, WKV_FLOPS_PER_I = 5, 8
 SERVE_SEED, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 0, 8, 512, 32
 # decode against teacher-forced forward (tests/test_models.py:69-82's bounds)
 TF_PROMPT, TF_DECODE, TF_PREFILL_TOL, TF_DECODE_TOL = 6, 4, 2e-3, 5e-3
@@ -514,9 +532,6 @@ WKV_BWD_TOL = {torch.float32: (1e-3, 1e-3), torch.bfloat16: (8e-3, 1e-3)}
 WKV_BWD_EDGES = ((1, 1, 2, 64), (2, 7, 3, 8), (2, 9, 3, 16), (2, 17, 3, 32),
                  (2, 130, 2, 64), (1, 21, 1, 64), (3, 13, 5, 64), (1, 37, 1, 32),
                  (2, 1, 3, 32), (1, 1, 1, 16), (3, 1, 1, 8))
-# fp32 operations the backward needs per (b, h, t): 14 per (i, j) and 21 per
-# i (csrc/wkv6_bwd.cu's header)
-WKV_BWD_FLOPS_PER_IJ, WKV_BWD_FLOPS_PER_I = 14, 21
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 8
 # the card against the port on the CPU: full width cut to 2 layers, float32
 # compute; float32 sums in other orders (cuBLAS, the kernels) on the card
@@ -587,6 +602,16 @@ FAMILY_CPU_LAYERS, FAMILY_CPU_PROMPT, JAMBA_CPU_PROMPT = 2, 64, 256
 MESH_STEPS, MESH_MOE_LAYERS, MESH_MOE_BATCH, MESH_MOE_STEPS = 3, 1, 4, 2
 MESH_RWKV_LAYERS, MESH_RWKV_STEPS = 4, 2
 MESH_RTOL, MOE_PATH_TOL = 1e-5, 2e-5
+# the dry run and the roofline (phase 31): three cells in the fake world,
+# then three steps predicted against the card on the 1 x 1 mesh, each run
+# twice on the card (counted, then timed): rwkv6-1.6b prefill (24 wkv6
+# launches a run) and its 4-layer train step (4 layers: forward and the
+# remat's recompute, 8 wkv6 and 4 wkv6_bwd launches a run)
+DRYRUN_CELLS = (("qwen2-0.5b", "train_4k", False), ("rwkv6-1.6b", "train_4k", False),
+                ("jamba-1.5-large-398b", "long_500k", True))
+PREDICT_BATCH, PREDICT_SEQ, PREDICT_RWKV_LAYERS = 8, 512, 4
+PREDICT_WKV6, PREDICT_WKV6_BWD = 2 * (24 + 2 * PREDICT_RWKV_LAYERS), 2 * PREDICT_RWKV_LAYERS
+PEAK_RTOL = 0.15
 # phases 3-17 keep the dense results that phases 22 and 25 hold the scans and
 # the sharded runs to
 DENSE: dict = {}
@@ -1643,16 +1668,6 @@ def wkv_compare(args, s0, label: str) -> float:
     return err
 
 
-def wkv_work(shape, with_state: bool) -> tuple[int, int]:
-    """(bytes, fp32 operations) of one wkv6 call on float32 inputs: each
-    input read once, y and the final state written once."""
-    B, S, H, dh = shape
-    n = B * S * H * dh
-    state = B * H * dh * dh
-    n_bytes = 4 * (4 * n + H * dh + n + state + (state if with_state else 0))
-    return n_bytes, B * H * S * (WKV_FLOPS_PER_IJ * dh * dh + WKV_FLOPS_PER_I * dh)
-
-
 def serving_dtypes(args):
     """r, k, v, wlog, u as the serving path passes them: k and v in bfloat16,
     r, wlog and u in float32."""
@@ -1713,8 +1728,8 @@ def wkv_kernel_vs_plain(dev) -> dict:
     dec_plain_ms = cuda_ms(lambda: wkv6_ref(*dec, init_state=dec_s0), 5)
     dec_run_ms, dec_host_us = decode_run(lambda: wkv6(*dec_mix, init_state=dec_s0),
                                          WKV_DECODE_RUN)
-    n_bytes, n_ops = wkv_work(WKV_PREFILL, with_state=False)
-    dec_bytes, dec_ops = wkv_work(WKV_DECODE, with_state=True)
+    n_bytes, n_ops = wkv6_work(*pre)
+    dec_bytes, dec_ops = wkv6_work(*dec, dec_s0)
     bw, flops = PEAK_BYTES_PER_S, PEAK_FP32_FLOPS
     fields = dict(ms=ms, plain_ms=plain_ms, bytes_ms=n_bytes / bw * 1e3,
                   ops_ms=n_ops / flops * 1e3, library_ms=None,
@@ -1915,17 +1930,6 @@ def wkv_bwd_compare(args, label: str) -> float:
     return err
 
 
-def wkv_bwd_work(args) -> tuple[int, int]:
-    """(bytes, fp32 operations) of one wkv6_bwd call: each input (and dy,
-    and the state and its cotangent where given) read once, each gradient
-    written once in its input's dtype."""
-    r, k, v, w, u, s0, dy, ds = args
-    B, S, H, dh = r.shape
-    size = lambda t: 0 if t is None else t.numel() * t.element_size()
-    n_bytes = 2 * sum(size(t) for t in (r, k, v, w, u, s0)) + size(dy) + size(ds)
-    return n_bytes, B * H * S * (WKV_BWD_FLOPS_PER_IJ * dh * dh + WKV_BWD_FLOPS_PER_I * dh)
-
-
 def ptxas_report(log: str, symbol: str) -> dict:
     """Registers and spill bytes of each kernel whose mangled name holds
     ``symbol``, from nvcc's ``-Xptxas=-v`` output: {name: {registers,
@@ -1994,8 +1998,8 @@ def wkv_bwd_kernel_vs_plain(dev, nvcc_log: str) -> dict:
     mix_ms = cuda_ms(lambda: wkv6_bwd(*mixed), 20)
     plain_ms = cuda_ms(lambda: wkv6_bwd_ref(*main_args), 3)
     fwd_ms = cuda_ms(lambda: wkv6(*main_args[:5]), 20)
-    n_bytes, n_ops = wkv_bwd_work(main_args)
-    mix_bytes, _ = wkv_bwd_work(mixed)
+    n_bytes, n_ops = wkv6_bwd_work(*main_args)
+    mix_bytes, _ = wkv6_bwd_work(*mixed)
     bw, flops = PEAK_BYTES_PER_S, PEAK_FP32_FLOPS
     fields = dict(ms=ms, plain_ms=plain_ms, bytes_ms=n_bytes / bw * 1e3,
                   ops_ms=n_ops / flops * 1e3, library_ms=None,
@@ -3240,10 +3244,7 @@ def mesh_training_phase(dev) -> dict:
         ckpt = mesh_checkpoint(dev, mesh)
         launches = {name: launches.get(name, 0) + ckpt["launches"].get(name, 0)
                     for name in launches}
-        emit("mesh_training", nvidia_smi=subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, check=True).stdout.strip(),
-            backend="nccl", world_size=dist.get_world_size(), mesh=mesh.shape,
+        emit("mesh_training", nvidia_smi=nvidia_smi(), backend="nccl", world_size=dist.get_world_size(), mesh=mesh.shape,
             qwen=qwen, compression=compression, moe=moe, rwkv6=rwkv, checkpoint=ckpt,
             seconds=dict(qwen=t1 - t0, compression=t2 - t1, moe=t3 - t2, rwkv6=t4 - t3,
                          checkpoint=time.perf_counter() - t4))
@@ -3339,6 +3340,118 @@ def train_steps(cfg, dev, steps: int, seq: int = TRAIN_SEQ) -> dict:
                 step_s=step_s, max_memory_allocated=peak, launches=launches)
 
 
+def nvidia_smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def dryrun_cells() -> list:
+    """Phase 31(a): the cells of DRYRUN_CELLS traced in the fake world."""
+    out = []
+    for arch, shape, multi in DRYRUN_CELLS:
+        rec = dryrun.run_cell(arch, shape, multi)
+        mem = rec.get("memory", {})
+        if rec["status"] != "ok" or rec["flops_per_device"] <= 0 or not mem.get("peak_bytes"):
+            raise AssertionError(f"dry run {arch} {shape}: {rec}")
+        calls = {k: v["calls"] for k, v in rec["kernels"].items()}
+        if calls != ({"wkv6": 48, "wkv6_bwd": 24} if arch == ARCH else {}):
+            raise AssertionError(f"dry run {arch} {shape} kernels {rec['kernels']}")
+        out.append({k: rec[k] for k in (
+            "arch", "shape", "mesh", "n_chips", "trace_s", "flops_by_dtype",
+            "bytes_per_device", "device_ops", "kernels", "roofline")}
+            | {"collective_bytes": rec["collectives"]["by_axis"],
+               "peak_bytes": mem["peak_bytes"], "peak_parts": mem["peak_parts"]})
+    return out
+
+
+def predicted_vs_card(cfg, shape: ShapeConfig, dev) -> dict:
+    """Phase 31(b), one step: the dry run of ``cfg`` at ``shape`` on the 1 x 1
+    mesh on fake tensors, then the same step on the card, built fresh, run
+    under the same counter and then timed without it.  The FLOPs must be
+    identical, the predicted peak within PEAK_RTOL of the card's, the
+    kernels' launches those the dry run counted."""
+    reset_collectives()
+    fake = dryrun.trace(cfg, shape, counting_mesh((1, 1), ("data", "model")))
+    mesh = make_host_mesh(device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    baseline = torch.cuda.memory_allocated(dev)
+    state = build_state(cfg, device=dev) if shape.kind == "train" else \
+        {"params": model.init_params(SERVE_SEED, cfg, device=dev)}
+    step, args = dryrun.rank_program(cfg, shape, mesh, state)
+    del state
+    b = make_batch(cfg, shape.global_batch, shape.seq_len, seed=0, step=0)
+    batch = b if shape.kind == "train" else {"tokens": b["tokens"][:, :-1]}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = ops.launch_counts()
+    with WorkCounter(track_memory=False) as counter:
+        out = step(*args, batch)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - baseline
+    launches = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    card = counter.summary()
+    if shape.kind == "train":
+        args = (out[0],)
+    del out
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = step(*args, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    del out, args
+    torch.cuda.empty_cache()
+    kernel_calls = {k: v["calls"] for k, v in fake["kernels"].items()}
+    rel = abs(fake["memory"]["peak_bytes"] - peak) / peak
+    if card["flops"] != fake["flops"] or rel > PEAK_RTOL or \
+            {k: v for k, v in launches.items() if v} != kernel_calls:
+        raise AssertionError(f"{cfg.arch_id} {shape.name}: FLOPs card {card['flops']} dry "
+                             f"run {fake['flops']}; peak card {peak} predicted "
+                             f"{fake['memory']['peak_bytes']}; launches {launches} against "
+                             f"{kernel_calls}")
+    terms = roofline_terms(fake["flops"], fake["bytes"], fake["collectives"], {})
+    return dict(arch=cfg.arch_id, n_layers=cfg.n_layers, kind=shape.kind,
+                batch=shape.global_batch, seq=shape.seq_len, flops_by_dtype=card["flops"],
+                flops_identical=True, bytes_dry_run=fake["bytes"], bytes_card=card["bytes"],
+                device_ops_dry_run=fake["ops"], device_ops_card=card["ops"],
+                predicted_peak_bytes=fake["memory"]["peak_bytes"],
+                predicted_peak_parts=fake["memory"]["peak_parts"],
+                measured_peak_bytes=peak, baseline_bytes=baseline, peak_rel_err=rel,
+                peak_rtol=PEAK_RTOL, kernel_calls_dry_run=kernel_calls,
+                card_launches=launches, trace_s=fake["trace_s"], step_s=step_s,
+                roofline=terms, step_over_bound=step_s / max(
+                    terms["t_compute_s"], terms["t_memory_s"], 1e-30))
+
+
+def dryrun_phase(dev) -> dict:
+    """Phase 31: the dry run's cells, and its predictions held against the
+    card; returns the phase's launches (counted from 0)."""
+    t0 = time.perf_counter()
+    cells = dryrun_cells()
+    t1 = time.perf_counter()
+    shape = ShapeConfig("train_512", "train", PREDICT_SEQ, PREDICT_BATCH)
+    pre = ShapeConfig("prefill_512", "prefill", PREDICT_SEQ, PREDICT_BATCH)
+    ops.reset_launches()
+    runs = [predicted_vs_card(get_config(DENSE_ARCH), shape, dev),
+            predicted_vs_card(get_config(ARCH), pre, dev),
+            predicted_vs_card(get_config(ARCH).replace(n_layers=PREDICT_RWKV_LAYERS),
+                              shape, dev)]
+    launches = counted({"wkv6": PREDICT_WKV6, "wkv6_bwd": PREDICT_WKV6_BWD})
+    smi = nvidia_smi()
+    for r in runs:
+        emit("dryrun_vs_card", nvidia_smi=smi, arch=r["arch"], n_layers=r["n_layers"],
+             kind=r["kind"], batch=r["batch"], seq=r["seq"], step_s=r["step_s"],
+             t_compute_s=r["roofline"]["t_compute_s"],
+             t_memory_s=r["roofline"]["t_memory_s"],
+             t_collective_s=r["roofline"]["t_collective_s"],
+             predicted_peak_bytes=r["predicted_peak_bytes"],
+             measured_peak_bytes=r["measured_peak_bytes"])
+    emit("dryrun", nvidia_smi=smi, cells=cells, predicted=runs,
+         seconds=dict(cells=t1 - t0, predicted=time.perf_counter() - t1))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU host",
@@ -3353,9 +3466,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # ---- 1. card and build
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    smi = nvidia_smi()
     print(smi, flush=True)
     kind = torch.cuda.get_device_name(0)
     t0 = time.perf_counter()
@@ -3536,6 +3647,11 @@ def main() -> int:
     t0 = time.perf_counter()
     paths.append(mesh_training_phase(dev))
     emit("mesh_phase", seconds=time.perf_counter() - t0)
+
+    # ---- 31. the dry run and the roofline, predicted against the card
+    t0 = time.perf_counter()
+    paths.append(dryrun_phase(dev))
+    emit("dryrun_phase", seconds=time.perf_counter() - t0)
     total = {name: sum(p[name] for p in paths) for name in ops.KERNELS}
 
     rows = [dict(name="fail_prob",

@@ -29,6 +29,15 @@ versions ``wkv6_ref`` / ``wkv6_bwd_ref``, CUDA tensors to the kernels in
 ``csrc/wkv6.cu`` / ``csrc/wkv6_bwd.cu`` (their headers state the bounds and
 the designs); anything else raises.  ``wkv6.launches`` and
 ``wkv6_bwd.launches`` count kernel launches.
+
+Fake tensors (the dry run, ``launch/dryrun.py``) take the kernels' path up
+to the launch: the same conversions and allocations, outputs of the right
+shapes and dtypes, nothing computed (never the plain version's loop over
+time).  Under a ``counting.WorkCounter`` each call the kernel would launch
+for counts its work by ``wkv6_work`` / ``wkv6_bwd_work``, the operations
+and bytes the recurrence needs whatever the kernel does, on a card, on the
+CPU (the plain version's own ops then go uncounted) and on fake tensors
+alike.
 """
 from __future__ import annotations
 
@@ -37,9 +46,64 @@ import functools
 
 import torch
 
+from repro_torch.counting import active_counter, is_fake
+
 DH = (8, 16, 32, 64)   # the kernel's instantiations of the head width
 # the input dtypes, with their codes in csrc/wkv6.cu
 _CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+# fp32 operations the recurrence needs per (b, h, t), whatever the kernel
+# does: 5 per (i, j) (r.S: a product and a sum; w*S + k*v: two products and
+# a sum) and 8 per i, because the u term is rank one, v_j * sum_i r_i u_i k_i
+# (the decay's negation and two expf; r*u*k and its sum; v_j times it and
+# the add to y_j)
+WKV_FLOPS_PER_IJ, WKV_FLOPS_PER_I = 5, 8
+# fp32 operations the backward needs per (b, h, t): 14 per (i, j) and 21 per
+# i (csrc/wkv6_bwd.cu's header)
+WKV_BWD_FLOPS_PER_IJ, WKV_BWD_FLOPS_PER_I = 14, 21
+
+
+def _size(t) -> int:
+    return 0 if t is None else t.numel() * t.element_size()
+
+
+def wkv6_work(r, k, v, wlog, u, init_state=None) -> tuple[int, int]:
+    """(bytes, fp32 operations) of one wkv6 call: each input read once in
+    its dtype, y and the final state (float32) written once."""
+    B, S, H, dh = r.shape
+    n_bytes = sum(_size(t) for t in (r, k, v, wlog, u, init_state)) \
+        + 4 * (B * S * H * dh + B * H * dh * dh)
+    return n_bytes, B * H * S * (WKV_FLOPS_PER_IJ * dh * dh + WKV_FLOPS_PER_I * dh)
+
+
+def wkv6_bwd_work(r, k, v, wlog, u, init_state, dy, dstate=None) -> tuple[int, int]:
+    """(bytes, fp32 operations) of one wkv6_bwd call: each input (and dy,
+    and the state and its cotangent where given) read once, each gradient
+    written once in its input's dtype."""
+    B, S, H, dh = r.shape
+    n_bytes = 2 * sum(_size(t) for t in (r, k, v, wlog, u, init_state)) \
+        + _size(dy) + _size(dstate)
+    return n_bytes, B * H * S * (WKV_BWD_FLOPS_PER_IJ * dh * dh + WKV_BWD_FLOPS_PER_I * dh)
+
+
+def _counted(name: str, work):
+    """The active counter with ``name``'s work added (a kernel call), or
+    None."""
+    counter = active_counter()
+    if counter is not None:
+        n_bytes, flops = work()
+        counter.add_kernel(name, flops, n_bytes, "float32")
+    return counter
+
+
+def _plain(counter, fn, *args):
+    """The plain version, uncounted under a counter (the kernel's work is
+    counted instead); its outputs tracked as the kernel's would be."""
+    if counter is None:
+        return fn(*args)
+    with counter.paused():
+        out = fn(*args)
+    counter.adopt(out)
+    return out
 
 
 def wkv6_ref(r, k, v, wlog, u, init_state=None):
@@ -94,7 +158,7 @@ def _aligned(t):
     if t is None:
         return None
     t = t.contiguous()
-    return t.clone() if t.data_ptr() % 16 else t
+    return t.clone() if not is_fake(t) and t.data_ptr() % 16 else t
 
 
 @functools.cache
@@ -109,9 +173,10 @@ def _entry():
     return fn
 
 
-def _launch(r, k, v, wlog, u, init_state):
+def _launch(r, k, v, wlog, u, init_state, fake: bool = False):
     """Launch the kernel on r, k, v, wlog in their own dtypes (no cast, and no
-    copy of a contiguous tensor); returns ``(y, final state)`` or raises."""
+    copy of a contiguous tensor); returns ``(y, final state)`` or raises.
+    ``fake``: everything but the launch (fake tensors)."""
     B, S, H, dh = r.shape
     if dh not in DH:
         raise ValueError(f"the wkv6 kernel is built for dh in {DH}, got {dh}")
@@ -120,6 +185,8 @@ def _launch(r, k, v, wlog, u, init_state):
     s0 = _aligned(init_state)
     y = r.new_empty((B, S, H, dh), dtype=torch.float32)
     state = r.new_empty((B, H, dh, dh), dtype=torch.float32)
+    if fake:
+        return y, state
     index = r.device.index
     args = (r.data_ptr(), k.data_ptr(), v.data_ptr(), wlog.data_ptr(),
             _CODE[r.dtype], _CODE[k.dtype], _CODE[v.dtype], _CODE[wlog.dtype],
@@ -140,10 +207,15 @@ def _launch(r, k, v, wlog, u, init_state):
 
 def _forward(r, k, v, wlog, u, init_state):
     """``(y, final state)`` on the tensors' device: the plain version on the
-    CPU, the kernel (counted) on a card."""
-    if r.device.type == "cpu":
-        return wkv6_ref(r, k, v, wlog, u, init_state)
+    CPU, the kernel (counted) on a card, its outputs' shapes on fake
+    tensors."""
     B, S, H, dh = r.shape
+    counter = _counted("wkv6", lambda: wkv6_work(r, k, v, wlog, u, init_state)) \
+        if S and B * H else None
+    if is_fake(r) and S and B * H:
+        return _launch(r, k, v, wlog, u, init_state, fake=True)
+    if r.device.type == "cpu":
+        return _plain(counter, wkv6_ref, r, k, v, wlog, u, init_state)
     if S == 0 or B * H == 0:
         state = torch.zeros((B, H, dh, dh), dtype=torch.float32, device=r.device) \
             if init_state is None else init_state.clone()
@@ -249,9 +321,10 @@ def _bwd_entry():
 CHUNK_BWD = 8   # steps between the backward kernel's saved states (kC, csrc/wkv6_bwd.cu)
 
 
-def _bwd_launch(r, k, v, wlog, u, init_state, dy, dstate):
+def _bwd_launch(r, k, v, wlog, u, init_state, dy, dstate, fake: bool = False):
     """Launch the backward kernel (and its deterministic sum of du over the
-    batch); returns the gradients or raises."""
+    batch); returns the gradients or raises.  ``fake``: everything but the
+    launch (fake tensors)."""
     B, S, H, dh = r.shape
     if dh not in DH:
         raise ValueError(f"the wkv6_bwd kernel is built for dh in {DH}, got {dh}")
@@ -265,6 +338,8 @@ def _bwd_launch(r, k, v, wlog, u, init_state, dy, dstate):
     du_part = r.new_empty((B, H, dh), dtype=torch.float32)
     ds0 = None if s0 is None else torch.empty_like(s0)
     ckpt = r.new_empty((B, H, -(-S // CHUNK_BWD), dh, dh), dtype=torch.float32)
+    if fake:
+        return dr, dk, dv, dw, du, ds0
     ptr = lambda t: 0 if t is None else t.data_ptr()
     index = r.device.index
     args = (r.data_ptr(), k.data_ptr(), v.data_ptr(), wlog.data_ptr(),
@@ -300,8 +375,12 @@ def wkv6_bwd(r, k, v, wlog, u, init_state, dy, dstate=None):
     kind = r.device.type
     if kind not in ("cpu", "cuda"):
         raise ValueError(f"wkv6_bwd runs on cpu or cuda tensors, not {kind}")
+    args = (r, k, v, wlog, u, init_state, dy, dstate)
+    counter = _counted("wkv6_bwd", lambda: wkv6_bwd_work(*args)) if S and B * H else None
+    if is_fake(r) and S and B * H:
+        return _bwd_launch(*args, fake=True)
     if kind == "cpu":
-        return wkv6_bwd_ref(r, k, v, wlog, u, init_state, dy, dstate)
+        return _plain(counter, wkv6_bwd_ref, *args)
     if S == 0 or B * H == 0:
         zeros = [torch.zeros_like(t) for t in (r, k, v, wlog, u)]
         d0 = None if init_state is None else (

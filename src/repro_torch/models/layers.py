@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.counting import fake_mode_active
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -93,7 +94,6 @@ def apply_rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
-@functools.lru_cache(maxsize=16)
 def sinusoidal_positions(seq: int, d_model: int, device=None):
     """Whisper-style absolute sinusoidal embeddings, (seq, d_model) float32.
     Built with torch on the CPU in the reference's operation order, then
@@ -101,7 +101,15 @@ def sinusoidal_positions(seq: int, d_model: int, device=None):
     power moves ``sin`` / ``cos`` by ~1e-4, so the card and the CPU share
     the CPU's bits.  Cached per (seq, d_model, device), so a decode step
     neither rebuilds the table nor waits on its copy; callers must not
-    write into the returned tensor."""
+    write into the returned tensor.  Under fake tensors (the dry run) it is
+    built anew: a fake table belongs to its own fake mode."""
+    if fake_mode_active():
+        return _sinusoidal_positions.__wrapped__(seq, d_model, device)
+    return _sinusoidal_positions(seq, d_model, device)
+
+
+@functools.lru_cache(maxsize=16)
+def _sinusoidal_positions(seq: int, d_model: int, device=None):
     pos = torch.arange(seq, dtype=torch.float32)[:, None]
     i = torch.arange(d_model // 2, dtype=torch.float32)[None, :]
     ang = pos / (10000.0 ** (2 * i / d_model))

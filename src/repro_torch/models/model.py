@@ -25,7 +25,8 @@ MoE routing and Mamba scan included; the scan's own per-chunk checkpoints
 nest inside).  A uniform-MoE arch (every layer MoE) has ``"moe"`` in place
 of ``"mlp"`` in each layer, and ``forward`` returns the sum of the MoE aux
 losses.  The reference's ``unroll`` switch belongs to its XLA cost
-analysis (its dry run, not ported yet); its sequence-sharding hints are XLA
+analysis (its dry run's ``--scan``; the port's dry run counts the eager
+program, ``launch/dryrun.py``); its sequence-sharding hints are XLA
 layout hints, left out (``repro_torch.sharding``): on a mesh the port runs
 each rank's program on its batch shard (``launch/steps``).
 """

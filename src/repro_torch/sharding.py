@@ -28,6 +28,17 @@ collectives the expert-parallel MoE paths differentiate through are
 ``shard_map`` would transpose it to: ``copy_to_axis``, ``reduce_from_axis``,
 ``split_along``, ``gather_along``, ``all_to_all``; and ``gather_summed``,
 through which the local MoE path sees the whole batch, as GSPMD's does.
+All of them go through three primitives (``all_reduce_``, ``all_gather``
+and the all-to-all exchange), which keep a tally of the operand bytes and
+calls of each collective kind over each axis (``COLLECTIVES``, the
+reference's kind names; ``reset_collectives``).
+
+The dry run's world (``counting_mesh``, asked for by name, never a
+default): one rank's ``Mesh`` of a world of any size, e.g. the 256 or 512
+ranks of the production meshes, with no process group: each axis above 1
+holds a ``CountingGroup``, whose collectives take fake tensors only, move
+no data and give outputs of the right shapes, so that a fake rank's program
+runs and its collectives are counted.
 
 Left out: the reference's JAX shims (``mesh_axis_types_kw``,
 ``abstract_mesh``, ``shard_map``; ``AbstractMesh`` here is a plain shape for
@@ -43,6 +54,8 @@ from math import prod
 import torch
 import torch.distributed as dist
 
+from repro_torch.counting import is_fake
+from repro_torch.counting import part as counting_part
 from repro_torch.device import resolve_device
 from repro_torch.tree import tree_map, tree_map_with_path
 
@@ -153,6 +166,13 @@ class AbstractMesh:
 
 
 @dataclass(frozen=True)
+class CountingGroup:
+    """An axis of the dry run's world: ``size`` ranks, no process group."""
+    axis: str
+    size: int
+
+
+@dataclass(frozen=True)
 class Mesh(AbstractMesh):
     """A named mesh of ranks, each on ``device``: this rank's coordinate and
     one process group per axis (``groups == ()`` when every axis is 1 and no
@@ -207,6 +227,25 @@ def make_mesh(shape, names, *, device=None) -> Mesh | None:
                 tuple(dm.get_group(a) for a in names))
 
 
+def counting_mesh(shape, names, *, rank: int = 0, device="cpu") -> Mesh:
+    """Rank ``rank``'s ``Mesh`` of a world of ``prod(shape)`` ranks laid out
+    row-major, for the dry run: no process group, a ``CountingGroup`` on
+    each axis above 1 (its collectives count and move nothing; they take
+    fake tensors only), no group on an axis of 1."""
+    shape, names = tuple(int(s) for s in shape), tuple(names)
+    if len(shape) != len(names):
+        raise ValueError(f"mesh shape {shape} and names {names} differ in length")
+    if not 0 <= rank < prod(shape):
+        raise ValueError(f"rank {rank} is not in a {shape} mesh")
+    coords, r = [], rank
+    for s in reversed(shape):
+        coords.append(r % s)
+        r //= s
+    groups = tuple(CountingGroup(a, s) if s > 1 else None for a, s in zip(names, shape))
+    return Mesh(shape, names, torch.device(device), tuple(reversed(coords)),
+                groups if any(groups) else ())
+
+
 # ambient mesh and batch axes: a module global (not thread-local), since a
 # checkpointed layer's forward is rerun from autograd's worker thread on a
 # card
@@ -237,12 +276,33 @@ def ambient_batch_axes() -> tuple[str, ...]:
 
 # ---------------------------------------------------------------- collectives
 
+# {(kind, axis): [calls, operand bytes]} since the last reset_collectives()
+COLLECTIVES: dict = {}
+
+
+def reset_collectives() -> None:
+    COLLECTIVES.clear()
+
+
+def _tally(kind: str, axis: str, t: torch.Tensor, g) -> bool:
+    """Count one collective of ``kind`` over ``axis`` on operand ``t``;
+    True when ``g`` is a ``CountingGroup`` (no data is to move)."""
+    entry = COLLECTIVES.setdefault((kind, axis), [0, 0])
+    entry[0] += 1
+    entry[1] += t.numel() * t.element_size()
+    if not isinstance(g, CountingGroup):
+        return False
+    if not is_fake(t):
+        raise TypeError("a counting mesh's collectives take fake tensors only")
+    return True
+
+
 def all_reduce_(t: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
     """Sum ``t`` in place over the ranks of ``axes`` (one all-reduce per
     axis); the identity on a mesh without groups."""
     for a in axes:
         g = mesh.group(a)
-        if g is not None:
+        if g is not None and not _tally("all-reduce", a, t, g):
             dist.all_reduce(t, group=g)
     return t
 
@@ -277,7 +337,8 @@ def all_gather(t: torch.Tensor, mesh: Mesh, axes, dim: int) -> torch.Tensor:
         x = t.movedim(dim, 0).contiguous()
         out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
                           device=x.device)
-        dist.all_gather_into_tensor(out, x, group=g)
+        if not _tally("all-gather", a, x, g):
+            dist.all_gather_into_tensor(out, x, group=g)
         t = out.movedim(0, dim).contiguous()
     return t
 
@@ -341,7 +402,10 @@ def _exchange(x: torch.Tensor, mesh: Mesh, name: str) -> torch.Tensor:
     """Block i of dim 0 to rank i of the axis; block j of the result from
     rank j (``all_to_all(split_axis=0, concat_axis=0, tiled=True)``)."""
     out = torch.empty_like(x, memory_format=torch.contiguous_format)
-    dist.all_to_all_single(out, x.contiguous(), group=mesh.group(name))
+    x = x.contiguous()
+    g = mesh.group(name)
+    if not _tally("all-to-all", name, x, g):
+        dist.all_to_all_single(out, x, group=g)
     return out
 
 
@@ -487,9 +551,10 @@ class NamedSharding:
 
     def gather(self, local: torch.Tensor, *, keep=()) -> torch.Tensor:
         """The full leaf from every rank's shard; the axes in ``keep`` stay
-        split."""
-        for d, axes in self._dims(keep):
-            local = all_gather(local, self.mesh, axes, d)
+        split.  Counted as the gathered copy (``counting.part``)."""
+        with counting_part("gathered"):
+            for d, axes in self._dims(keep):
+                local = all_gather(local, self.mesh, axes, d)
         return local
 
     def axes(self, dim: int, ndim: int) -> tuple[str, ...]:

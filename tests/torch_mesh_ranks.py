@@ -1,8 +1,8 @@
 """Multi-rank runs for the training-mesh tests, and the reference's runs on
 forced host devices.
 
-Not a test module: ``test_torch_mesh_train.py`` and ``test_torch_moe_ep.py``
-import it.  ``spawn`` starts ``world`` processes (spawned, so each rank
+Not a test module: ``test_torch_mesh_train.py``, ``test_torch_moe_ep.py``
+and ``test_torch_sharded_serve.py`` import it.  ``spawn`` starts ``world`` processes (spawned, so each rank
 imports this module by name: it imports neither ``jax`` nor ``repro`` at
 the top), joins them to a gloo process group through a ``FileStore`` (no
 port, so concurrent test workers never collide), runs a rank body and
@@ -13,7 +13,8 @@ imported (the tests' own process keeps one device), one subprocess per
 (arch, mesh, path): the reference reads ``REPRO_MOE_A2A`` when it traces its
 layer scan and caches that trace.
 
-    python tests/torch_mesh_ranks.py ref <spec.json>   # the reference's side
+    python tests/torch_mesh_ranks.py ref <spec.json>         # the reference's side
+    python tests/torch_mesh_ranks.py serve_ref <spec.json>   # its sharded serving
 """
 from __future__ import annotations
 
@@ -233,6 +234,84 @@ def misc_rank(rank, tmp):
     return out
 
 
+# the sharded prefill / decode runs: SERVE_BATCH prompts of SERVE_PROMPT
+# tokens into caches of SERVE_MAX positions, then SERVE_DECODE greedy steps
+SERVE_BATCH, SERVE_PROMPT, SERVE_MAX, SERVE_DECODE = 4, 12, 16, 3
+SERVE_MESHES = ((2, 1), (1, 2))
+
+
+def serve_prompts(vocab: int) -> np.ndarray:
+    return np.random.default_rng(7).integers(0, vocab, (SERVE_BATCH, SERVE_PROMPT),
+                                             dtype=np.int32)
+
+
+def serve_rank(rank, spec):
+    """The port's sharded prefill and SERVE_DECODE decode steps of each
+    arch of ``spec`` on each of SERVE_MESHES over the 2 ranks: this rank's
+    prefill logits, greedy tokens and caches (after the prefill and after
+    the last step), keyed ``"arch (data, model)"``."""
+    import torch
+    from repro_torch import sharding as shd
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.launch import steps
+
+    out = {}
+    for arch, init in spec["inits"].items():
+        cfg = get_smoke_config(arch)
+        with np.load(init) as z:
+            params = unflat_paths({k: torch.from_numpy(z[k].copy()) for k in z.files})
+        tokens = torch.from_numpy(serve_prompts(cfg.vocab_size))
+        for data, model in SERVE_MESHES:
+            mesh = shd.make_mesh((data, model), ("data", "model"), device="cpu")
+            psh = shd.param_shardings(params, mesh)
+            mine = shd.shard_tree(params, psh)
+            prefill = steps.make_sharded_prefill_step(cfg, mesh, psh, max_seq=SERVE_MAX)
+            decode = steps.make_sharded_decode_step(cfg, mesh, psh)
+            logits, cache = prefill(mine, {"tokens": tokens})
+            first = {k: v.numpy().copy() for k, v in flat_paths(cache).items()}
+            tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+            toks = [tok.numpy()]
+            for _ in range(SERVE_DECODE):
+                whole = shd.all_gather(tok, mesh, ("data",), 0)
+                tok, cache = decode(mine, cache, {"tokens": whole[:, None]})
+                toks.append(tok.numpy())
+            out[f"{arch} {(data, model)}"] = {
+                "coords": mesh.coords, "logits": logits.numpy(), "tokens": toks,
+                "cache_prefill": first,
+                "cache_final": {k: v.numpy() for k, v in flat_paths(cache).items()}}
+    out["loaded"] = sorted(m for m in ("jax", "repro") if m in sys.modules)
+    return out
+
+
+def run_serve(archs, tmp: Path) -> dict:
+    """The reference's parameters for each arch's smoke config, its jitted
+    sharded prefill and decode on SERVE_MESHES (a subprocess on 2 forced
+    host devices) and the port's on 2 gloo ranks: ``{"ref", "port"}``."""
+    import jax
+    from repro.configs.registry import get_smoke_config
+    from repro.models import model as ref_model
+
+    tmp = Path(tmp)
+    tmp.mkdir(parents=True, exist_ok=True)
+    inits = {}
+    for i, arch in enumerate(archs):
+        params = jax.tree.map(np.asarray, ref_model.init_params(
+            jax.random.PRNGKey(11 + i), get_smoke_config(arch)))
+        inits[arch] = str(tmp / f"init{i}.npz")
+        np.savez(inits[arch], **flat_paths(params))
+    spec = {"inits": inits, "mesh": [2, 1], "out": str(tmp / "serve_ref.pkl")}
+    proc = reference(spec, tmp, mode="serve_ref")
+    try:
+        port = spawn("serve_rank", 2, tmp / "port", spec)
+    finally:
+        log, _ = proc.communicate(timeout=600)
+    if proc.returncode:
+        raise RuntimeError(f"the reference's run failed:\n{log.decode()[-4000:]}")
+    with open(spec["out"], "rb") as f:
+        ref = pickle.load(f)
+    return {"ref": ref, "port": port}
+
+
 # ------------------------------------------------------------------ parity
 
 def run_parity(arch: str, mesh: tuple, tmp: Path, *, a2a: bool = False) -> dict:
@@ -292,8 +371,10 @@ def check_parity(out: dict, *, step_tol: float, param_atol: float) -> None:
 
 # ------------------------------------------------------------------ reference side
 
-def reference(spec: dict, tmp: Path) -> subprocess.Popen:
-    """Start the reference's run of ``spec`` (results in ``spec["out"]``)."""
+def reference(spec: dict, tmp: Path, mode: str = "ref") -> subprocess.Popen:
+    """Start the reference's run of ``spec`` (results in ``spec["out"]``):
+    its sharded train steps (``mode="ref"``) or its sharded serving
+    (``"serve_ref"``)."""
     tmp = Path(tmp)
     path = tmp / "ref_spec.json"
     path.write_text(json.dumps(spec))
@@ -303,7 +384,7 @@ def reference(spec: dict, tmp: Path) -> subprocess.Popen:
     env.pop("REPRO_MOE_A2A", None)
     if spec.get("a2a"):
         env["REPRO_MOE_A2A"] = "1"
-    return subprocess.Popen([sys.executable, str(Path(__file__)), "ref", str(path)],
+    return subprocess.Popen([sys.executable, str(Path(__file__)), mode, str(path)],
                             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
 
 
@@ -368,6 +449,61 @@ def _reference_main(spec_path: str) -> None:
                      "params": flat_paths(final)}, f)
 
 
-if __name__ == "__main__" and len(sys.argv) == 3 and sys.argv[1] == "ref":
+def _reference_serve(spec_path: str) -> None:
+    """The reference's jitted prefill and decode with the dry run's
+    shardings (``repro/launch/dryrun.py``) for each arch and mesh."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro import sharding as shd
+    from repro.configs.base import ShapeConfig
+    from repro.configs.registry import get_smoke_config
+    from repro.launch import steps
+
+    spec = json.loads(Path(spec_path).read_text())
+    out = {}
+    for arch, init in spec["inits"].items():
+        cfg = get_smoke_config(arch)
+        with np.load(init) as z:
+            params = unflat_paths({k: jnp.asarray(z[k]) for k in z.files})
+        tokens = serve_prompts(cfg.vocab_size)
+        for mshape in SERVE_MESHES:
+            mesh = jax.make_mesh(mshape, ("data", "model"), **shd.mesh_axis_types_kw(2))
+            with mesh:
+                params_sh = shd.param_shardings(jax.eval_shape(lambda: params), mesh)
+                p = jax.device_put(params, params_sh)
+                batch = {"tokens": jnp.asarray(tokens)}
+                batch_sh = shd.batch_shardings(jax.eval_shape(lambda: batch), mesh)
+                cache_shapes = steps.abstract_cache(
+                    cfg, ShapeConfig("serve", "decode", SERVE_MAX, SERVE_BATCH))
+                cache_sh = shd.cache_shardings(cache_shapes, mesh)
+                logits_sh = shd.NamedSharding(mesh, shd.data_spec(
+                    jax.ShapeDtypeStruct((SERVE_BATCH, 1, cfg.vocab_size), jnp.float32), mesh))
+                tok_sh = shd.NamedSharding(mesh, shd.data_spec(
+                    jax.ShapeDtypeStruct((SERVE_BATCH,), jnp.int32), mesh))
+                prefill = jax.jit(steps.make_prefill_step(cfg, max_seq=SERVE_MAX),
+                                  in_shardings=(params_sh, batch_sh),
+                                  out_shardings=(logits_sh, cache_sh))
+                logits, cache = prefill(p, batch)
+                first = {k: np.asarray(v) for k, v in flat_paths(jax.device_get(cache)).items()}
+                tok = jnp.argmax(logits[:, -1], axis=-1).astype(jnp.int32)
+                toks = [np.asarray(tok)]
+                dec_batch_sh = shd.batch_shardings(jax.eval_shape(
+                    lambda: {"tokens": jnp.zeros((SERVE_BATCH, 1), jnp.int32)}), mesh)
+                decode = jax.jit(steps.make_decode_step(cfg),
+                                 in_shardings=(params_sh, cache_sh, dec_batch_sh),
+                                 out_shardings=(tok_sh, cache_sh))
+                for _ in range(SERVE_DECODE):
+                    tok, cache = decode(p, cache, {"tokens": tok[:, None]})
+                    toks.append(np.asarray(tok))
+                out[f"{arch} {tuple(mshape)}"] = {
+                    "logits": np.asarray(logits), "tokens": toks, "cache_prefill": first,
+                    "cache_final": {k: np.asarray(v) for k, v in
+                                    flat_paths(jax.device_get(cache)).items()}}
+    with open(spec["out"], "wb") as f:
+        pickle.dump(out, f)
+
+
+if __name__ == "__main__" and len(sys.argv) == 3 and sys.argv[1] in ("ref", "serve_ref"):
     sys.path.insert(0, str(SRC))
-    _reference_main(sys.argv[2])
+    {"ref": _reference_main, "serve_ref": _reference_serve}[sys.argv[1]](sys.argv[2])
