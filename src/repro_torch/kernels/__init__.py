@@ -1,4 +1,5 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
 version (``fail_prob`` and ``fail_prob_op``, ``secded``, ``shuffle``,
-``bank_sched``, ``bit_signature``, ``rc_transient``, ``wkv6``); ``ops`` lists them
-and their launch counts."""
+``bank_sched``, ``bit_signature``, ``rc_transient``, ``wkv6``); ``registry``
+holds them as data with their launch spaces, ``tune`` picks each call's
+launch, ``ops`` lists them and their launch counts."""

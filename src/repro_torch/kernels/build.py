@@ -29,6 +29,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
+class LaunchError(RuntimeError):
+    """A kernel's C entry point returned a CUDA error: nothing ran (a launch
+    the card refused, or arguments the entry point does not take)."""
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(found):

@@ -48,6 +48,9 @@
 // - Where Q, B, R and C are at most 16 (Fig 19's configurations), 16 lanes
 //   walk a trace and a warp walks two: the shuffles take width 16, each walk
 //   has its own reduction, and the warps issue half the instructions.
+// - A block is kWarps warps (1 by default; 2 and 4 are the tuner's launch
+//   space, kernels/registry.py), each walking its own traces: a walk's
+//   operations are the same in any block, so its bits are too.
 //
 // walk_kernel, the general one, for what the fast one does not take (B up to
 // 512, R and C up to 64, arrivals that decrease, n >= 2^25): lane q < Q owns
@@ -250,18 +253,24 @@ __device__ __forceinline__ Slot promote(const Req& r, const int (&b_tc)[6], int 
 }
 
 // kWidth lanes walk one trace: 32 (one walk a warp) or 16 (two walks a warp,
-// for Q, B, R, C <= 16, which halves the instructions the walks issue).
-template <int kWidth, bool kBus, bool kAct, bool kOne>
-__global__ void __launch_bounds__(32) fast_walk_kernel(const int* __restrict__ traces,
-                                                       const int* __restrict__ tc,
-                                                       int* __restrict__ lat_out,
-                                                       int* __restrict__ hit_out, int W,
-                                                       int walks, FastCfg cfg) {
+// for Q, B, R, C <= 16, which halves the instructions the walks issue);
+// kWarps warps a block.
+template <int kWidth, bool kBus, bool kAct, bool kOne, int kWarps>
+__global__ void __launch_bounds__(32 * kWarps) fast_walk_kernel(const int* __restrict__ traces,
+                                                                const int* __restrict__ tc,
+                                                                int* __restrict__ lat_out,
+                                                                int* __restrict__ hit_out,
+                                                                int W, int walks, FastCfg cfg) {
   constexpr int kWalks = 32 / kWidth;   // walks a warp
   const int n = cfg.n, Q = cfg.Q;
-  const int lane = threadIdx.x % kWidth;
-  const int half = kWalks == 1 ? 0 : static_cast<int>(threadIdx.x) / kWidth;
-  const long long walk0 = static_cast<long long>(blockIdx.x) * kWalks + half;
+  // the thread's index in its warp, and its warp's in the block
+  const unsigned tx = kWarps == 1 ? threadIdx.x : threadIdx.x % 32;
+  const int warp = kWarps == 1 ? 0 : static_cast<int>(threadIdx.x / 32);
+  const long long first = (static_cast<long long>(blockIdx.x) * kWarps + warp) * kWalks;
+  if (kWarps > 1 && first >= walks) return;   // a whole warp past the last walk
+  const int lane = tx % kWidth;
+  const int half = kWalks == 1 ? 0 : static_cast<int>(tx) / kWidth;
+  const long long walk0 = first + half;
   const bool live = walk0 < walks;          // a walk past the last repeats it, storing nothing
   const long long walk = live ? walk0 : walks - 1;   // t * W + w
   const int t = static_cast<int>(walk / W), w = static_cast<int>(walk % W);
@@ -285,8 +294,8 @@ __global__ void __launch_bounds__(32) fast_walk_kernel(const int* __restrict__ t
   // refill requests Q + step, a chunk of kWidth Slots in shared memory (two
   // buffers), the next chunk prefetched in registers: lane j loads request
   // Q + kWidth * k + j of chunk k
-  __shared__ Slot s_chunk[kWalks][2][kWidth];
-  s_chunk[half][0][lane] = promote<kWidth>(load_req(tr, static_cast<long long>(Q) + lane, n),
+  __shared__ Slot s_chunk[kWarps][kWalks][2][kWidth];
+  s_chunk[warp][half][0][lane] = promote<kWidth>(load_req(tr, static_cast<long long>(Q) + lane, n),
                                            b_tc, b_rank, b_chan);
   __syncwarp();
   Req nxt = load_req(tr, static_cast<long long>(Q) + kWidth + lane, n);
@@ -297,7 +306,7 @@ __global__ void __launch_bounds__(32) fast_walk_kernel(const int* __restrict__ t
     const int j = s % kWidth, chunk = s / kWidth;
     // the refill (request Q + s) does not depend on the winner: two 16-byte
     // broadcast loads
-    const Slot refill = s_chunk[half][chunk & 1][j];
+    const Slot refill = s_chunk[warp][half][chunk & 1][j];
 
     // ---- candidate_times for this lane's slot
     const int bank = q.meta & 31;
@@ -387,27 +396,40 @@ __global__ void __launch_bounds__(32) fast_walk_kernel(const int* __restrict__ t
     }
     if (j == kWidth - 1) {
       __syncwarp();   // every lane has read the buffer it overwrites
-      s_chunk[half][(chunk + 1) & 1][lane] = promote<kWidth>(nxt, b_tc, b_rank, b_chan);
+      s_chunk[warp][half][(chunk + 1) & 1][lane] = promote<kWidth>(nxt, b_tc, b_rank, b_chan);
       __syncwarp();
       nxt = load_req(tr, static_cast<long long>(Q) + s + kWidth + 1 + lane, n);
     }
   }
 }
 
-template <bool kBus, bool kAct>
+template <bool kBus, bool kAct, int kWarps>
 void launch_fast(const int* traces, const int* tc, int* lat, int* hit, int walks, int W,
                  const FastCfg& cfg, cudaStream_t stream) {
   const bool narrow = cfg.Q <= 16 && cfg.B <= 16 && cfg.R <= 16 && cfg.C <= 16;
-  const unsigned blocks = static_cast<unsigned>(narrow ? (walks + 1) / 2 : walks);
-#define WALK(kWidth, kOne)                                                        \
-  fast_walk_kernel<kWidth, kBus, kAct, kOne><<<blocks, 32, 0, stream>>>(traces, tc, lat, hit, \
-                                                                        W, walks, cfg)
+  const long long per_block = (narrow ? 2LL : 1LL) * kWarps;   // walks a block
+  const unsigned blocks = static_cast<unsigned>((walks + per_block - 1) / per_block);
+#define WALK(kWidth, kOne)                                                                  \
+  fast_walk_kernel<kWidth, kBus, kAct, kOne, kWarps><<<blocks, 32 * kWarps, 0, stream>>>( \
+      traces, tc, lat, hit, W, walks, cfg)
   if (narrow) {
     if (cfg.Q == 1) WALK(16, true); else WALK(16, false);
   } else {
     if (cfg.Q == 1) WALK(32, true); else WALK(32, false);
   }
 #undef WALK
+}
+
+template <bool kBus, bool kAct>
+int launch_fast_warps(const int* traces, const int* tc, int* lat, int* hit, int walks, int W,
+                      const FastCfg& cfg, int warps, cudaStream_t stream) {
+  switch (warps) {
+    case 1: launch_fast<kBus, kAct, 1>(traces, tc, lat, hit, walks, W, cfg, stream); break;
+    case 2: launch_fast<kBus, kAct, 2>(traces, tc, lat, hit, walks, W, cfg, stream); break;
+    case 4: launch_fast<kBus, kAct, 4>(traces, tc, lat, hit, walks, W, cfg, stream); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -435,10 +457,10 @@ extern "C" int bank_sched_walk_launch(const int* traces, const int* tc, int* lat
 
 // The fast kernel's entry point: the same arguments, for B, R, C <= 32,
 // arrivals nondecreasing along each trace and n < 2^25 (the wrapper checks
-// the arrivals; here the sizes).
+// the arrivals; here the sizes), and `warps` (1, 2 or 4) warps a block.
 extern "C" int bank_sched_fast_launch(const int* traces, const int* tc, int* lat, int* hit,
                                       int T, int W, int n, int Q, int B, int R, int C, int tbl,
-                                      int trrd, int tfaw, int use_bus, int use_act,
+                                      int trrd, int tfaw, int use_bus, int use_act, int warps,
                                       void* stream) {
   if (T <= 0 || W <= 0 || n <= 0) return 0;
   if (Q < 1 || Q > 32 || Q > n || B < 1 || R < 1 || C < 1 || B > 32 || R > 32 || C > 32 ||
@@ -448,9 +470,9 @@ extern "C" int bank_sched_fast_launch(const int* traces, const int* tc, int* lat
   const FastCfg cfg{n, Q, B, R, C, tbl, trrd, tfaw};
   const int walks = T * W;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (use_bus && use_act) launch_fast<true, true>(traces, tc, lat, hit, walks, W, cfg, s);
-  else if (use_bus) launch_fast<true, false>(traces, tc, lat, hit, walks, W, cfg, s);
-  else if (use_act) launch_fast<false, true>(traces, tc, lat, hit, walks, W, cfg, s);
-  else launch_fast<false, false>(traces, tc, lat, hit, walks, W, cfg, s);
-  return static_cast<int>(cudaGetLastError());
+  if (use_bus && use_act)
+    return launch_fast_warps<true, true>(traces, tc, lat, hit, walks, W, cfg, warps, s);
+  if (use_bus) return launch_fast_warps<true, false>(traces, tc, lat, hit, walks, W, cfg, warps, s);
+  if (use_act) return launch_fast_warps<false, true>(traces, tc, lat, hit, walks, W, cfg, warps, s);
+  return launch_fast_warps<false, false>(traces, tc, lat, hit, walks, W, cfg, warps, s);
 }

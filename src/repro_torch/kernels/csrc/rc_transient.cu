@@ -39,7 +39,10 @@
 // kernel with the n_seg ladder voltages, the cell voltage and the crossing
 // time in registers (n_seg is a template parameter, so the ladder unrolls
 // into registers).  No shared memory and no synchronisation: cells are
-// independent.  What cuts the issued instructions a step:
+// independent, and a warp is 32 consecutive cells in any block, so the
+// block's size (kThreads: 128 by default, 32, 64 or 256 in the tuner's
+// launch space) changes no cell's operations.  What cuts the issued
+// instructions a step:
 // - Divisions.  Every divisor but the sigmoid's is a constant of the launch
 //   (tau_seg, wl_slope, tau_acc_cell, tau_acc_node, tau_pre): its refined
 //   reciprocal is computed once and each division is div_fast's three fmas
@@ -76,7 +79,6 @@ namespace {
 using fast_div::Divisor;
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kThreads = 128;
 // the least nonzero |x| a fast division may take, in qdiv's key form
 constexpr unsigned kKeyLo = (fast_div::kWideNumLoBits << 1) - 1u;
 
@@ -216,7 +218,7 @@ __device__ __forceinline__ Cell run_shared_tap(int tap, float t_wl, const Circui
   }
 }
 
-template <int kSeg>
+template <int kSeg, int kThreads>
 __global__ void __launch_bounds__(kThreads)
 rc_transient_kernel(const float* __restrict__ row_frac, const float* __restrict__ col_frac,
                     float* __restrict__ v_probe_out, float* __restrict__ v_cell_out,
@@ -258,13 +260,32 @@ rc_transient_kernel(const float* __restrict__ row_frac, const float* __restrict_
   }
 }
 
-template <int kSeg>
+template <int kSeg, int kThreads>
 int launch(const float* row_frac, const float* col_frac, float* v_probe, float* v_cell,
            float* sense, int n, const Circuit& c, unsigned long long* counters, void* stream) {
   const int blocks = (n + kThreads - 1) / kThreads;
-  rc_transient_kernel<kSeg><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      row_frac, col_frac, v_probe, v_cell, sense, n, c, counters);
+  rc_transient_kernel<kSeg, kThreads>
+      <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(row_frac, col_frac, v_probe,
+                                                                   v_cell, sense, n, c, counters);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the instantiation for `threads` a block (the launch space)
+template <int kSeg>
+int launch_threads(const float* row_frac, const float* col_frac, float* v_probe,
+                   float* v_cell, float* sense, int n, const Circuit& c,
+                   unsigned long long* counters, int threads, void* stream) {
+  switch (threads) {
+    case 128: return launch<kSeg, 128>(row_frac, col_frac, v_probe, v_cell, sense, n, c,
+                                       counters, stream);
+    case 64: return launch<kSeg, 64>(row_frac, col_frac, v_probe, v_cell, sense, n, c,
+                                     counters, stream);
+    case 256: return launch<kSeg, 256>(row_frac, col_frac, v_probe, v_cell, sense, n, c,
+                                       counters, stream);
+    case 32: return launch<kSeg, 32>(row_frac, col_frac, v_probe, v_cell, sense, n, c,
+                                     counters, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // The fast divisions against "/" on every float32 operand of their ranges:
@@ -308,8 +329,9 @@ __global__ void div_check_kernel(const float* __restrict__ divisors, int n, int 
 
 // Plain C entry points for ctypes.  Each launches on `stream` (PyTorch's
 // current stream) and returns cudaGetLastError() as an int: non-zero means the
-// launch was refused and nothing ran (cudaErrorInvalidValue for an n_seg
-// without an instantiation or phase bounds out of order).
+// launch was refused and nothing ran (cudaErrorInvalidValue for an n_seg or
+// a block size without an instantiation, or phase bounds out of order).
+// threads: 128, 64, 256 or 32 cells a block.
 //
 // i_sa and i_pre are the first steps of the sense-amp and precharge phases
 // (0 <= i_sa <= i_pre <= steps); fast = 0 runs every cell with IEEE
@@ -323,7 +345,7 @@ extern "C" int rc_transient_launch(const float* row_frac, const float* col_frac,
                                    float sa_enable, float dt, float tau_seg,
                                    float tau_acc_cell, float tau_acc_node, float tau_pre,
                                    float wl_slope, float sa_steep, float t_pre, float v_ready,
-                                   float v_cell0, unsigned long long* counters,
+                                   float v_cell0, unsigned long long* counters, int threads,
                                    void* stream) {
   if (!(0 <= i_sa && i_sa <= i_pre && i_pre <= steps))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -332,10 +354,15 @@ extern "C" int rc_transient_launch(const float* row_frac, const float* col_frac,
                   wl_slope, sa_steep, t_pre,        v_ready,      v_cell0,
                   steps,    i_sa,     i_pre,        fast};
   switch (n_seg) {
-    case 4: return launch<4>(row_frac, col_frac, v_probe, v_cell, sense, n, c, counters, stream);
-    case 8: return launch<8>(row_frac, col_frac, v_probe, v_cell, sense, n, c, counters, stream);
+    case 4:
+      return launch_threads<4>(row_frac, col_frac, v_probe, v_cell, sense, n, c, counters,
+                               threads, stream);
+    case 8:
+      return launch_threads<8>(row_frac, col_frac, v_probe, v_cell, sense, n, c, counters,
+                               threads, stream);
     case 16:
-      return launch<16>(row_frac, col_frac, v_probe, v_cell, sense, n, c, counters, stream);
+      return launch_threads<16>(row_frac, col_frac, v_probe, v_cell, sense, n, c, counters,
+                                threads, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

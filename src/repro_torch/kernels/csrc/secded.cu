@@ -11,7 +11,8 @@
 // and do three integer operations per bit, so they are bound by bytes:
 // 0.983 GB for the Fig 17 syndrome (N = 3,072,000, W = 72), 0.29 ms at an
 // H100 SXM's 3.35 TB/s; 2.42 GB for a 64 MiB blob's encode (N = 8,388,608,
-// W = 64), 0.72 ms.  Design: a block stages its 128
+// W = 64), 0.72 ms.  Design: a block stages its kRows (128 by default; 32
+// and 64 are the launch space the tuner sweeps, kernels/registry.py)
 // codewords (one per thread) in shared memory with coalesced 16-byte loads --
 // a thread reading its own 72 int32 straight from device memory would stride
 // by 288 B -- padded to W + 1 words a row so that the per-thread walk over
@@ -26,7 +27,7 @@ namespace {
 
 constexpr int kDataBits = 64;
 constexpr int kCheckBits = 8;
-constexpr int kRows = 128;   // codewords per block, one per thread
+// codewords per block, one per thread: a template parameter, 128 by default
 
 // Row i of H_DATA (repro_torch/core/ecc.py::_hsiao_columns) as an 8-bit
 // mask, bit j = H_DATA[i, j]: the 56 weight-3 columns, then the first 8
@@ -42,7 +43,7 @@ __constant__ unsigned char kHData[kDataBits] = {
     0x70, 0xB0, 0xD0, 0xE0, 0x1F, 0x2F, 0x4F, 0x8F, 0x37, 0x57, 0x97, 0x67};
 
 // W = 64: data bits -> check bits (encode); W = 72: codeword -> syndrome.
-template <int W>
+template <int W, int kRows>
 __global__ void __launch_bounds__(kRows) parity_kernel(const int* __restrict__ x,
                                                        int* __restrict__ out,
                                                        long long n) {
@@ -82,26 +83,40 @@ __global__ void __launch_bounds__(kRows) parity_kernel(const int* __restrict__ x
   dst[1] = make_int4((acc >> 4) & 1, (acc >> 5) & 1, (acc >> 6) & 1, (acc >> 7) & 1);
 }
 
-template <int W>
+template <int W, int kRows>
 int launch(const int* x, int* out, long long n, void* stream) {
   if (n <= 0) return 0;
   const long long blocks = (n + kRows - 1) / kRows;
   if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  parity_kernel<W><<<static_cast<unsigned>(blocks), kRows, 0,
-                     static_cast<cudaStream_t>(stream)>>>(x, out, n);
+  parity_kernel<W, kRows><<<static_cast<unsigned>(blocks), kRows, 0,
+                            static_cast<cudaStream_t>(stream)>>>(x, out, n);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the instantiation for `rows` codewords a block (the launch space)
+template <int W>
+int launch_rows(const int* x, int* out, long long n, int rows, void* stream) {
+  switch (rows) {
+    case 128: return launch<W, 128>(x, out, n, stream);
+    case 64: return launch<W, 64>(x, out, n, stream);
+    case 32: return launch<W, 32>(x, out, n, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
 // Plain C entry points for ctypes.  `x` is (n, 64) or (n, 72) contiguous
 // int32 and `out` (n, 8) contiguous int32, 16-byte aligned (the wrapper
-// allocates it).  Each launches on `stream` (PyTorch's current stream) and
-// returns cudaGetLastError() as an int: non-zero means nothing ran.
-extern "C" int secded_encode_launch(const int* x, int* out, long long n, void* stream) {
-  return launch<kDataBits>(x, out, n, stream);
+// allocates it); `rows` is 128, 64 or 32 codewords a block.  Each launches
+// on `stream` (PyTorch's current stream) and returns cudaGetLastError() as an
+// int: non-zero means nothing ran.
+extern "C" int secded_encode_launch(const int* x, int* out, long long n, int rows,
+                                    void* stream) {
+  return launch_rows<kDataBits>(x, out, n, rows, stream);
 }
 
-extern "C" int secded_syndrome_launch(const int* x, int* out, long long n, void* stream) {
-  return launch<kDataBits + kCheckBits>(x, out, n, stream);
+extern "C" int secded_syndrome_launch(const int* x, int* out, long long n, int rows,
+                                      void* stream) {
+  return launch_rows<kDataBits + kCheckBits>(x, out, n, rows, stream);
 }

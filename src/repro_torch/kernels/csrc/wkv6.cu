@@ -36,9 +36,11 @@
 // 3 kRows + kCols per thread (r, k, decay of its rows; v of its columns)
 // for kRows * kCols elements.  No step waits on another thread: each row
 // group writes its partial sums to shared memory, and only at the end of a
-// chunk of kT steps does the block add the row groups' partials and v_j
-// times the step's rank-one sum, and write the chunk's y as one coalesced
-// tile.  While a chunk computes, the next chunk's r, k, v, wlog are already
+// chunk of kT steps (12 by default; 8 and 4 are the tuner's launch space,
+// kernels/registry.py: a step's operations and their order are the same in
+// any chunk, so the bits are too) does the block add the row groups'
+// partials and v_j times the step's rank-one sum, and write the chunk's y
+// as one coalesced tile.  While a chunk computes, the next chunk's r, k, v, wlog are already
 // loading into registers (raw 16- or 32-bit words, so no wait); between
 // chunks the block widens them into shared memory and computes the chunk's
 // decays exp(-exp(wlog)) and rank-one sums sum_i r u k in parallel.  Three
@@ -55,8 +57,6 @@ namespace {
 using wkv6io::load_raw;
 using wkv6io::widen;
 
-constexpr int kT = 12;   // steps per chunk
-
 // A thread's tile of the state: kRows x kCols, by head width
 template <int kDh> struct Tile;
 template <> struct Tile<64> { static constexpr int kRows = 8, kCols = 4; };
@@ -64,7 +64,8 @@ template <> struct Tile<32> { static constexpr int kRows = 4, kCols = 4; };
 template <> struct Tile<16> { static constexpr int kRows = 4, kCols = 2; };
 template <> struct Tile<8> { static constexpr int kRows = 2, kCols = 1; };
 
-template <int kDh>
+// the block's roles at head width kDh and kT steps a chunk
+template <int kDh, int kT>
 struct Shape {
   static constexpr int kRows = Tile<kDh>::kRows, kCols = Tile<kDh>::kCols;
   static constexpr int kColThreads = kDh / kCols;          // threads across the columns
@@ -103,13 +104,13 @@ __device__ __forceinline__ void store_vec(float* p, const float* x) {
   }
 }
 
-template <int kDh>
-__global__ void __launch_bounds__(Shape<kDh>::kThreads, 2)
+template <int kDh, int kT>
+__global__ void __launch_bounds__(Shape<kDh, kT>::kThreads, 2)
 wkv6_kernel(const void* __restrict__ r, const void* __restrict__ k,
             const void* __restrict__ v, const void* __restrict__ wlog, int cr, int ck,
             int cv, int cw, const float* __restrict__ u, const float* __restrict__ s0,
             float* __restrict__ y, float* __restrict__ s_out, int S, int H) {
-  using Sh = Shape<kDh>;
+  using Sh = Shape<kDh, kT>;
   constexpr int kRows = Sh::kRows, kCols = Sh::kCols;
   constexpr int kVec = kRows < 4 ? kRows : 4;   // floats per shared load of r, k, decay
   __shared__ __align__(16) float s_r[kT][kDh];
@@ -228,11 +229,21 @@ wkv6_kernel(const void* __restrict__ r, const void* __restrict__ k,
 }
 
 template <int kDh>
-void launch(const void* r, const void* k, const void* v, const void* wlog, int cr, int ck,
-            int cv, int cw, const float* u, const float* s0, float* y, float* s_out, int B,
-            int S, int H, cudaStream_t stream) {
-  wkv6_kernel<kDh><<<B * H, Shape<kDh>::kThreads, 0, stream>>>(
-      r, k, v, wlog, cr, ck, cv, cw, u, s0, y, s_out, S, H);
+int launch(const void* r, const void* k, const void* v, const void* wlog, int cr, int ck,
+           int cv, int cw, const float* u, const float* s0, float* y, float* s_out, int B,
+           int S, int H, int chunk, cudaStream_t stream) {
+#define WKV6_CHUNK(T)                                                              \
+  case T:                                                                          \
+    wkv6_kernel<kDh, T><<<B * H, Shape<kDh, T>::kThreads, 0, stream>>>(            \
+        r, k, v, wlog, cr, ck, cv, cw, u, s0, y, s_out, S, H);                     \
+    return static_cast<int>(cudaGetLastError());
+  switch (chunk) {
+    WKV6_CHUNK(12)
+    WKV6_CHUNK(8)
+    WKV6_CHUNK(4)
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef WKV6_CHUNK
 }
 
 }  // namespace
@@ -240,25 +251,25 @@ void launch(const void* r, const void* k, const void* v, const void* wlog, int c
 // r, k, v, wlog, y: (B, S, H, dh), contiguous; r..wlog each float32 (dtype
 // code 0), float16 (1) or bfloat16 (2), y float32; u: (H, dh) float32; s0 (or
 // null for zeros) and s_out: (B, H, dh, dh) float32, 16-byte aligned.  S >= 1 and B*H >= 1.
-// Returns the CUDA error of the launch (0 on success).
+// chunk: 12, 8 or 4 steps a chunk.  Returns the CUDA error of the launch (0 on
+// success).
 extern "C" int wkv6_launch(const void* r, const void* k, const void* v, const void* wlog,
                            int r_dtype, int k_dtype, int v_dtype, int w_dtype,
                            const float* u, const float* s0, float* y, float* s_out, int B,
-                           int S, int H, int dh, cudaStream_t stream) {
+                           int S, int H, int dh, int chunk, cudaStream_t stream) {
   if (B < 1 || S < 1 || H < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int codes[4] = {r_dtype, k_dtype, v_dtype, w_dtype};
   for (int c : codes)
     if (!wkv6io::valid(c)) return static_cast<int>(cudaErrorInvalidValue);
   switch (dh) {
-    case 8: launch<8>(r, k, v, wlog, r_dtype, k_dtype, v_dtype, w_dtype, u, s0, y, s_out,
-                      B, S, H, stream); break;
-    case 16: launch<16>(r, k, v, wlog, r_dtype, k_dtype, v_dtype, w_dtype, u, s0, y, s_out,
-                        B, S, H, stream); break;
-    case 32: launch<32>(r, k, v, wlog, r_dtype, k_dtype, v_dtype, w_dtype, u, s0, y, s_out,
-                        B, S, H, stream); break;
-    case 64: launch<64>(r, k, v, wlog, r_dtype, k_dtype, v_dtype, w_dtype, u, s0, y, s_out,
-                        B, S, H, stream); break;
+    case 8: return launch<8>(r, k, v, wlog, r_dtype, k_dtype, v_dtype, w_dtype, u, s0, y,
+                             s_out, B, S, H, chunk, stream);
+    case 16: return launch<16>(r, k, v, wlog, r_dtype, k_dtype, v_dtype, w_dtype, u, s0, y,
+                               s_out, B, S, H, chunk, stream);
+    case 32: return launch<32>(r, k, v, wlog, r_dtype, k_dtype, v_dtype, w_dtype, u, s0, y,
+                               s_out, B, S, H, chunk, stream);
+    case 64: return launch<64>(r, k, v, wlog, r_dtype, k_dtype, v_dtype, w_dtype, u, s0, y,
+                               s_out, B, S, H, chunk, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -1,28 +1,19 @@
 """The port's kernel inventory and its launch counts.
 
-Each entry is a hand-written CUDA kernel's public wrapper: it dispatches by
-its tensors' device (CPU -> the plain PyTorch version, CUDA -> the kernel, or
-it raises) and carries ``launches``, a count of kernel launches that nothing
-but the launch itself increments.  There is no backend switch and no
-fallback: a CUDA tensor runs the kernel.  Each of the reference's nine
-Pallas kernels has its entry here, and so has ``wkv6_bwd``, the backward of
-``wkv6`` (the reference differentiates its scan with XLA instead).
+Each entry is a hand-written CUDA kernel's public wrapper, taken from
+``kernels/registry.py``'s ``REGISTRY`` (the reference's nine dispatch sites
+and ``wkv6_bwd``, the backward of ``wkv6``, which the reference leaves to
+XLA).  A wrapper dispatches by its tensors' device (CPU -> the plain
+PyTorch version, CUDA -> the kernel at the launch ``kernels/tune.py`` picks,
+or it raises) and carries ``launches``, a count of kernel launches that
+nothing but the launch itself increments (a tuner's sweep counts nowhere).
+There is no backend switch and no fallback: a CUDA tensor runs the kernel.
 """
 from __future__ import annotations
 
-from repro_torch.kernels.bank_sched import memsim_walk
-from repro_torch.kernels.bit_signature import bit_signature
-from repro_torch.kernels.fail_prob import fail_prob, fail_prob_op
-from repro_torch.kernels.rc_transient import rc_transient
-from repro_torch.kernels.secded import encode_checks, syndrome
-from repro_torch.kernels.shuffle import apply_shuffle
-from repro_torch.kernels.wkv6 import wkv6, wkv6_bwd
+from repro_torch.kernels.registry import REGISTRY
 
-KERNELS = {"fail_prob": fail_prob, "secded_encode": encode_checks,
-           "secded_syndrome": syndrome, "diva_shuffle": apply_shuffle,
-           "bank_sched": memsim_walk, "fail_prob_op": fail_prob_op,
-           "bit_signature": bit_signature, "rc_transient": rc_transient,
-           "wkv6": wkv6, "wkv6_bwd": wkv6_bwd}
+KERNELS = {name: spec.kernel for name, spec in REGISTRY.items()}
 
 
 def reset_launches() -> None:

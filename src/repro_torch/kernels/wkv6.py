@@ -27,8 +27,8 @@ was given.
 Dispatch is by the tensors' device alone: CPU tensors go to the plain
 versions ``wkv6_ref`` / ``wkv6_bwd_ref``, CUDA tensors to the kernels in
 ``csrc/wkv6.cu`` / ``csrc/wkv6_bwd.cu`` (their headers state the bounds and
-the designs); anything else raises.  ``wkv6.launches`` and
-``wkv6_bwd.launches`` count kernel launches.
+the designs) at the launch ``kernels/tune.py`` picks; anything else raises.
+``wkv6.launches`` and ``wkv6_bwd.launches`` count kernel launches.
 
 Fake tensors (the dry run, ``launch/dryrun.py``) take the kernels' path up
 to the launch: the same conversions and allocations, outputs of the right
@@ -47,6 +47,7 @@ import functools
 import torch
 
 from repro_torch.counting import active_counter, is_fake
+from repro_torch.kernels import tune
 
 DH = (8, 16, 32, 64)   # the kernel's instantiations of the head width
 # the input dtypes, with their codes in csrc/wkv6.cu
@@ -169,14 +170,16 @@ def _entry():
     fn = load("wkv6").wkv6_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     return fn
 
 
-def _launch(r, k, v, wlog, u, init_state, fake: bool = False):
+def _launch(r, k, v, wlog, u, init_state, fake: bool = False, chunk: int = 12):
     """Launch the kernel on r, k, v, wlog in their own dtypes (no cast, and no
-    copy of a contiguous tensor); returns ``(y, final state)`` or raises.
+    copy of a contiguous tensor) at ``chunk`` steps a chunk; returns ``(y,
+    final state)`` (uncounted: the tuner's sweep runs this too) or raises.
     ``fake``: everything but the launch (fake tensors)."""
+    from repro_torch.kernels.build import LaunchError
     B, S, H, dh = r.shape
     if dh not in DH:
         raise ValueError(f"the wkv6 kernel is built for dh in {DH}, got {dh}")
@@ -191,7 +194,7 @@ def _launch(r, k, v, wlog, u, init_state, fake: bool = False):
     args = (r.data_ptr(), k.data_ptr(), v.data_ptr(), wlog.data_ptr(),
             _CODE[r.dtype], _CODE[k.dtype], _CODE[v.dtype], _CODE[wlog.dtype],
             u.data_ptr(), 0 if s0 is None else s0.data_ptr(), y.data_ptr(),
-            state.data_ptr(), B, S, H, dh,
+            state.data_ptr(), B, S, H, dh, chunk,
             # the current stream's handle, as torch.cuda.current_stream(index)
             # .cuda_stream gives it, without building a Stream object
             torch._C._cuda_getCurrentRawStream(index))
@@ -201,26 +204,30 @@ def _launch(r, k, v, wlog, u, init_state, fake: bool = False):
         with torch.cuda.device(index):
             err = _entry()(*args)
     if err != 0:
-        raise RuntimeError(f"wkv6 failed: CUDA error {err}")
+        raise LaunchError(f"wkv6 failed: CUDA error {err}")
     return y, state
 
 
-def _forward(r, k, v, wlog, u, init_state):
+def _forward(r, k, v, wlog, u, init_state, launch=None):
     """``(y, final state)`` on the tensors' device: the plain version on the
-    CPU, the kernel (counted) on a card, its outputs' shapes on fake
-    tensors."""
+    CPU, the kernel (counted) on a card at the launch ``tune`` resolves, its
+    outputs' shapes on fake tensors."""
     B, S, H, dh = r.shape
-    counter = _counted("wkv6", lambda: wkv6_work(r, k, v, wlog, u, init_state)) \
-        if S and B * H else None
+    args = (r, k, v, wlog, u, init_state)
+    counter = _counted("wkv6", lambda: wkv6_work(*args)) if S and B * H else None
     if is_fake(r) and S and B * H:
-        return _launch(r, k, v, wlog, u, init_state, fake=True)
+        tune.resolve("wkv6", launch, args, {}, None)   # checked; fake: no sweep
+        return _launch(*args, fake=True)
     if r.device.type == "cpu":
-        return _plain(counter, wkv6_ref, r, k, v, wlog, u, init_state)
+        tune.resolve("wkv6", launch, args, {}, lambda setting: wkv6_ref(*args))
+        return _plain(counter, wkv6_ref, *args)
+    run = lambda setting: _launch(*args, chunk=setting["chunk"])
+    setting = tune.resolve("wkv6", launch, args, {}, run)
     if S == 0 or B * H == 0:
         state = torch.zeros((B, H, dh, dh), dtype=torch.float32, device=r.device) \
             if init_state is None else init_state.clone()
         return torch.empty((B, S, H, dh), dtype=torch.float32, device=r.device), state
-    out = _launch(r, k, v, wlog, u, init_state)
+    out = run(setting)
     wkv6.launches += 1
     return out
 
@@ -231,10 +238,10 @@ class Wkv6Fn(torch.autograd.Function):
     the inputs, not the states: the backward recomputes them."""
 
     @staticmethod
-    def forward(ctx, r, k, v, wlog, u, init_state):
+    def forward(ctx, r, k, v, wlog, u, init_state, launch=None):
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(r, k, v, wlog, u, init_state)
-        return _forward(r, k, v, wlog, u, init_state)
+        return _forward(r, k, v, wlog, u, init_state, launch)
 
     @staticmethod
     def backward(ctx, dy, dstate):
@@ -242,19 +249,21 @@ class Wkv6Fn(torch.autograd.Function):
         if dy is None:
             dy = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
         grads = wkv6_bwd(r, k, v, wlog, u, init_state, dy, dstate)
-        return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))
+        return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad)) \
+            + (None,)   # the launch setting
 
 
-def wkv6(r, k, v, wlog, u, init_state=None):
+def wkv6(r, k, v, wlog, u, init_state=None, *, launch: dict | None = None):
     """``r, k, v, wlog``: (B, S, H, dh); ``u``: (H, dh); ``init_state``: None
     (zeros) or (B, H, dh, dh) float32; all on one device.  Returns ``(y, s)``:
     y (B, S, H, dh) float32 and the final state (B, H, dh, dh) float32, both
-    differentiable through ``Wkv6Fn``."""
+    differentiable through ``Wkv6Fn``.  ``launch``: a setting of ``wkv6``'s
+    launch space (``kernels/registry.py``), or None for the tuner's choice."""
     _check(r, k, v, wlog, u, init_state)
     kind = r.device.type
     if kind not in ("cpu", "cuda"):
         raise ValueError(f"wkv6 runs on cpu or cuda tensors, not {kind}")
-    return Wkv6Fn.apply(r, k, v, wlog, u, init_state)
+    return Wkv6Fn.apply(r, k, v, wlog, u, init_state, launch)
 
 
 wkv6.launches = 0
@@ -354,16 +363,19 @@ def _bwd_launch(r, k, v, wlog, u, init_state, dy, dstate, fake: bool = False):
         with torch.cuda.device(index):
             err = _bwd_entry()(*args)
     if err != 0:
-        raise RuntimeError(f"wkv6_bwd failed: CUDA error {err}")
+        raise LaunchError(f"wkv6_bwd failed: CUDA error {err}")
     return dr, dk, dv, dw, du, ds0
 
 
-def wkv6_bwd(r, k, v, wlog, u, init_state, dy, dstate=None):
+def wkv6_bwd(r, k, v, wlog, u, init_state, dy, dstate=None, *,
+             launch: dict | None = None):
     """The VJP of ``wkv6`` at ``(r, k, v, wlog, u, init_state)`` for the
     cotangents ``dy`` (B, S, H, dh) of ``y`` and ``dstate`` (None for zeros,
     or (B, H, dh, dh)) of the final state.  Returns ``(dr, dk, dv, dwlog, du,
     d init_state)`` as ``wkv6_bwd_ref`` does: the plain version on CPU
-    tensors, the kernel on CUDA tensors."""
+    tensors, the kernel on CUDA tensors.  ``launch``: a setting of
+    ``wkv6_bwd``'s launch space, which holds the default alone
+    (``kernels/registry.py`` says why), or None."""
     _check(r, k, v, wlog, u, init_state)
     if dy.shape != r.shape or dy.device != r.device:
         raise ValueError(f"dy must be {tuple(r.shape)} on {r.device}, got "
@@ -378,15 +390,19 @@ def wkv6_bwd(r, k, v, wlog, u, init_state, dy, dstate=None):
     args = (r, k, v, wlog, u, init_state, dy, dstate)
     counter = _counted("wkv6_bwd", lambda: wkv6_bwd_work(*args)) if S and B * H else None
     if is_fake(r) and S and B * H:
+        tune.resolve("wkv6_bwd", launch, args, {}, None)   # checked; fake: no sweep
         return _bwd_launch(*args, fake=True)
     if kind == "cpu":
+        tune.resolve("wkv6_bwd", launch, args, {}, lambda setting: wkv6_bwd_ref(*args))
         return _plain(counter, wkv6_bwd_ref, *args)
+    run = lambda setting: _bwd_launch(*args)
+    setting = tune.resolve("wkv6_bwd", launch, args, {}, run)
     if S == 0 or B * H == 0:
         zeros = [torch.zeros_like(t) for t in (r, k, v, wlog, u)]
         d0 = None if init_state is None else (
             torch.zeros_like(init_state) if dstate is None else dstate.float().clone())
         return (*zeros, d0)
-    out = _bwd_launch(r, k, v, wlog, u, init_state, dy, dstate)
+    out = run(setting)
     wkv6_bwd.launches += 1
     return out
 
