@@ -27,8 +27,13 @@ Per-DIMM outputs do not depend on the chunk size: per-DIMM computation is
 independent along D and every draw is keyed by serial.  Integer
 cross-DIMM folds are exact; float ones are widened to float64 and hold to a
 tolerance across chunk sizes.  Each chunk call bumps
-``repro_stream_chunks_total{entry}`` and, while a trace is recorded, opens a
-``stream.chunk`` span; folded DIMMs count in ``repro_stream_dimms_total``.
+``repro_stream_chunks_total{entry}``.  While a trace is recorded,
+``stream_population`` records each call as a ``stream.call`` span and each
+chunk's stages under it: ``stream.lower`` (the chunk factory and the
+padding), ``stream.prep`` (the host tables), ``stream.chunk`` (the chunk
+program, waiting for its outputs at close), ``stream.readback`` (the
+outputs to numpy) and ``stream.fold`` (the reductions), every one with
+``chunk=(call span id, lo)``.
 ``mesh=`` (a ``sharding.DimmMesh``) shards each chunk over the DIMM axis:
 the chunk size is rounded up to the mesh's size and each chunk runs through
 ``substrate._run_sharded``, which cannot change a per-DIMM integer or
@@ -68,17 +73,13 @@ from repro_torch.obs import REGISTRY as _OBS_REGISTRY
 from repro_torch.obs import tracing as _obs_tracing
 from repro_torch.sharding import DimmMesh, chunk_spans, mesh_device
 
-# Streaming throughput accounting, counted at the HOST chunk boundary: chunk
-# calls by entry point and folded DIMMs (clone-padding excluded).  Per-chunk
-# spans are guarded on ``tracing.active()`` so an idle tracer costs the loop
-# one branch.
+# Chunk calls by entry point, counted at the HOST chunk boundary.  The stage
+# spans are ``span_if_active`` sections: an idle tracer costs the loop one
+# branch a stage.
 _OBS_CHUNKS = _OBS_REGISTRY.counter(
     "repro_stream_chunks_total",
     "chunk programs dispatched by the streaming driver, by entry point",
     labelnames=("entry",))
-_OBS_DIMMS = _OBS_REGISTRY.counter(
-    "repro_stream_dimms_total",
-    "DIMMs folded through streaming scans (clone-padding excluded)")
 
 
 # ------------------------------------------------------------- the stream
@@ -276,19 +277,26 @@ def _padded_width(chunk_size: int, mesh: DimmMesh | None) -> int:
     return chunk_size if mesh is None else chunk_size + (-chunk_size) % mesh.size
 
 
-def stream_population(source, program, reducers: dict, *,
-                      chunk_size: int = 1024,
+def stream_population(source, entry: str, prep, readback, reducers: dict,
+                      *, chunk_size: int = 1024,
                       mesh: DimmMesh | None = None) -> dict:
-    """Run ``program`` over fixed-size population chunks, folding outputs
-    through online reductions — no full-population result is ever resident.
+    """Run a chunk program over fixed-size population chunks, folding its
+    outputs through online reductions — no full-population result is ever
+    resident.
 
-    ``program(chunk_batch, keep, lo) -> dict[str, array]`` is called once per
-    chunk with the clone-padded chunk (every chunk the same width) and a
-    ``keep`` (chunk_size,) bool numpy mask that is False on padding —
-    programs that reduce over the chunk's DIMM axis on the device must mask
-    with it.  ``reducers`` maps output names to ``Reduction`` instances;
-    per-DIMM outputs are pad-stripped before folding.  With a ``mesh`` the
-    chunk width is rounded up to its size (the program shards the chunk).
+    Per chunk: ``prep(chunk_batch, keep)`` builds the host tables and
+    returns the chunk program's call ``(fn, args, statics, batch_argnums)``,
+    which ``_chunk_call`` runs as ``entry``, split over ``mesh`` along the
+    ``batch_argnums`` arguments (with none, ``fn`` takes the whole chunk
+    and splits it itself); ``readback(out, keep) -> dict[str, array]``
+    brings the outputs to the host by reducer name.  ``chunk_batch`` is the
+    clone-padded chunk (every chunk the same width) and ``keep`` a
+    (chunk_size,) bool numpy mask that is False on padding — programs that
+    reduce over the chunk's DIMM axis on the device must mask with it.
+    ``reducers`` maps output names to ``Reduction`` instances; per-DIMM
+    outputs are pad-stripped before folding.  With a ``mesh`` the chunk
+    width is rounded up to its size.  Each stage is a span while a trace is
+    recorded (the module's docstring).
 
     Returns ``{name: reduction.result()}`` plus ``n_dimms`` / ``n_chunks`` /
     ``chunk_size``.
@@ -296,33 +304,45 @@ def stream_population(source, program, reducers: dict, *,
     stream = as_stream(source)
     spans = chunk_spans(stream.n_dimms, chunk_size, mesh)
     full = _padded_width(chunk_size, mesh)
-    for lo, hi in spans:
-        batch = stream.chunk(lo, hi)
-        keep = np.arange(full) < (hi - lo)
-        out = program(pad_batch(batch, full - (hi - lo)), keep, lo)
-        _OBS_DIMMS.inc(hi - lo)
-        serials = batch.serial.cpu().numpy()
-        for name, red in reducers.items():
-            value = np.asarray(out[name])
-            if red.per_dimm:
-                value = value[:hi - lo]
-            red.update(value, serials)
+    stage = _obs_tracing.span_if_active
+    with stage("stream.call", entry=entry, n_chunks=len(spans)) as call:
+        for lo, hi in spans:
+            chunk = (call.id, lo)
+            with stage("stream.lower", chunk=chunk):
+                batch = stream.chunk(lo, hi)
+                keep = np.arange(full) < (hi - lo)
+                padded = pad_batch(batch, full - (hi - lo))
+            with stage("stream.prep", chunk=chunk):
+                fn, args, statics, argnums = prep(padded, keep)
+            out = _chunk_call(entry, fn, args, statics, argnums,
+                              mesh if argnums else None, chunk=chunk)
+            with stage("stream.readback", chunk=chunk):
+                values = readback(out, keep)
+            del padded, args, out     # the chunk's device buffers, not the fold's
+            with stage("stream.fold", chunk=chunk):
+                serials = batch.serial.cpu().numpy()
+                for name, red in reducers.items():
+                    value = np.asarray(values[name])
+                    if red.per_dimm:
+                        value = value[:hi - lo]
+                    red.update(value, serials)
     res = {name: red.result() for name, red in reducers.items()}
     res.update(n_dimms=stream.n_dimms, n_chunks=len(spans), chunk_size=full)
     return res
 
 
 def _chunk_call(name: str, fn, args: tuple, statics: dict,
-                batch_argnums: tuple = (), mesh: DimmMesh | None = None):
+                batch_argnums: tuple = (), mesh: DimmMesh | None = None,
+                chunk: tuple | None = None):
     """One chunk's program, run eagerly (split over ``mesh`` by
-    ``substrate._dispatch`` when one is given): the streaming layer's one
-    instrumentation point — a chunk counter always, a "stream.chunk" span
-    (waiting for the chunk's device work at close) only while a trace is
-    recording; both once a chunk, whatever the mesh."""
+    ``substrate._dispatch`` when one is given): a chunk counter always, and
+    while a trace is recording a "stream.chunk" span (``entry=name``, and
+    ``chunk`` where given) that waits for the chunk's device work at close;
+    both once a chunk, whatever the mesh."""
     _OBS_CHUNKS.labels(entry=name).inc()
-    if not _obs_tracing.active():
-        return _dispatch(mesh, fn, args, statics, batch_argnums)
-    with _obs_tracing.span("stream.chunk", entry=name) as sp:
+    extra = {} if chunk is None else {"chunk": chunk}
+    with _obs_tracing.span_if_active("stream.chunk", entry=name,
+                                     **extra) as sp:
         out = _dispatch(mesh, fn, args, statics, batch_argnums)
         sp.bind(out)
     return out
@@ -371,7 +391,7 @@ def stream_profile_population(source, *, chunk_size: int = 1024,
         red["tables"] = Collect()
     red.update(tables_min=Min(), tables_max=Max(), tables_stats=Welford())
 
-    def program(batch, keep, lo):
+    def prep(batch, keep):
         dev = batch.device
         adder = torch.as_tensor(condition_adders(batch, temp_C, refresh_ms),
                                 device=dev)
@@ -382,13 +402,15 @@ def stream_profile_population(source, *, chunk_size: int = 1024,
         argnums = (0, 3)
         if ctx_d is not None:
             args, argnums = args + (ctx_d, ctx_g), (0, 3, 4)
-        tables = _chunk_call("stream_profile", _profile_impl, args, statics,
-                             argnums, mesh).cpu().numpy()
+        return _profile_impl, args, statics, argnums
+
+    def readback(tables, keep):
+        tables = tables.cpu().numpy()
         tables = tables if banks > 1 else tables[:, 0]
         return {name: tables for name in red}
 
-    return stream_population(stream, program, red, chunk_size=chunk_size,
-                             mesh=mesh)
+    return stream_population(stream, "stream_profile", prep, readback, red,
+                             chunk_size=chunk_size, mesh=mesh)
 
 
 # ------------------------------------------------- streamed lifetime scan
@@ -444,23 +466,24 @@ def stream_lifetime_population(source, ages, temps, *,
             red.update(stale_fail=Collect(), ecc_lambda=Collect())
             names.update(stale_fail="stale", ecc_lambda="ecc")
 
-    def program(batch, keep, lo):
+    def prep(batch, keep):
         dev = batch.device
         adders = lifetime_adders(batch, ages, temps, refresh_ms)   # (E, C)
-        out = _chunk_call(
-            "stream_lifetime", _lifetime_impl,
-            (batch, torch.as_tensor(rows, dtype=torch.int64, device=dev),
-             torch.as_tensor(pattern_stress(patterns), device=dev),
-             torch.as_tensor(np.ascontiguousarray(adders.T), device=dev)),
-            statics, (0, 3), mesh)
+        return _lifetime_impl, (
+            batch, torch.as_tensor(rows, dtype=torch.int64, device=dev),
+            torch.as_tensor(pattern_stress(patterns), device=dev),
+            torch.as_tensor(np.ascontiguousarray(adders.T), device=dev)
+        ), statics, (0, 3)
+
+    def readback(out, keep):
         out = [sq(v.cpu().numpy()) for v in out]
         vals = {"timings": out[0]}                     # (C, E, [banks,] 4)
         if diagnostics:
             vals["stale"], vals["ecc"] = out[1], out[2]   # (C, E[, banks])
         return {name: vals[names[name]] for name in red}
 
-    out = stream_population(stream, program, red, chunk_size=chunk_size,
-                            mesh=mesh)
+    out = stream_population(stream, "stream_lifetime", prep, readback, red,
+                            chunk_size=chunk_size, mesh=mesh)
     out["ages"], out["temps"] = ages, temps
     return out
 
@@ -515,7 +538,6 @@ def stream_shuffling_gain(probs_source, n_dimms: int | None = None, *,
             (torch.as_tensor(chunk, device=dev),
              torch.as_tensor(seeds.astype(np.int64), device=dev)),
             dict(n_accesses=n_accesses), (0, 1), mesh)
-        _OBS_DIMMS.inc(hi - lo)
         for k, arr in zip(_SHUFFLING_KEYS, out):
             v = arr.cpu().numpy().astype(np.int64)
             red[f"{k}_sum"].update(v, seeds)
@@ -642,7 +664,7 @@ def stream_error_summary(source, param: str, t_op: float, *,
     if collect_fail_maps:
         red["lam_total"] = Collect()
 
-    def program(batch, keep, lo):
+    def prep(batch, keep):
         dev = batch.device
         adder = torch.as_tensor(condition_adders(batch, temp_C, refresh_ms),
                                 device=dev)
@@ -655,11 +677,12 @@ def stream_error_summary(source, param: str, t_op: float, *,
                                   subarray)
         impl, kw = (_error_summary_impl, statics) if mesh is None \
             else (_error_summary_sharded, dict(statics, mesh=mesh))
-        out = _chunk_call(
-            "stream_error_summary", impl,
-            (batch.row_src[:, subarray].contiguous(),
-             torch.as_tensor(d_mat_np, device=dev), coeffs,
-             torch.as_tensor(keep, device=dev)), kw)
+        # no batch_argnums: the sharded program splits the chunk itself
+        return impl, (batch.row_src[:, subarray].contiguous(),
+                      torch.as_tensor(d_mat_np, device=dev), coeffs,
+                      torch.as_tensor(keep, device=dev)), kw, ()
+
+    def readback(out, keep):
         out = {k: v.cpu().numpy() for k, v in out.items()}
         # fleet aggregates fold across many chunks: widen before the host add
         out["grid_sum"] = out["grid_sum"].astype(np.float64)
@@ -668,8 +691,8 @@ def stream_error_summary(source, param: str, t_op: float, *,
             packed_maps.append(pack_bool(out["row_fail"][:int(keep.sum())]))
         return {name: out[names[name]] for name in red}
 
-    out = stream_population(stream, program, red, chunk_size=chunk_size,
-                            mesh=mesh)
+    out = stream_population(stream, "stream_error_summary", prep, readback,
+                            red, chunk_size=chunk_size, mesh=mesh)
     if collect_fail_maps:
         out["fail_maps"] = packed_maps
     return out
@@ -719,23 +742,24 @@ def stream_operating_grid(source, points, *, chunk_size: int = 1024,
         red.update(fails=Collect(), lam=Collect())
         names.update(fails="fails", lam="lam")
 
-    def program(batch, keep, lo):
+    def prep(batch, keep):
         dev = batch.device
         as_t = lambda a: torch.as_tensor(a, device=dev)
         t_g, adders_dg, shifts_dg, keys_g, retx_g = \
             operating_grid_tables(batch, points)
-        fails, lam = _chunk_call(
-            "stream_op_grid", _op_grid_impl,
-            (batch, torch.as_tensor(rows, dtype=torch.int64, device=dev),
-             as_t(pattern_stress(patterns)), as_t(t_g), as_t(adders_dg),
-             as_t(shifts_dg), keys_g, as_t(retx_g)),
-            statics, (0, 4, 5), mesh)
+        return _op_grid_impl, (
+            batch, torch.as_tensor(rows, dtype=torch.int64, device=dev),
+            as_t(pattern_stress(patterns)), as_t(t_g), as_t(adders_dg),
+            as_t(shifts_dg), keys_g, as_t(retx_g)), statics, (0, 4, 5)
+
+    def readback(out, keep):
+        fails, lam = out
         vals = {"fails": sq(fails.cpu().numpy()),
                 "lam": sq(lam.cpu().numpy())}
         return {name: vals[names[name]] for name in red}
 
-    out = stream_population(stream, program, red, chunk_size=chunk_size,
-                            mesh=mesh)
+    out = stream_population(stream, "stream_op_grid", prep, readback, red,
+                            chunk_size=chunk_size, mesh=mesh)
     out["points"] = points
     return out
 
@@ -921,7 +945,6 @@ def stream_discover_generations(source, *, counts_fn=None, param: str = "trp",
         sigs = bit_signature_population(counts.astype(np.int32),
                                         device=batch.device, mesh=mesh)
         labels = gens.update(signature_features(sigs), counts)
-        _OBS_DIMMS.inc(hi - lo)
         if collect_labels:
             labels_parts.append(labels)
             serial_parts.append(batch.serial.cpu().numpy())

@@ -75,6 +75,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.fail_prob import fail_prob
 from repro_torch.kernels.secded import syndrome
 from repro_torch.kernels.shuffle import apply_shuffle
+from repro_torch.obs import tracing as _obs_tracing
 from repro_torch.sharding import DimmMesh, mesh_device
 
 TIMING_GRIDS = {p: AXES[p].grid for p in PARAMS}
@@ -441,17 +442,21 @@ def _sweep_param(batch: DimmBatch, pidx: int, floor, rows, stress, adder,
     Reproduces the walker: stop at the first grid point that fails or
     undercuts the floor, keep the last safe value, add the guardband.  The
     walk ends early once every (DIMM, bank) has stopped; the remaining grid
-    points cannot change the result.
+    points cannot change the result.  While a trace is recorded the walk is
+    a ``sweep.param`` span whose ``points`` counts the grid points it
+    evaluated: its host syncs.
     """
     grid = TIMING_GRIDS[PARAMS[pidx]]
     std = getattr(STANDARD, PARAMS[pidx])
     stops = []
-    for t_op in grid:
-        fail, _ = _region_eval(batch, pidx, t_op, rows, stress, adder, iters,
-                               multibit, banks, extra)
-        stops.append(fail | (floor - 1e-9 > t_op))
-        if bool(torch.all(stops[-1])):
-            break
+    with _obs_tracing.span_if_active("sweep.param", param=PARAMS[pidx]) as sp:
+        for t_op in grid:
+            fail, _ = _region_eval(batch, pidx, t_op, rows, stress, adder,
+                                   iters, multibit, banks, extra)
+            stops.append(fail | (floor - 1e-9 > t_op))
+            if bool(torch.all(stops[-1])):
+                break
+        sp.set(points=len(stops))
     stops = torch.stack(stops)                                   # (G', D, banks)
     g = torch.tensor(grid[:len(stops)], dtype=torch.float32,
                      device=batch.device)
@@ -538,17 +543,21 @@ def _sweep_axis(batch: DimmBatch, axis: str, t_subs, rows, stress,
     safe value.  The guardband retreats ``guard_cycles`` grid steps toward
     standard; fewer safe points than that gives the standard value.  The
     walk ends early once every (DIMM, bank) has stopped; the remaining grid
-    points cannot change the count of leading safe points.
+    points cannot change the count of leading safe points.  Traced as
+    ``_sweep_param``'s walk is (``sweep.param``, ``param=axis``).
     """
     spec = AXES[axis]
     stops = []
-    for i in range(len(spec.grid)):
-        fail, _ = _op_region_eval(batch, t_subs, rows, stress, adders_gd[i],
-                                  extras_gd[i], spec.index, int(keys_g[i]),
-                                  iters, multibit, banks, retention, retx_g[i])
-        stops.append(fail)
-        if bool(torch.all(fail)):
-            break
+    with _obs_tracing.span_if_active("sweep.param", param=axis) as sp:
+        for i in range(len(spec.grid)):
+            fail, _ = _op_region_eval(batch, t_subs, rows, stress,
+                                      adders_gd[i], extras_gd[i], spec.index,
+                                      int(keys_g[i]), iters, multibit, banks,
+                                      retention, retx_g[i])
+            stops.append(fail)
+            if bool(torch.all(fail)):
+                break
+        sp.set(points=len(stops))
     stops = torch.stack(stops)                                   # (G', D, banks)
     n_ok = torch.sum(torch.cumsum(stops.to(torch.int32), dim=0) == 0, dim=0)
     idx = n_ok - 1 - guard_cycles                                # (D, banks)

@@ -25,8 +25,9 @@ the port compiles no chunk programs.
 from repro_torch.obs.metrics import (DEFAULT_BUCKETS, REGISTRY, Counter,
                                      Gauge, Histogram, Metric, Registry)
 from repro_torch.obs.tracing import (Span, active, chrome_trace, span,
-                                     start_tracing, stop_tracing,
-                                     trace_events, write_chrome_trace)
+                                     span_if_active, start_tracing,
+                                     stop_tracing, trace_events,
+                                     write_chrome_trace)
 
 
 def enable() -> None:
@@ -67,6 +68,6 @@ def peak_rss_mb() -> float:
 __all__ = [
     "DEFAULT_BUCKETS", "Counter", "Gauge", "Histogram", "Metric",
     "REGISTRY", "Registry", "Span", "active", "chrome_trace", "disable",
-    "enable", "enabled", "peak_rss_mb", "span", "start_tracing",
-    "stop_tracing", "trace_events", "write_chrome_trace",
+    "enable", "enabled", "peak_rss_mb", "span", "span_if_active",
+    "start_tracing", "stop_tracing", "trace_events", "write_chrome_trace",
 ]

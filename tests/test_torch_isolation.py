@@ -120,7 +120,10 @@ print("LEAKED", leaked)
 
 
 def test_port_runs_without_loading_jax_or_reference():
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    # one intra-op thread: the child's tensors are small (~8 s alone), and a
+    # full thread pool contending with the suite's other workers for the
+    # host's cores took it past 300 s
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", _CHILD], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr

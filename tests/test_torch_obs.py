@@ -193,3 +193,166 @@ def test_instrumentation_leaves_the_server_as_it_was():
         "repro_serve_ingest_total", server=met["server"], path=k))
         for k in ("hit", "discover", "conventional")}
     assert off.metrics()["server"] != met["server"]
+
+
+# ------------------------------------------------- the tracer on the profiler
+
+def _profiler_ranges(prof, names) -> list:
+    """(name, start ns) of the profiler's host ranges named in ``names``, in
+    start order."""
+    return sorted(((e.name(), e.start_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.name() in names), key=lambda r: r[1])
+
+
+def test_span_shares_the_profilers_clock():
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        obs.start_tracing()
+        try:
+            for i in range(5):
+                with obs.span("test.clock", i=i):
+                    with obs.span("test.clock_inner"):
+                        torch.ones(64).sum()
+        finally:
+            events = obs.stop_tracing()
+    ranges = _profiler_ranges(prof, {"test.clock", "test.clock_inner"})
+    spans = sorted(((e["name"], e["ts"] * 1e3) for e in events),
+                   key=lambda r: r[1])
+    assert [n for n, _ in ranges] == [n for n, _ in spans]
+    assert len(spans) == 10
+    for (_, r0), (_, s0) in zip(ranges, spans):
+        assert abs(s0 - r0) < 0.5e6                   # 0.5 ms, in ns
+    inner = [e for e in events if e["name"] == "test.clock_inner"]
+    outer = {e["id"]: e for e in events if e["name"] == "test.clock"}
+    assert len(outer) == 5 and all(e["parent"] is None
+                                   for e in outer.values())
+    for e in inner:
+        up = outer[e["parent"]]
+        assert up["ts"] <= e["ts"] and e["ts"] + e["dur"] <= up["ts"] \
+            + up["dur"]
+
+
+STAGES = ("stream.lower", "stream.prep", "stream.chunk", "stream.readback",
+          "stream.fold")
+
+
+def _tiny_batch(n=5):
+    from repro_torch.core.population import make_population
+    from repro_torch.core.substrate import DimmBatch
+    return DimmBatch.from_population(make_population(TINY, n), device="cpu")
+
+
+def _summary(batch):
+    return tst.stream_error_summary(batch, "tras", 25.0, chunk_size=2,
+                                    vdd=1.2, retention=True,
+                                    collect_fail_maps=True)
+
+
+def _profile(batch):
+    return tst.stream_profile_population(batch, chunk_size=2, collect=True)
+
+
+ENTRIES = {"stream_error_summary": _summary, "stream_profile": _profile}
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRIES))
+def test_stream_stages_link_by_parent_and_chunk(entry):
+    batch = _tiny_batch()
+    obs.start_tracing()
+    try:
+        ENTRIES[entry](batch)
+    finally:
+        events = obs.stop_tracing()
+    (call,) = [e for e in events if e["name"] == "stream.call"]
+    assert call["parent"] is None
+    assert call["args"] == {"entry": entry, "n_chunks": 3}
+    stages = [e for e in events if e["name"] in STAGES]
+    assert len(stages) == 3 * len(STAGES)
+    assert all(e["parent"] == call["id"] for e in stages)
+    by_chunk: dict = {}
+    for e in stages:
+        by_chunk.setdefault(e["args"]["chunk"], []).append(e["name"])
+    assert sorted(by_chunk) == [(call["id"], lo) for lo in (0, 2, 4)]
+    for names in by_chunk.values():
+        assert names == list(STAGES)                  # closed in order
+    ids = [e["id"] for e in events]
+    assert len(set(ids)) == len(ids)
+    chunks = {e["id"]: e for e in stages if e["name"] == "stream.chunk"}
+    assert all(e["args"]["entry"] == entry for e in chunks.values())
+    walks = [e for e in events if e["name"] == "sweep.param"]
+    if entry == "stream_profile":
+        assert len(walks) == 3 * 4                    # four timings a chunk
+        for e in walks:
+            assert e["args"]["chunk"] == chunks[e["parent"]]["args"]["chunk"]
+    else:
+        assert walks == []
+
+
+@pytest.mark.parametrize("axes", [None, ("trcd", "tras", "trp", "twr",
+                                         "vdd", "refresh")])
+def test_sweep_points_count_the_walk(monkeypatch, axes):
+    from repro_torch.core import substrate as tsub
+    walked = {"n": 0}
+    for fn in ("_region_eval", "_op_region_eval"):
+        real = getattr(tsub, fn)
+
+        def counted(*a, _real=real, **kw):
+            walked["n"] += 1
+            return _real(*a, **kw)
+        monkeypatch.setattr(tsub, fn, counted)
+    kw = {} if axes is None else {"axes": axes, "vdd": 1.25}
+    obs.start_tracing()
+    try:
+        tst.stream_profile_population(_tiny_batch(), chunk_size=2, **kw)
+    finally:
+        events = obs.stop_tracing()
+    walks = [e for e in events if e["name"] == "sweep.param"]
+    assert len(walks) == 3 * (4 if axes is None else 6)
+    assert sum(e["args"]["points"] for e in walks) == walked["n"] > 0
+    if axes is not None:
+        assert {e["args"]["param"] for e in walks} == set(axes)
+
+
+def test_no_event_outside_a_recording():
+    from torch.profiler import ProfilerActivity, profile
+    obs.start_tracing()
+    obs.stop_tracing()                                # an empty buffer
+    batch = _tiny_batch(3)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with obs.span("test.outside") as sp:
+            _profile(batch)
+            _summary(batch)
+    assert sp.id is None and sp.duration_s > 0
+    assert obs.trace_events() == []
+    names = {"test.outside", "sweep.param", "stream.call", *STAGES}
+    assert _profiler_ranges(prof, names) == []
+    with obs.span_if_active("test.off") as off:
+        assert off.set(points=1).bind(torch.zeros(1)) is off
+    assert off.id is None and obs.trace_events() == []
+
+
+def _outputs_equal(a, b):
+    assert a.keys() == b.keys()
+    for k in a:
+        if isinstance(a[k], dict):
+            _outputs_equal(a[k], b[k])
+        elif k == "fail_maps":
+            for x, y in zip(a[k], b[k], strict=True):
+                np.testing.assert_array_equal(x.bits, y.bits)
+                assert x.shape == y.shape
+        else:
+            np.testing.assert_array_equal(a[k], b[k])
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRIES))
+def test_outputs_bit_identical_with_recording_on_and_off(entry):
+    batch = _tiny_batch()
+    off = ENTRIES[entry](batch)
+    obs.start_tracing()
+    try:
+        on = ENTRIES[entry](batch)
+    finally:
+        events = obs.stop_tracing()
+    assert events
+    _outputs_equal(off, on)
