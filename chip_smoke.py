@@ -16,7 +16,7 @@ of 512x512 mats, 16 mats and 8 subarrays — it
      division on every float32 operand of their ranges for the population's
      divisors; times kernel and plain version;
   3. characterizes the population (``row_error_lambda``, tRP at 7.5 ns; one
-     kernel launch per subarray and pattern) and holds the first 4 DIMMs
+     ``fail_prob_rows`` launch per subarray and pattern) and holds the first 4 DIMMs
      against the port run on the CPU (rtol 1e-5: the card sums in another
      order);
   4. DIVA-profiles all 96 DIMMs and conventionally profiles 8 (at 96 its
@@ -74,7 +74,7 @@ of 512x512 mats, 16 mats and 8 subarrays — it
      and at nominal supply without retention (3 ``fail_prob``), a ragged
      stream of 8 DIMMs held against the CPU port;
  14. blind discovery: ``campaign_counts`` (tRP 10 / 7.5 / 5 ns, 96
-     ``fail_prob`` launches), ``BlindDiva.discover`` (6 ``bit_signature``
+     ``fail_prob_rows`` launches), ``BlindDiva.discover`` (6 ``bit_signature``
      launches) and ``blind_vs_oracle``; the expectations of 4 DIMMs, every
      discovery decision on the same counts and the blind tables of 8 DIMMs
      held against the CPU port;
@@ -124,7 +124,7 @@ of 512x512 mats, 16 mats and 8 subarrays — it
      model in float32; ``r`` in bfloat16) must fall outside those bounds;
  20. the DIMM-fleet timing-table service (``FleetServer``, Sec 6.1's online
      DIVA Profiling as a service) on ``synthetic_fleet(512, FULL)`` in chunks
-     of 128: ingest (the campaign's row lambdas, 32 ``fail_prob`` launches a
+     of 128: ingest (the campaign's row lambdas, 32 ``fail_prob_rows`` launches a
      campaign point, plus as many in a chunk that founds generations;
      ``bit_signature`` for signatures and scramble recovery), 100,000
      queries, the serve bench's oracle gate (the HIT / DISCOVER tables of
@@ -1351,7 +1351,7 @@ def blind_phase(batch, pop) -> dict:
     secs["blind_vs_oracle"] = time.perf_counter() - t0
     g = batch.geom
     T = counts.shape[0]
-    launches = counted({"fail_prob": T * g.subarrays * 4,
+    launches = counted({"fail_prob_rows": T * g.subarrays * 4,
                         "bit_signature": 2 * T})
 
     # checks against the port on the CPU
@@ -2203,7 +2203,7 @@ def fleet_phase(dev) -> dict:
         secs["ingest"] = sum(chunk_s)
         n_chunks = len(chunk_s)
         ingest_launches = counted({
-            "fail_prob": per_point * T * (n_chunks + founding),
+            "fail_prob_rows": per_point * T * (n_chunks + founding),
             "bit_signature": T * (n_chunks + founding)})
         if sum(stats.values()) != n or len(server.state) != n:
             raise AssertionError(f"fleet service ingested {stats} of {n}")
@@ -2343,7 +2343,7 @@ def serve_twin_phase(dev) -> dict:
         text = metrics.read_text()
         spans = [e for e in json.loads(trace.read_text())["traceEvents"]
                  if e["name"] == "serve.ingest_chunk"]
-    used = ("fail_prob", "bit_signature", "secded_encode", "diva_shuffle")
+    used = ("fail_prob_rows", "bit_signature", "secded_encode", "diva_shuffle")
     if any(launches[k] == 0 for k in used) \
             or any(v for k, v in launches.items() if k not in used):
         raise AssertionError(f"phase 21 launches {launches}")
@@ -2496,7 +2496,7 @@ def stream_scans_phase(batch, diva) -> dict:
 
     fleet = synthetic_fleet(DISCOVER_DIMMS, FLEET_GEOM, seed=0, device=dev)
     runs = [_scan(f"discover_chunk{c}", lambda c=c: stream_discover_generations(
-        fleet, chunk_size=c), ("fail_prob", "bit_signature"), secs, launches)
+        fleet, chunk_size=c), ("fail_prob_rows", "bit_signature"), secs, launches)
         for c in DISCOVER_CHUNKS]
     for k in ("labels", "canonical", "members"):
         if not np.array_equal(runs[0][k], runs[1][k]):
@@ -3729,10 +3729,10 @@ def main() -> int:
     lam = row_error_lambda(batch, "trp", 7.5)
     DENSE["lam"] = lam
     char_s = time.perf_counter() - t0
-    char_launches = ops.launch_counts()["fail_prob"]
+    char_launches = ops.launch_counts()["fail_prob_rows"]
     expected = g.subarrays * 4
     if char_launches != expected:
-        raise AssertionError(f"row_error_lambda launched fail_prob "
+        raise AssertionError(f"row_error_lambda launched fail_prob_rows "
                              f"{char_launches} times, expected {expected}")
     t0 = time.perf_counter()
     diva = profile_population_arrays(batch, region="worst", multibit_only=True)
@@ -3741,7 +3741,7 @@ def main() -> int:
     t0 = time.perf_counter()
     conv = profile_population_arrays(conv_batch, region="all")
     conv_s = time.perf_counter() - t0
-    launches = counted({"fail_prob": expected})   # the sweep runs no kernel
+    launches = counted({"fail_prob_rows": expected})   # the sweep runs no kernel
 
     # ---- checks against the port on the CPU
     if lam.shape != (D, g.subarrays * R) or not np.isfinite(lam).all():

@@ -21,7 +21,7 @@ The counterpart of ``repro.core.streaming``:
     channel, else from ``fail_prob``), ``stream_operating_grid``,
     ``stream_bit_signature`` (``bit_signature``), ``stream_secded_scrub``
     (``secded_syndrome``), and the campaign counts ``hash_poisson_counts``
-    (``fail_prob``) behind ``stream_discover_generations``.
+    (``fail_prob_rows``) behind ``stream_discover_generations``.
 
 Per-DIMM outputs do not depend on the chunk size: per-DIMM computation is
 independent along D and every draw is keyed by serial.  Integer
@@ -864,7 +864,7 @@ def _campaign_impl(batch: DimmBatch, param: str, t_op: float, *,
                    temp_C: float, refresh_ms: float, patterns, iters: int,
                    seed: int, mesh: DimmMesh | None) -> np.ndarray:
     """(C, S, R) int64 counts: the row lambdas in external order (one
-    ``fail_prob`` launch per (subarray, pattern) on a card, split over
+    ``fail_prob_rows`` launch per (subarray, pattern) on a card, split over
     ``mesh``), then one numpy Poisson generator per DIMM keyed by (seed,
     serial)."""
     g = batch.geom

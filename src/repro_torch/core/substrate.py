@@ -9,8 +9,9 @@ The counterpart of ``repro.core.substrate`` for the main path:
   * ``fail_prob_grids``    — (D, mats, rows, cols) failure grids through the
                              CUDA ``fail_prob`` kernel (kernels/fail_prob.py).
   * ``row_error_lambda``   — expected per-row error counts (Figs 6/7/14): one
-                             kernel launch per (subarray, pattern), the DIMM
-                             axis inside the kernel grid.
+                             ``fail_prob_rows`` launch per (subarray,
+                             pattern), the DIMM axis inside the kernel grid
+                             and the grid summed on chip.
   * ``profile_population`` — DIVA / conventional profiling of every DIMM
                              (Sec 6.1): plain torch ops, a Python loop where
                              the reference has a ``lax.scan``; with ``axes``
@@ -72,7 +73,7 @@ from repro_torch.core.timing import (AXES, CYCLE_NS, EXTENDED_AXES,
                                      OperatingPoint, TimingParams,
                                      op_point_key)
 from repro_torch.device import resolve_device
-from repro_torch.kernels.fail_prob import fail_prob
+from repro_torch.kernels.fail_prob import fail_prob, fail_prob_rows
 from repro_torch.kernels.secded import syndrome
 from repro_torch.kernels.shuffle import apply_shuffle
 from repro_torch.obs import tracing as _obs_tracing
@@ -1057,9 +1058,9 @@ def fail_prob_grids(batch: DimmBatch, param: str, t_op: float, *,
 def _row_lambda_impl(batch: DimmBatch, stress, adder, *, pidx: int,
                      t_op: float, iters: int, internal: bool):
     """(D, subarrays*rows) expected error counts on the batch's device: one
-    ``fail_prob`` launch per (subarray, pattern), each over all DIMMs;
-    ``stress`` is the (P,) numpy pattern stresses, ``adder`` the (D,)
-    condition term."""
+    ``fail_prob_rows`` launch per (subarray, pattern), each over all DIMMs
+    (the grid's row sums, without the grid); ``stress`` is the (P,) numpy
+    pattern stresses, ``adder`` the (D,) condition term."""
     g = batch.geom
     dev = batch.device
     D, S, R = batch.n_dimms, g.subarrays, g.rows_per_mat
@@ -1070,8 +1071,8 @@ def _row_lambda_impl(batch: DimmBatch, stress, adder, *, pidx: int,
         exp_row = torch.zeros((D, R), dtype=torch.float32, device=dev)
         for stress_p in stress:
             coeffs = _pack_coeffs(batch, pidx, t_op, stress_p, adder, 0, s)
-            grids = fail_prob(row_src, d_mat, coeffs, cols=g.cols_per_mat)
-            exp_row = exp_row + 2 * grids.sum(dim=(1, 3)) * g.chips
+            rows = fail_prob_rows(row_src, d_mat, coeffs, cols=g.cols_per_mat)
+            exp_row = exp_row + 2 * rows * g.chips
         lam.append(exp_row * iters)
     lam = torch.stack(lam, dim=1)                                # (D, S, R)
     if not internal:
@@ -1089,8 +1090,8 @@ def row_error_lambda(batch: DimmBatch, param: str, t_op: float, *,
                      mesh: DimmMesh | None = None) -> np.ndarray:
     """(D, subarrays*rows) expected error counts per row address for every
     DIMM — the population-scale ``row_error_counts(sample=False)``.  One
-    ``fail_prob`` launch per (subarray, pattern), each over all DIMMs (over
-    a shard's, once a shard, with ``mesh``)."""
+    ``fail_prob_rows`` launch per (subarray, pattern), each over all DIMMs
+    (over a shard's, once a shard, with ``mesh``)."""
     adder = torch.as_tensor(condition_adders(batch, temp_C, refresh_ms),
                             device=batch.device)
     statics = dict(pidx=PARAMS.index(param), t_op=t_op, iters=iters,

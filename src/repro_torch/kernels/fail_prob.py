@@ -8,13 +8,17 @@ replaces its operating-point variant ``fail_prob_op`` (``:161``), whose
 Each takes one DIMM (``row_src (R,)``, ``coeffs (9,)`` / ``(15,)``) or a
 population (``(D, R)``, ``(D, 9)`` / ``(D, 15)``) and returns the
 ``(M, R, C)`` or ``(D, M, R, C)`` float32 grid.  The DIMM axis is inside the
-CUDA grid (the reference vmaps the kernels instead).
+CUDA grid (the reference vmaps the kernels instead).  ``fail_prob_rows``
+returns ``fail_prob``'s grid summed over mats and columns, ``(R,)`` or
+``(D, R)``, and on the card never writes the grid: its kernel adds the cells
+in a fixed order on chip (``csrc/fail_prob.cu``).
 
 Dispatch is by the tensors' device alone: CPU tensors go to
 ``fail_prob_ref`` / ``fail_prob_op_ref``, CUDA tensors to the kernels in
 ``csrc/fail_prob.cu`` (its header states the bounds and the design) at the
 launch ``kernels/tune.py`` picks; anything else raises.
-``fail_prob.launches`` and ``fail_prob_op.launches`` count kernel launches.
+``fail_prob.launches``, ``fail_prob_op.launches`` and
+``fail_prob_rows.launches`` count kernel launches.
 """
 from __future__ import annotations
 
@@ -90,6 +94,14 @@ def fail_prob_op_ref(row_src, d_mat, coeffs, *, cols: int,
                      retention)
 
 
+def fail_prob_rows_ref(row_src, d_mat, coeffs, *, cols: int,
+                      open_bitline: bool = True):
+    """Plain PyTorch version of the ``fail_prob_rows`` kernel: the grid's
+    row sums over mats and columns, in ``torch.sum``'s order."""
+    return fail_prob_ref(row_src, d_mat, coeffs, cols=cols,
+                         open_bitline=open_bitline).sum(dim=(-3, -1))
+
+
 def _check(row_src, d_mat, coeffs, cols: int, n_coeffs: int):
     if row_src.dim() not in (1, 2) or row_src.dim() != coeffs.dim():
         raise ValueError(f"row_src {tuple(row_src.shape)} and coeffs "
@@ -127,8 +139,8 @@ def _launch(entry: str, row_src, d_mat, coeffs, cols: int, flags: tuple,
     """Launch ``entry`` of the fail_prob library with the trailing int
     ``flags`` (open_bitline, then voltage and retention for the
     operating-point entry) at the launch ``setting`` (row_tile, threads).
-    Returns the grid (uncounted: the tuner's sweep runs this too), or
-    raises."""
+    Returns the grid, or its row sums for the row-sum entry (uncounted: the
+    tuner's sweep runs this too), or raises."""
     from repro_torch.kernels.build import LaunchError
     rs = row_src if row_src.dim() == 2 else row_src[None]
     cf = coeffs if coeffs.dim() == 2 else coeffs[None]
@@ -138,7 +150,8 @@ def _launch(entry: str, row_src, d_mat, coeffs, cols: int, flags: tuple,
     rs = rs.to(torch.int32)
     D, R = rs.shape
     M = d_mat.shape[0]
-    out = torch.empty((D, M, R, cols), dtype=torch.float32, device=rs.device)
+    shape = (D, R) if entry == "fail_prob_rows_launch" else (D, M, R, cols)
+    out = torch.empty(shape, dtype=torch.float32, device=rs.device)
     if out.numel():
         fn = _entry(entry, (_P,) * 4 + (_I,) * (6 + len(flags)) + (_P,))
         with torch.cuda.device(rs.device):
@@ -160,7 +173,7 @@ def _device_kind(row_src, name: str) -> str:
 
 def _grid(fn, entry: str, plain, row_src, d_mat, coeffs, cols: int,
           flags: dict, launch):
-    """``fn``'s grid: its plain version on the CPU, else ``entry`` at the
+    """``fn``'s output: its plain version on the CPU, else ``entry`` at the
     launch ``tune`` resolves (counted in ``fn.launches``)."""
     if _device_kind(row_src, fn.__name__) == "cpu":
         run = lambda setting: plain(row_src, d_mat, coeffs, cols=cols, **flags)
@@ -202,6 +215,20 @@ def fail_prob_op(row_src, d_mat, coeffs, *, cols: int,
                  launch)
 
 
+def fail_prob_rows(row_src, d_mat, coeffs, *, cols: int,
+                   open_bitline: bool = True, launch: dict | None = None):
+    """``fail_prob``'s grid summed over mats and columns: (R,) or (D, R)
+    f32, for the same arguments.  On the card the kernel adds each row's
+    cells in a fixed order on chip (``csrc/fail_prob.cu``: within about
+    1e-6 relative of ``torch.sum``'s, the same bits at every launch setting)
+    and writes no grid.  ``launch``: a setting of ``fail_prob_rows``'s
+    launch space, or None for the tuner's choice."""
+    _check(row_src, d_mat, coeffs, cols, N_COEFFS)
+    return _grid(fail_prob_rows, "fail_prob_rows_launch", fail_prob_rows_ref,
+                 row_src, d_mat, coeffs, cols, dict(open_bitline=open_bitline),
+                 launch)
+
+
 def division_check(divisors) -> list[int]:
     """On the card: how many float32 operands give other bits through the
     kernel's fast divisions than through IEEE division, for each of its three
@@ -223,3 +250,4 @@ def division_check(divisors) -> list[int]:
 
 fail_prob.launches = 0
 fail_prob_op.launches = 0
+fail_prob_rows.launches = 0

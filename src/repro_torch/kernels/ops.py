@@ -1,9 +1,9 @@
 """The port's kernel inventory and its launch counts.
 
 Each entry is a hand-written CUDA kernel's public wrapper, taken from
-``kernels/registry.py``'s ``REGISTRY`` (the reference's nine dispatch sites
-and ``wkv6_bwd``, the backward of ``wkv6``, which the reference leaves to
-XLA).  A wrapper dispatches by its tensors' device (CPU -> the plain
+``kernels/registry.py``'s ``REGISTRY`` (the reference's nine dispatch sites,
+``wkv6_bwd``, the backward of ``wkv6``, which the reference leaves to XLA,
+and ``fail_prob_rows``, ``fail_prob``'s row sums without the grid).  A wrapper dispatches by its tensors' device (CPU -> the plain
 PyTorch version, CUDA -> the kernel at the launch ``kernels/tune.py`` picks,
 or it raises) and carries ``launches``, a count of kernel launches that
 nothing but the launch itself increments (a tuner's sweep counts nowhere).

@@ -1,8 +1,9 @@
-"""Declarative kernel registry: the port's ten hand-written kernels as data.
+"""Declarative kernel registry: the port's eleven hand-written kernels as data.
 
 The counterpart of ``repro/kernels/registry.py``.  Each :class:`KernelSpec`
 names one kernel under the reference's dispatch-site name (plus
-``wkv6_bwd``, the backward the reference leaves to XLA), its public wrapper,
+``wkv6_bwd``, the backward the reference leaves to XLA, and
+``fail_prob_rows``, ``fail_prob``'s grid summed on chip), its public wrapper,
 its plain PyTorch version, the launch space the tuner (``kernels/tune.py``)
 may sweep, and the shape bucket a call's winner is cached under.
 
@@ -28,7 +29,7 @@ from typing import Any, Callable
 
 from repro_torch.kernels.bank_sched import memsim_walk
 from repro_torch.kernels.bit_signature import bit_signature
-from repro_torch.kernels.fail_prob import fail_prob, fail_prob_op
+from repro_torch.kernels.fail_prob import fail_prob, fail_prob_op, fail_prob_rows
 from repro_torch.kernels.rc_transient import rc_transient
 from repro_torch.kernels.secded import encode_checks, syndrome
 from repro_torch.kernels.shuffle import apply_shuffle
@@ -165,7 +166,20 @@ REGISTRY: dict[str, KernelSpec] = {s.name: s for s in (
     KernelSpec("wkv6_bwd", wkv6_bwd, "wkv6_bwd_ref",
                defaults={"chunk": CHUNK_BWD},
                bucket=_wkv6_bucket),
+    # rows a block and the cap on threads a block, as fail_prob's.  Each
+    # row's sum has an order fixed by its cells' mats and columns alone
+    # (csrc/fail_prob.cu), so any tile and any count of threads up to the
+    # 128 column slots keeps it; 256 threads would leave threads without a
+    # slot and is left out.  A block walks every mat, so small tiles keep
+    # the SMs evenly loaded: 8 rows by default (96 FULL DIMMs on the H100:
+    # 1.15 ms against 1.23 at 32 rows)
+    KernelSpec("fail_prob_rows", fail_prob_rows, "fail_prob_rows_ref",
+               defaults={"row_tile": 8, "threads": 128},
+               launch_space=({}, {"row_tile": 4}, {"row_tile": 16},
+                             {"row_tile": 32, "threads": 64}),
+               bucket=_fail_prob_bucket),
 )}
 
-#: the reference's nine dispatch-site names, in its order, then wkv6_bwd
+#: the reference's nine dispatch-site names, in its order, then wkv6_bwd and
+#: fail_prob_rows
 KERNEL_NAMES: tuple[str, ...] = tuple(REGISTRY)

@@ -5,7 +5,7 @@ DIMMs arrive as streaming telemetry chunks (``core/streaming``), get a
 timing table by the cheapest path their signature allows, and stay fresh
 through a staleness-driven re-profiling queue.  Each chunk runs eagerly on
 the stream's device: the campaign's row lambdas and the discovery lambdas
-through the ``fail_prob`` kernel, signatures and scramble recovery through
+through the ``fail_prob_rows`` kernel, signatures and scramble recovery through
 ``bit_signature``, the profiling sweeps as plain torch ops, and checkpoints
 through the codec's ``secded_encode`` / ``diva_shuffle`` /
 ``secded_syndrome``.
@@ -321,7 +321,7 @@ class FleetServer:
         T = sub_counts.shape[0]
 
         # per-point recovery on the founding members: the expected lambdas
-        # (one fail_prob launch per (subarray, pattern)), then every
+        # (one fail_prob_rows launch per (subarray, pattern)), then every
         # (member, subarray) scramble in one recovery call
         rec_t = []
         for t, t_op in enumerate(cfg.campaign_t_ops):

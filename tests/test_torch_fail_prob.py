@@ -12,7 +12,11 @@ divisor and contracts FMAs, which moves t by an ulp and p by more than
 1e-6 on some of these inputs (the reference's own test meets 1e-6 at its
 one fixed coefficient row).  The kernel's regrouped order (per-row, per-column
 and per-mat terms of t computed once) must equal the plain version bit for
-bit (``torch.equal``): it keeps every rounding of the plain version."""
+bit (``torch.equal``): it keeps every rounding of the plain version.
+``fail_prob_rows``' plain version is the plain grid summed by ``torch.sum``
+(bit for bit); the row-sum kernel's own order of additions
+(``torch_fail_prob_order.py``) stays within 1e-6 of the float64 sum (the
+largest row gap over the largest row)."""
 import numpy as np
 import pytest
 
@@ -26,8 +30,13 @@ from repro_torch.core.latency import (PATTERN_STRESS, div_t, fail_mixture_t,
 from repro_torch.core.population import make_population
 from repro_torch.core.substrate import (DimmBatch, _geom_consts, _pack_coeffs,
                                         condition_adders)
-from repro_torch.kernels.fail_prob import fail_prob, fail_prob_ref
+from repro_torch.core import substrate
+from repro_torch.core.geometry import TINY
+from repro_torch.core.latency import DEFAULT_PATTERNS
+from repro_torch.kernels.fail_prob import (fail_prob, fail_prob_ref, fail_prob_rows,
+                                           fail_prob_rows_ref)
 from repro_torch.kernels.ops import launch_counts
+from torch_fail_prob_order import kernel_order_row_sums
 
 ATOL = 1e-6
 COEFFS = np.array([3.9, 2.1, 0.4, 0.8, 0.4, 7.5, 0.15, 3e-6, 3.5], np.float32)
@@ -163,3 +172,91 @@ def test_kernel_order_equals_plain_at_ragged_shapes(D, M, R, C, open_bitline):
     got = regrouped_grid(row_src, d_mat, coeffs, C, open_bitline)
     want = fail_prob_ref(row_src, d_mat, coeffs, cols=C, open_bitline=open_bitline)
     assert torch.equal(got, want)
+
+
+# ------------------------------------------------ fail_prob_rows: the grid's row sums
+
+RAGGED = [(3, 5, 100, 96, True), (1, 1, 33, 5, True), (2, 3, 31, 1000, False),
+          (1, 2, 65, 7, True)]
+
+
+@pytest.mark.parametrize("D,M,R,C,open_bitline", RAGGED)
+def test_rows_plain_is_the_grid_summed(D, M, R, C, open_bitline):
+    row_src, d_mat, coeffs = _t(*_inputs(R, M, D=D, seed=R + C))
+    before = launch_counts()["fail_prob_rows"]
+    got = fail_prob_rows(row_src, d_mat, coeffs, cols=C, open_bitline=open_bitline)
+    grid = fail_prob_ref(row_src, d_mat, coeffs, cols=C, open_bitline=open_bitline)
+    assert got.shape == (D, R) and got.dtype == torch.float32
+    assert torch.equal(got, grid.sum(dim=(1, 3)))
+    assert torch.equal(got, fail_prob_rows_ref(row_src, d_mat, coeffs, cols=C,
+                                               open_bitline=open_bitline))
+    one = fail_prob_rows(row_src[0], d_mat, coeffs[0], cols=C, open_bitline=open_bitline)
+    assert torch.equal(one, grid[0].sum(dim=(0, 2)))
+    assert launch_counts()["fail_prob_rows"] == before
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "device", "mixed"])
+def test_rows_wrapper_rejects_bad_inputs(bad):
+    row_src, d_mat, coeffs = _t(*_inputs(16, 2, D=2))
+    if bad == "dtype":
+        row_src = row_src.float()
+    elif bad == "shape":
+        coeffs = torch.cat([coeffs, coeffs[:, :1]], dim=1)
+    elif bad == "device":
+        row_src, d_mat, coeffs = (t.to("meta") for t in (row_src, d_mat, coeffs))
+    else:
+        coeffs = coeffs[0]
+    with pytest.raises((TypeError, ValueError)):
+        fail_prob_rows(row_src, d_mat, coeffs, cols=16)
+
+
+def _row_gap(got, grid):
+    want = grid.double().sum(dim=(1, 3))
+    return float((got.double() - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("open_bitline", [True, False])
+def test_kernel_row_sum_order_at_full_geometry(open_bitline):
+    _, row_src, d_mat, coeffs = full_population_inputs()
+    grid = fail_prob_ref(row_src, d_mat, coeffs, cols=512, open_bitline=open_bitline)
+    assert _row_gap(kernel_order_row_sums(grid), grid) <= 1e-6
+    assert _row_gap(grid.sum(dim=(1, 3)), grid) <= 1e-6
+
+
+@pytest.mark.parametrize("D,M,R,C,open_bitline", RAGGED)
+def test_kernel_row_sum_order_at_ragged_shapes(D, M, R, C, open_bitline):
+    row_src, d_mat, coeffs = _t(*_inputs(R, M, D=D, seed=R + C))
+    grid = fail_prob_ref(row_src, d_mat, coeffs, cols=C, open_bitline=open_bitline)
+    assert _row_gap(kernel_order_row_sums(grid), grid) <= 1e-6
+
+
+def test_row_lambda_sums_rows_without_a_grid(monkeypatch):
+    """``row_error_lambda`` takes one ``fail_prob_rows`` call per (subarray,
+    pattern) and no grid; on the CPU its lambdas are the grids summed."""
+    calls = []
+
+    def counted(*args, **kw):
+        calls.append(args[0].shape)
+        return fail_prob_rows(*args, **kw)
+
+    def no_grid(*args, **kw):
+        raise AssertionError("row_error_lambda asked for a grid")
+
+    batch = DimmBatch.from_population(make_population(TINY, 3), "cpu")
+    want = substrate.row_error_lambda(batch, "trp", 7.5, internal_order=True)
+    monkeypatch.setattr(substrate, "fail_prob_rows", counted)
+    monkeypatch.setattr(substrate, "fail_prob", no_grid)
+    got = substrate.row_error_lambda(batch, "trp", 7.5, internal_order=True)
+    assert len(calls) == TINY.subarrays * len(DEFAULT_PATTERNS)
+    assert all(shape == (3, TINY.rows_per_mat) for shape in calls)
+    np.testing.assert_array_equal(got, want)
+    adder = torch.as_tensor(condition_adders(batch, 85.0, 64.0))
+    d_mat = torch.as_tensor(_geom_consts(TINY)[1])
+    lam = torch.zeros((3, TINY.rows_per_mat))
+    for stress in DEFAULT_PATTERNS:
+        coeffs = _pack_coeffs(batch, 2, 7.5, PATTERN_STRESS[stress], adder, 0, 0)
+        grid = fail_prob_ref(batch.row_src[:, 0].contiguous(), d_mat, coeffs,
+                             cols=TINY.cols_per_mat)
+        lam = lam + 2 * grid.sum(dim=(1, 3)) * TINY.chips
+    np.testing.assert_array_equal(got[:, :TINY.rows_per_mat],
+                                  (lam * substrate.DEFAULT_ITERS).numpy())

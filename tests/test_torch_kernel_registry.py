@@ -1,7 +1,7 @@
 """The port's kernel registry against the reference's.
 
 ``repro_torch.kernels.registry`` lists the reference's nine dispatch sites,
-in its order, plus ``wkv6_bwd``; every launch space starts with ``{}`` (the
+in its order, plus ``wkv6_bwd`` and ``fail_prob_rows``; every launch space starts with ``{}`` (the
 kernels' constants) and holds at most 4 settings; each kernel with a
 counterpart buckets a call as the reference buckets the same shapes (inputs
 made with numpy from a seed, handed to both); ``launch=`` outside a space
@@ -34,7 +34,7 @@ def _no_opt_in(monkeypatch):
 
 
 def test_names_are_the_reference_sites_then_wkv6_bwd():
-    assert KERNEL_NAMES == ref_registry.KERNEL_NAMES + ("wkv6_bwd",)
+    assert KERNEL_NAMES == ref_registry.KERNEL_NAMES + ("wkv6_bwd", "fail_prob_rows")
     assert list(ops.KERNELS) == list(KERNEL_NAMES)
     assert all(ops.KERNELS[n] is REGISTRY[n].kernel for n in KERNEL_NAMES)
 
@@ -76,7 +76,8 @@ def _bucket_args(name, rng):
 
 
 @pytest.mark.parametrize("name", [n for n in KERNEL_NAMES
-                                  if n not in ("bank_sched", "wkv6_bwd")])
+                                  if n not in ("bank_sched", "wkv6_bwd",
+                                               "fail_prob_rows")])
 def test_buckets_equal_the_references(name):
     rng = np.random.default_rng(RNG_SEED)
     for port_args, ref_args in _bucket_args(name, rng):
@@ -91,6 +92,8 @@ def test_buckets_without_a_counterpart():
     assert REGISTRY["bank_sched"].bucket((traces, tc), {}) == 60          # T * W walks
     r = torch.zeros((2, 13, 3, 8))
     assert REGISTRY["wkv6_bwd"].bucket((r,), {}) == 2 * 3 * 13            # B * H * S
+    rows, d_mat, cf = torch.zeros((3, 100), dtype=torch.int32), torch.ones(5), torch.ones((3, 9))
+    assert REGISTRY["fail_prob_rows"].bucket((rows, d_mat, cf), {}) == 100   # R, as fail_prob
 
 
 def _calls(name):
@@ -107,7 +110,7 @@ def _calls(name):
                                  torch.device("cpu"))
             return lambda lc: spec.kernel(x, launch=lc), lambda: spec.plain(x, index)
         return lambda lc: spec.kernel(x, launch=lc), lambda: spec.plain(x)
-    if name in ("fail_prob", "fail_prob_op"):
+    if name in ("fail_prob", "fail_prob_op", "fail_prob_rows"):
         rows = t(rng.integers(0, 20, (2, 20)), dtype=torch.int32)
         d_mat = t(np.linspace(0.1, 1.0, 3, dtype=np.float32))
         cf = COEFFS + rng.normal(0, 0.05, (2, 9)).astype(np.float32) * (np.arange(9) < 6)

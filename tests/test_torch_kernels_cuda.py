@@ -11,7 +11,10 @@ for bit (``torch.equal``: the kernels keep every rounding of the plain
 versions' float32 operations, and their fast divisions give IEEE division's
 bits, checked over every operand of their ranges); so does ``rc_transient``,
 on its shared-tap and mixed-tap routes and for cells rerun with IEEE
-divisions; ``wkv6`` rtol = atol = 3e-4 for float32 inputs and 2e-3 for
+divisions; ``fail_prob_rows`` equals its order of additions run in plain
+PyTorch on the card's own grid (``torch_fail_prob_order.py``) bit for bit,
+and ``torch.sum``'s row sums within 1e-5 relative (the largest row gap over
+the largest row); ``wkv6`` rtol = atol = 3e-4 for float32 inputs and 2e-3 for
 float16, the reference's kernel-against-scan bounds (the kernel sums over
 the head in another order than the plain version's einsum; the final
 state is held to the same bound), also at sequence lengths around its 12-step
@@ -32,7 +35,7 @@ from repro_torch.kernels.bank_sched import memsim_walk, memsim_walk_ref, walk_ro
 from repro_torch.kernels.bit_signature import bit_signature, bit_signature_ref
 from repro_torch.core.spice import CircuitParams
 from repro_torch.kernels.fail_prob import (division_check, fail_prob, fail_prob_op,
-                                           fail_prob_op_ref, fail_prob_ref)
+                                           fail_prob_op_ref, fail_prob_ref, fail_prob_rows)
 from repro_torch.kernels.rc_transient import division_check as rc_division_check
 from repro_torch.kernels.rc_transient import (fast_route, launch_divisors, rc_transient,
                                               rc_transient_ref, reset_route_counts,
@@ -43,6 +46,7 @@ from repro_torch.kernels.shuffle import _perm_tensor, apply_shuffle, apply_shuff
 from repro_torch.kernels.wkv6 import wkv6, wkv6_ref
 from repro_torch.memsim import sim as memsim
 from repro_torch.memsys.codec import interleave_permutation
+from torch_fail_prob_order import kernel_order_row_sums
 
 COEFFS = np.array([3.9, 2.1, 0.4, 0.8, 0.4, 7.5, 0.15, 3e-6, 3.5], np.float32)
 
@@ -99,6 +103,78 @@ def test_fail_prob_rejects_non_contiguous(cuda):
     row_src, d_mat, coeffs = _inputs(2, 3, 16, cuda)
     with pytest.raises(ValueError, match="contiguous"):
         fail_prob(row_src[:, ::2], d_mat, coeffs, cols=8)
+
+
+# the row sums' edges: FULL widths, C not a multiple of 4, R not a multiple
+# of any row tile, more columns than the 128 slots' quads, one partial quad
+ROW_SHAPES = [(4, 16, 512, 512, True), (3, 5, 100, 94, True), (2, 3, 45, 1000, False),
+              (1, 2, 65, 7, True), (2, 1, 40, 3, True)]
+
+
+def _row_sums_check(row_src, d_mat, coeffs, C, open_bitline):
+    """fail_prob_rows against the card's grid summed: the kernel's order bit
+    for bit, torch.sum's within 1e-5 of the largest row; a second call and
+    each DIMM alone give the same bits.  Returns the row sums."""
+    grid = fail_prob(row_src, d_mat, coeffs, cols=C, open_bitline=open_bitline)
+    before = fail_prob_rows.launches
+    got = fail_prob_rows(row_src, d_mat, coeffs, cols=C, open_bitline=open_bitline)
+    torch.cuda.synchronize()
+    assert fail_prob_rows.launches == before + 1
+    assert got.shape == row_src.shape and got.dtype == torch.float32
+    want = grid.sum(dim=(1, 3))
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+    assert torch.equal(got, kernel_order_row_sums(grid))
+    assert torch.equal(fail_prob_rows(row_src, d_mat, coeffs, cols=C,
+                                      open_bitline=open_bitline), got)
+    one = fail_prob_rows(row_src[-1], d_mat, coeffs[-1], cols=C, open_bitline=open_bitline)
+    assert torch.equal(one, got[-1])
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,M,R,C,open_bitline", ROW_SHAPES)
+def test_fail_prob_rows_kernel_sums_the_grid(cuda, D, M, R, C, open_bitline):
+    _row_sums_check(*_inputs(D, M, R, cuda), C, open_bitline)
+
+
+@pytest.mark.cuda
+def test_fail_prob_rows_reruns_rows_outside_the_fast_divisions(cuda):
+    """A sigma above the fast divisions' range takes every cell of its DIMM
+    through IEEE division; the grid kernel takes the same route."""
+    row_src, d_mat, coeffs = _inputs(3, 16, 512, cuda)
+    coeffs[1, 6] = 2.0 ** 21
+    grid = fail_prob(row_src, d_mat, coeffs, cols=512)
+    assert torch.equal(grid, fail_prob_ref(row_src, d_mat, coeffs, cols=512))
+    got = _row_sums_check(row_src, d_mat, coeffs, 512, True)
+    assert (got[1] > 0).all()
+
+
+@pytest.mark.cuda
+def test_fail_prob_rows_rejects_what_the_kernel_does_not_take(cuda):
+    row_src, d_mat, coeffs = _inputs(2, 3, 16, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        fail_prob_rows(row_src[:, ::2], d_mat, coeffs, cols=8)
+    with pytest.raises(ValueError, match="device"):
+        fail_prob_rows(row_src, d_mat.cpu(), coeffs, cols=8)
+    with pytest.raises(TypeError):
+        fail_prob_rows(row_src, d_mat, coeffs.double(), cols=8)
+    with pytest.raises(ValueError):
+        fail_prob_rows(row_src, d_mat, coeffs[:, :8], cols=8)
+
+
+@pytest.mark.cuda
+def test_row_error_lambda_launches_fail_prob_rows_alone(cuda):
+    from repro_torch.core.geometry import SMALL
+    from repro_torch.core.latency import DEFAULT_PATTERNS
+    from repro_torch.core.population import make_population
+    from repro_torch.core.substrate import DimmBatch, row_error_lambda
+    pop = make_population(SMALL, 5)
+    rows_before, grid_before = fail_prob_rows.launches, fail_prob.launches
+    got = row_error_lambda(DimmBatch.from_population(pop, cuda), "trp", 7.5)
+    assert fail_prob_rows.launches == rows_before + SMALL.subarrays * len(DEFAULT_PATTERNS)
+    assert fail_prob.launches == grid_before
+    want = row_error_lambda(DimmBatch.from_population(pop, "cpu"), "trp", 7.5)
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
 
 
 def _bits(n, width, dev, seed=5):
@@ -657,13 +733,13 @@ def _tuner_calls(name, dev):
         kern, width = (encode_checks, 64) if name == "secded_encode" else (syndrome, 72)
         x = _bits(4099, width, dev)
         return [lambda lc: kern(x, launch=lc)]
-    if name in ("fail_prob", "fail_prob_op"):
+    if name in ("fail_prob", "fail_prob_op", "fail_prob_rows"):
         calls = []
         for D, M, R, C, ob in FP_SHAPES:
-            if name == "fail_prob":
-                args = _inputs(D, M, R, dev)
-                calls.append(lambda lc, a=args, C=C, ob=ob:
-                             fail_prob(*a, cols=C, open_bitline=ob, launch=lc))
+            if name in ("fail_prob", "fail_prob_rows"):
+                args, kern = _inputs(D, M, R, dev), KERNEL_SPECS[name].kernel
+                calls.append(lambda lc, a=args, C=C, ob=ob, kern=kern:
+                             kern(*a, cols=C, open_bitline=ob, launch=lc))
             else:
                 args = _op_inputs(D, M, R, dev)
                 calls.append(lambda lc, a=args, C=C, ob=ob:

@@ -63,7 +63,7 @@ def test_two_shards_on_one_card_equal_one(cuda):
                 tables, n_requests=400, mesh=mesh)["total_latency_cycles"],
             launches=ops.launch_counts()))
     a, b = runs
-    for name in ("fail_prob", "fail_prob_op", "secded_syndrome",
+    for name in ("fail_prob_rows", "fail_prob_op", "secded_syndrome",
                  "diva_shuffle", "bit_signature", "bank_sched"):
         assert a["launches"][name] > 0 and \
             b["launches"][name] == 2 * a["launches"][name], name
