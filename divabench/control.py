@@ -4,11 +4,13 @@
 
 For each seed, in one process on the card: the cell's set-up and warm-up,
 one unit of the timed path, then the program's numbers against the float32
-reference, and the control's: the reference computed in bfloat16 (the
-precision below the configuration's float32) put in the program's place.
-A limit lies above the program's largest reading and below the control's
-smallest.  The benchmark's own runs do not run this; it prints one JSON
-line a seed and a summary line.
+reference, and each control's: the reference computed in bfloat16 (the
+precision below the configuration's float32) put in the program's place,
+and the entry's own controls where it has them (``controls``: the
+reference in the program's place with one guarantee broken).  A limit lies
+above the program's largest reading and below the smallest of a control
+that it is to catch.  The benchmark's own runs do not run this; it prints
+one JSON line a seed and a summary line.
 """
 import argparse
 import json
@@ -34,8 +36,17 @@ def main(argv=None) -> int:
     return 0
 
 
+def controls(entry, state, unit) -> dict:
+    """The entry's controls by name, each an output for ``compare``; the
+    bfloat16 reference alone where the entry defines none."""
+    import torch
+    if hasattr(entry, "controls"):
+        return entry.controls(state, unit)
+    return {"bfloat16": entry.reference_unit(state, unit, torch.bfloat16)}
+
+
 def readings(cell, seeds, device=None) -> dict:
-    """{"program": {number: [reading a seed]}, "control": {...}}."""
+    """{"program": {number: [reading a seed]}, "controls": {name: {...}}}."""
     import torch
     from divabench import harness
     if device is None:
@@ -44,7 +55,7 @@ def readings(cell, seeds, device=None) -> dict:
         device = "cuda:0"
     device = torch.device(device)
     entry = harness.entry_module(cell.traffic["entry"])
-    out = {"program": {}, "control": {}, "seconds": []}
+    out = {"program": {}, "controls": {}, "seconds": []}
     for seed in seeds:
         t0 = time.perf_counter()
         ctx = harness._ctx(cell, seed, device)
@@ -55,13 +66,16 @@ def readings(cell, seeds, device=None) -> dict:
             torch.cuda.empty_cache()
         ref = entry.reference_unit(state, unit, torch.float32)
         prog = entry.compare(unit, ref)
-        ctl = entry.compare(
-            entry.reference_unit(state, unit, torch.bfloat16), ref)
-        for side, nums in (("program", prog), ("control", ctl)):
+        ctls = {name: entry.compare(c, ref)
+                for name, c in controls(entry, state, unit).items()}
+        for k, v in prog.items():
+            out["program"].setdefault(k, []).append(v)
+        for name, nums in ctls.items():
             for k, v in nums.items():
-                out[side].setdefault(k, []).append(v)
+                out["controls"].setdefault(name, {}).setdefault(k, []) \
+                    .append(v)
         out["seconds"].append(time.perf_counter() - t0)
-        print(json.dumps({"seed": seed, "program": prog, "control": ctl,
+        print(json.dumps({"seed": seed, "program": prog, "controls": ctls,
                           "seconds": out["seconds"][-1]}), flush=True)
         del state, unit, ref
     return out

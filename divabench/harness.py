@@ -92,13 +92,17 @@ class Cell:
 
 def _ctx(cell: Cell, seed: int, device):
     """What an entry driver's set-up reads: the cell's sizes and traffic,
-    the seed, the device, and the geometry as the program's fields and as
-    the benchmark's own ``DimmGeometry``."""
-    from divabench.model.geometry import DimmGeometry
-    fields = dict(cell.config["geometry"])
+    the seed, the device, and the DIMM geometry as the program's fields and
+    as the benchmark's own ``DimmGeometry`` (both None where the
+    configuration has no ``geometry``, as a model's has none)."""
+    fields = geom = None
+    if "geometry" in cell.config:
+        from divabench.model.geometry import DimmGeometry
+        fields = dict(cell.config["geometry"])
+        geom = DimmGeometry(**fields)
     return SimpleNamespace(config=cell.config, traffic=cell.traffic,
                            seed=int(seed) % (1 << 64), device=device,
-                           geom_fields=fields, geom=DimmGeometry(**fields))
+                           geom_fields=fields, geom=geom)
 
 
 def _forbidden_loaded() -> list[str]:
@@ -174,11 +178,14 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
         window_range = record_function("divabench.window")
         window_range.__enter__()
     units = dimms = 0
+    counts: dict = {}
     t0 = time.perf_counter()
     while True:
         rec = entry.step(state, units)
         units += 1
-        dimms += int(rec["dimms"])
+        dimms += int(rec.get("dimms", 0))
+        for k, v in rec.get("counts", {}).items():
+            counts[k] = counts.get(k, 0) + v
         if pick.integers(units) == 0:
             kept = rec
         if time.perf_counter() - t0 >= seconds:
@@ -200,7 +207,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
                            + ", ".join(loaded))
 
     run = SimpleNamespace(cell=cell.name, setup_s=setup_s, window_s=window_s,
-                          units=units, dimms=dimms,
+                          units=units, dimms=dimms, counts=counts,
                           peak_window_bytes=peak_window, trace=tr,
                           spans=spans or [], work=entry.kernel_work(state))
     kind = "per_layer" if trace else "end_to_end"

@@ -48,10 +48,59 @@ def fail_prob_op_work(D: int, M: int, R: int, C: int) -> dict:
                           ops_per_cell=FAIL_PROB_OP_OPS_PER_CELL)
 
 
+# int32 operations a step of an FR-FCFS walk needs, with the bus and the
+# activation window on (the rule of ``reference_eval.walk_totals``), per
+# queued request 25: the start (1 max), the row hit (1 compare), the ACT time
+# (max, + tRP; tRRD and tFAW: 2 adds, 2 max), the column time (+ tRCD, a
+# select), the data time (tCL or tCWL: a select, an add), the bus (max,
+# + tBL), the latency (1 sub), the row's close (+ tRAS, a select; a write's
+# + tWR, max, select), the request's class (arrived: 1 compare; valid, hit
+# and arrived combined: 4); per step, choosing the winner by (class,
+# arrival, trace index) 3 compares for each queued request after the first,
+# and the winner's update 10: the rank's last ACT (1 max), its four-ACT
+# window kept sorted (6 min/max), the clock (1 max), the refill's index and
+# its validity (2).
+BANK_SCHED_OPS_PER_REQUEST = 25
+BANK_SCHED_OPS_PER_STEP = 10
+# the SECDED(72,64) parity-check matrix has 216 ones (56 data columns of
+# weight 3, 8 of weight 5, the 8 check bits' identity), so a codeword's 8
+# syndrome bits take 216 - 8 XORs
+SYNDROME_OPS_PER_WORD = 208
+
+
+def bank_sched_work(T: int, W: int, n: int, queue: int, banks: int) -> dict:
+    """One launch walking T timing tables x W traces of ``n`` requests each
+    through a ``queue``-deep queue: reads the (W, n, 4) int32 traces and
+    the (T, banks, 6) int32 cycle rows, writes each request's int32 latency
+    and hit."""
+    walks = T * W
+    ops = walks * n * (queue * BANK_SCHED_OPS_PER_REQUEST
+                       + 3 * (queue - 1) + BANK_SCHED_OPS_PER_STEP)
+    return {"ops": ops, "peak": "int32",
+            "bytes": W * n * 16 + T * banks * 24 + walks * n * 8}
+
+
+def syndrome_work(words: int) -> dict:
+    """One launch over ``words`` (N, 72) int32 codewords: writes (N, 8)
+    int32 syndrome bits."""
+    return {"ops": words * SYNDROME_OPS_PER_WORD, "peak": "int32",
+            "bytes": words * (72 + 8) * 4}
+
+
+def permute_work(bursts: int) -> dict:
+    """One launch permuting ``bursts`` (N, 576) int32 bursts by a (576,)
+    int64 lane index: reads and writes every lane once, no arithmetic."""
+    return {"ops": 0, "peak": "int32", "bytes": bursts * 576 * 8 + 576 * 8}
+
+
 # the kernels' symbols in a device trace: the template's first argument is
-# the coefficient count (9 for ``fail_prob``, 15 for ``fail_prob_op``)
+# the coefficient count (9 for ``fail_prob``, 15 for ``fail_prob_op``), or
+# the codeword width (72 for the syndrome, 64 for the check bits)
 SYMBOLS = {"fail_prob": "fail_prob_kernel<9,",
-           "fail_prob_op": "fail_prob_kernel<15,"}
+           "fail_prob_op": "fail_prob_kernel<15,",
+           "bank_sched": "fast_walk_kernel<",
+           "syndrome": "parity_kernel<72,",
+           "permute": "permute_kernel<"}
 
 
 def least_seconds(work: dict) -> float:

@@ -159,7 +159,8 @@ def test_control_fails_the_limits(name):
     for k, vals in r["program"].items():
         assert max(vals) <= limits[k], k
     for i in range(2):
-        assert any(r["control"][k][i] > limits[k] for k in limits)
+        assert any(r["controls"]["bfloat16"][k][i] > limits[k]
+                   for k in limits)
 
 
 @pytest.mark.cuda
