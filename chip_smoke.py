@@ -162,9 +162,10 @@ of 512x512 mats, 16 mats and 8 subarrays — it
  24. RWKV-6 training at full width and depth: ``launch.train.main`` on
      ``rwkv6-1.6b`` (24 layers, d_model 2048, 1.48B random float32
      parameters, bfloat16 compute, per-layer remat, AdamW), 8 steps of 8 x
-     512 tokens (exactly 48 ``wkv6`` and 24 ``wkv6_bwd`` launches a step,
-     no other kernel); prints the step times, tokens/s, the memory peak and
-     the losses, which must be finite; then one more step under
+     512 tokens (exactly 48 ``wkv6``, 24 ``wkv6_bwd`` and 1 ``adamw``
+     launches a step, no other kernel); prints the step times, tokens/s,
+     the memory peak and the losses, which must be finite; then one more
+     step under
      ``torch.profiler``: its kernel time by group (matmuls, float32 ones
      among them, ``wkv6``, ``wkv6_bwd``, the rest) and the device's idle
      share; then the card against the port on the
@@ -216,7 +217,8 @@ of 512x512 mats, 16 mats and 8 subarrays — it
      expert ids, positions and kept assignments identical;
  27. dense training at full width and depth: ``launch.train.main`` on
      ``qwen2-0.5b`` (float32 master weights, bfloat16 compute, per-layer
-     remat, AdamW), 8 steps of 8 x 512 tokens (no port kernel): step times,
+     remat, AdamW), 8 steps of 8 x 512 tokens (no port kernel but the
+     optimizer's: an ``adamw`` launch a step): step times,
      tokens/s, memory peak, finite losses; one more step under
      ``torch.profiler`` (kernel time by group, idle share); the card against
      the CPU port at 2 layers in float32, batch 2 x 128 (phase 24's bounds);
@@ -262,10 +264,11 @@ of 512x512 mats, 16 mats and 8 subarrays — it
      a2a paths' float32 logits on 4 x 512 tokens against the local path's
      (rtol = atol = 2e-5, ``tests/test_sharding_moe.py``'s bounds), routing
      identical, then 2 sharded steps of each in bfloat16 compute (finite, a
-     nonzero aux loss), each of these runs counted from 0 (no kernel may
-     launch); ``rwkv6-1.6b`` at full width cut to 4 of 24 layers,
-     2 sharded steps of 8 x 512 (exactly 16 ``wkv6`` and 8 ``wkv6_bwd``
-     launches, counted into the ``kernels`` line), losses equal to 2
+     nonzero aux loss), each of these runs counted from 0 (no kernel but the
+     optimizer's may launch: an ``adamw`` launch a sharded AdamW step);
+     ``rwkv6-1.6b`` at full width cut to 4 of 24 layers,
+     2 sharded steps of 8 x 512 (exactly 16 ``wkv6``, 8 ``wkv6_bwd`` and 2
+     ``adamw`` launches, counted into the ``kernels`` line), losses equal to 2
      unsharded steps'; ``compress_grads`` over qwen's gradients on the card
      against the CPU (q, scales and residuals identical); a sharded save of
      a moonshot smoke state trained one step on the mesh, restored with
@@ -290,16 +293,18 @@ of 512x512 mats, 16 mats and 8 subarrays — it
      peak within 15% of ``max_memory_allocated`` (above what the card held
      before), the ``wkv6`` / ``wkv6_bwd`` launches equal to the calls the dry
      run counted; each step then timed without the counter beside its three
-     roofline terms (exactly 64 ``wkv6`` and 8 ``wkv6_bwd`` launches over
-     the phase, into the ``kernels`` line);
+     roofline terms (exactly 64 ``wkv6``, 8 ``wkv6_bwd`` and 4 ``adamw``
+     launches over the phase, into the ``kernels`` line);
  32. the launch tuner (``kernels/tune.py`` over ``kernels/registry.py``):
-     for each of the ten kernels, at the shape its phase times it at (fail_prob
+     for each of eleven kernels, at the shape its phase times it at (fail_prob
      and fail_prob_op at (96, 16, 512, 512), the latter with both channels;
      the syndrome, encode and shuffle at phase 5's; bit_signature at
      (262,144, 512); bank_sched on the whole-DIMM grid at n = 20,000;
-     rc_transient on one mat; wkv6 and wkv6_bwd at (8, 512, 32, 64)), every
-     setting of its launch space launched through ``launch=`` and held
-     against the default bit for bit, at that shape and at an edge shape no
+     rc_transient on one mat; wkv6 and wkv6_bwd at (8, 512, 32, 64); adamw
+     over 210M elements of rwkv6-1.6b's leaves, at the edge odd bfloat16
+     leaves), every setting of its launch space launched through
+     ``launch=`` and held against the default bit for bit, at that shape
+     and at an edge shape no
      setting tiles evenly (there the default is held against the plain
      version: bit for bit, wkv6 and wkv6_bwd within phases 18 and 23's
      bounds); each setting timed (wkv6 also at the decode shape); then
@@ -310,15 +315,27 @@ of 512x512 mats, 16 mats and 8 subarrays — it
      (``launch``) and the default's time (``default_ms``).  A sweep's
      launches count nowhere, so phases 1-31's launch counts are those of the
      calls alone; the first concrete call of a bucket in phases 2-31 sweeps,
-     and their times are the winner's.
+     and their times are the winner's;
+ 33. the optimizer phase's kernels (``kernels/adamw.py``) at rwkv6-1.6b's
+     19 float32 leaves (1.48B elements): ``grad_sq_norm`` within 1e-6 of its
+     plain version and the same bits twice, ``adamw_update`` at that scale
+     against its plain version bit for bit, leaf by leaf; each timed beside
+     its bytes bound (4 and 28 bytes an element), the plain clip and update
+     timed, and PyTorch's ``torch._fused_adamw_`` on the same leaves as a
+     yardstick of speed (another formula).
+
+Every training step launches the optimizer's kernels: ``adamw`` once a
+table of up to 32 leaves a step under AdamW, and ``make_train_step``'s norm
+``grad_sq_norm`` once a table and once more (the sharded step sums its own
+norm); each training path's expected counts include them.
 
 Every phase prints one JSON line.  The launch counts are set to 0 just before
 each path (phases 3-4, 6, 7, 8, 9, 12, 13, 14, 16, 17, 19, 20 (ingest; tick
 and checkpoint), 21, each scan of 22, 24, each run of 25, and each serving
 and training run of 26-29, 30's rwkv6 sharded run, and 31(b)) and read just
 after it;
-every kernel of a path must have launched (26-29: none may), and the
-``kernels`` line sums the paths' counts.
+every kernel of a path must have launched (26-29: none but the
+optimizer's may), and the ``kernels`` line sums the paths' counts.
 Any failed check raises; the last line is ``{"ok": true, "device": {...}}``
 only when all passed.  Exits non-zero, printing no result, when no CUDA
 device is available.
@@ -378,6 +395,9 @@ from repro_torch.discovery.signatures import (  # noqa: E402
 from repro_torch import obs  # noqa: E402
 from repro_torch.kernels import build, ops, tune  # noqa: E402
 from repro_torch.kernels.registry import REGISTRY as KERNEL_SPECS  # noqa: E402
+from repro_torch.kernels.adamw import (  # noqa: E402
+    MAX_LEAVES as ADAMW_MAX_LEAVES, adamw_update, adamw_update_ref, adamw_update_work,
+    grad_sq_norm, grad_sq_norm_ref, grad_sq_norm_work)
 from repro_torch.kernels.bank_sched import (  # noqa: E402
     ROUTES, memsim_walk, memsim_walk_ref, walk_route)
 from repro_torch.kernels.bank_sched import _launch as bank_sched_launch  # noqa: E402
@@ -406,8 +426,8 @@ from repro_torch.sharding import counting_mesh, reset_collectives  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.launch.serve import main as serve_main  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
-from repro_torch.launch.steps import (make_sharded_train_step, make_train_step,  # noqa: E402
-                                      state_shardings)
+from repro_torch.launch.steps import (abstract_state, make_sharded_train_step,  # noqa: E402
+                                      make_train_step, state_shardings)
 from repro_torch.runtime.compression import compress_grads, init_compression_state  # noqa: E402
 from repro_torch.launch.train import build_state  # noqa: E402
 from repro_torch.launch.train import main as train_main  # noqa: E402
@@ -417,7 +437,7 @@ from repro_torch.models import model  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.layers import apply_norm  # noqa: E402
 from repro_torch.memsim import sim as memsim  # noqa: E402
-from repro_torch.optim import global_norm  # noqa: E402
+from repro_torch.optim import clip_scale, global_norm  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten  # noqa: E402
 from repro_torch.memsys.codec import (  # noqa: E402
     corrupt_run, interleave_permutation, protect_blob, recover_blob)
@@ -644,6 +664,12 @@ TUNE_RC_EDGE = 130
 TUNE_WALK_EDGE = (13, 33)
 TUNE_WKV_EDGES = ((2, 13, 3, 64), (1, 13, 2, 8))
 TUNE_WKV_BWD_EDGE = (2, 9, 3, 64)
+# adamw: 4 of rwkv6-1.6b's layers' largest leaves and its embedding (210M
+# elements); the edge: odd leaves in bfloat16, one 1-d (no decay)
+TUNE_ADAMW_SHAPES = ((4, 2048, 7168), (4, 2048, 2048), (65536, 2048), (2048,))
+TUNE_ADAMW_EDGE = ((3, 5, 7), (1001,), (2, 3, 33))
+# the optimizer phase (phase 33): runs of each timing
+ADAMW_REPS, ADAMW_PLAIN_REPS = 20, 5
 # phases 3-17 keep the dense results that phases 22 and 25 hold the scans and
 # the sharded runs to
 DENSE: dict = {}
@@ -777,6 +803,20 @@ def counted(expected: dict) -> dict:
     if got != want:
         raise AssertionError(f"launches {got}, expected {want}")
     return got
+
+
+def optimizer_launches(cfg, steps: int, own_norm: bool) -> dict:
+    """The launches of ``steps`` train steps' optimizer phase on ``cfg``:
+    under AdamW one ``adamw`` a table of up to 32 leaves a step; with
+    ``make_train_step``'s norm (``own_norm``; the sharded step sums its
+    own) one ``grad_sq_norm`` a table and one more a step, whatever the
+    optimizer."""
+    n_leaves = len(tree_leaves(abstract_state(cfg)["params"]))
+    tables = -(-n_leaves // ADAMW_MAX_LEAVES)
+    out = {"grad_sq_norm": (tables + 1) * steps} if own_norm else {}
+    if cfg.optimizer == "adamw":
+        out["adamw"] = tables * steps
+    return out
 
 
 def summary(gain: dict) -> dict:
@@ -2102,7 +2142,8 @@ def rwkv6_training_phase(dev) -> dict:
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = counted({"wkv6": 2 * cfg.n_layers * TRAIN_STEPS,
-                        "wkv6_bwd": cfg.n_layers * TRAIN_STEPS})
+                        "wkv6_bwd": cfg.n_layers * TRAIN_STEPS,
+                        **optimizer_launches(cfg, TRAIN_STEPS, own_norm=False)})
     peak = torch.cuda.max_memory_allocated(dev)
     losses = out["losses"]
     if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
@@ -3213,7 +3254,7 @@ def moe_paths_phase(dev, mesh) -> dict:
         finally:
             for k in calls:
                 setattr(moe_mod, f"_moe_ffn_{k}", plain[k])
-        counted({})
+        counted(optimizer_launches(cfg, MESH_MOE_STEPS, own_norm=False))
         if not all(r["aux"] > 0 for r in rows) or calls[path] == 0 or \
                 calls["a2a" if path == "ep" else "ep"]:
             raise AssertionError(f"moe {path} steps: {rows}, path calls {calls}")
@@ -3241,7 +3282,9 @@ def mesh_training_phase(dev) -> dict:
         t0 = time.perf_counter()
         qwen, grads = sharded_vs_unsharded(get_config(DENSE_ARCH), dev, mesh, TRAIN_BATCH,
                                            MESH_STEPS, keep_grads=True)
-        counted({})
+        qwen_launches = optimizer_launches(get_config(DENSE_ARCH), MESH_STEPS,
+                                           own_norm=False)
+        counted(qwen_launches)
         # int8 compression of qwen's gradients: the card against the CPU
         t1 = time.perf_counter()
         q, scales, err = compress_grads(grads, init_compression_state(grads))
@@ -3252,7 +3295,7 @@ def mesh_training_phase(dev) -> dict:
                      zip(tree_leaves(scales), tree_leaves(cs)))
         same_e = all(torch.equal(a.cpu(), b) for a, b in zip(tree_leaves(err), tree_leaves(ce)))
         n_grad = sum(g.numel() for g in tree_leaves(grads))
-        counted({})                                      # plain torch: no kernel
+        counted(qwen_launches)                           # plain torch: no kernel
         del grads, q, scales, err, cpu, cq, cs, ce
         if not (same_q and same_s):
             raise AssertionError(f"compress_grads: q identical {same_q}, scales {same_s}")
@@ -3265,7 +3308,8 @@ def mesh_training_phase(dev) -> dict:
         rcfg = get_config(ARCH).replace(n_layers=MESH_RWKV_LAYERS)
         rwkv, _ = sharded_vs_unsharded(rcfg, dev, mesh, TRAIN_BATCH, MESH_RWKV_STEPS)
         want = {"wkv6": 2 * MESH_RWKV_LAYERS * MESH_RWKV_STEPS,
-                "wkv6_bwd": MESH_RWKV_LAYERS * MESH_RWKV_STEPS}
+                "wkv6_bwd": MESH_RWKV_LAYERS * MESH_RWKV_STEPS,
+                **optimizer_launches(rcfg, MESH_RWKV_STEPS, own_norm=False)}
         launches = rwkv["launches"]
         if launches != {name: want.get(name, 0) for name in launches}:
             raise AssertionError(f"rwkv6 sharded steps launched {launches}, expected {want}")
@@ -3298,7 +3342,8 @@ def mesh_checkpoint(dev, mesh) -> dict:
     ops.reset_launches()
     state, _, _ = _step_run(make_sharded_train_step(cfg, mesh, sh), shard_tree(full, sh),
                             cfg, 2, 64, 1, dev)
-    counted({})
+    step_launches = optimizer_launches(cfg, 1, own_norm=False)
+    counted(step_launches)
     del full
     leaves = sum(1 for t in tree_leaves(state) if t.numel())
     with tempfile.TemporaryDirectory() as d:
@@ -3306,7 +3351,7 @@ def mesh_checkpoint(dev, mesh) -> dict:
         mgr.save(1, state, shardings=sh)
         back, info = mgr.restore(state, shardings=sh)
     launches = counted({"secded_encode": leaves, "diva_shuffle": 2 * leaves,
-                        "secded_syndrome": leaves})
+                        "secded_syndrome": leaves, **step_launches})
     same = all(a.dtype == b.dtype and torch.equal(a, b)
                for a, b in zip(tree_leaves(back), tree_leaves(state)))
     if not same or info != {"step": 1, "corrected_codewords": 0}:
@@ -3317,7 +3362,8 @@ def mesh_checkpoint(dev, mesh) -> dict:
 def train_main_run(cfg, dev, seq: int = TRAIN_SEQ) -> dict:
     """``launch.train.main`` on ``cfg.arch_id`` at full width and depth,
     TRAIN_STEPS steps of TRAIN_BATCH x ``seq`` tokens, launch counts from 0
-    (none may launch): finite losses, step times, tokens/s, memory peak."""
+    (none but the optimizer's may launch): finite losses, step times,
+    tokens/s, memory peak."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launches()
@@ -3327,7 +3373,7 @@ def train_main_run(cfg, dev, seq: int = TRAIN_SEQ) -> dict:
                       str(TRAIN_BATCH), "--seq", str(seq), "--log-every", "1"])
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = counted({})
+    launches = counted(optimizer_launches(cfg, TRAIN_STEPS, own_norm=False))
     peak = torch.cuda.max_memory_allocated(dev)
     losses = out["losses"]
     if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
@@ -3345,8 +3391,8 @@ def train_main_run(cfg, dev, seq: int = TRAIN_SEQ) -> dict:
 def train_steps(cfg, dev, steps: int, seq: int = TRAIN_SEQ) -> dict:
     """``steps`` train steps of ``cfg`` (``build_state``,
     ``make_train_step``) on TRAIN_BATCH x ``seq`` tokens on the card, launch
-    counts from 0 (none may launch): finite losses, metrics a step, step
-    seconds, parameters, memory peak."""
+    counts from 0 (none but the optimizer's may launch): finite losses,
+    metrics a step, step seconds, parameters, memory peak."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     state = build_state(cfg, device=dev)
@@ -3362,7 +3408,7 @@ def train_steps(cfg, dev, steps: int, seq: int = TRAIN_SEQ) -> dict:
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         rows.append({k: float(v) for k, v in metrics.items()})
-    launches = counted({})
+    launches = counted(optimizer_launches(cfg, steps, own_norm=True))
     peak = torch.cuda.max_memory_allocated(dev)
     del state
     torch.cuda.empty_cache()
@@ -3387,7 +3433,10 @@ def dryrun_cells() -> list:
         if rec["status"] != "ok" or rec["flops_per_device"] <= 0 or not mem.get("peak_bytes"):
             raise AssertionError(f"dry run {arch} {shape}: {rec}")
         calls = {k: v["calls"] for k, v in rec["kernels"].items()}
-        if calls != ({"wkv6": 48, "wkv6_bwd": 24} if arch == ARCH else {}):
+        want = {"wkv6": 48, "wkv6_bwd": 24} if arch == ARCH else {}
+        if shape.startswith("train") and get_config(arch).optimizer == "adamw":
+            want["adamw"] = 1
+        if calls != want:
             raise AssertionError(f"dry run {arch} {shape} kernels {rec['kernels']}")
         out.append({k: rec[k] for k in (
             "arch", "shape", "mesh", "n_chips", "trace_s", "flops_by_dtype",
@@ -3469,7 +3518,10 @@ def dryrun_phase(dev) -> dict:
             predicted_vs_card(get_config(ARCH), pre, dev),
             predicted_vs_card(get_config(ARCH).replace(n_layers=PREDICT_RWKV_LAYERS),
                               shape, dev)]
-    launches = counted({"wkv6": PREDICT_WKV6, "wkv6_bwd": PREDICT_WKV6_BWD})
+    opt = [optimizer_launches(cfg, 2, own_norm=False) for cfg in (
+        get_config(DENSE_ARCH), get_config(ARCH).replace(n_layers=PREDICT_RWKV_LAYERS))]
+    launches = counted({"wkv6": PREDICT_WKV6, "wkv6_bwd": PREDICT_WKV6_BWD,
+                        "adamw": sum(o.get("adamw", 0) for o in opt)})
     smi = nvidia_smi()
     for r in runs:
         emit("dryrun_vs_card", nvidia_smi=smi, arch=r["arch"], n_layers=r["n_layers"],
@@ -3482,6 +3534,94 @@ def dryrun_phase(dev) -> dict:
     emit("dryrun", nvidia_smi=smi, cells=cells, predicted=runs,
          seconds=dict(cells=t1 - t0, predicted=time.perf_counter() - t1))
     return launches
+
+
+def adamw_inputs(shapes, dev, dtype=torch.float32, seed: int = 0, step: int = 5) -> tuple:
+    """``adamw_update``'s arguments over leaves of ``shapes`` at optimizer
+    step ``step``: gradients and parameters in ``dtype``, float32 moments of
+    a gradient's scale, the rate and the bias corrections as the optimizer
+    makes them (0-d float32 on the card) and a clip scale under 1."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rand = lambda sh, s: torch.randn(sh, generator=gen, device=dev) * s
+    grads = [rand(sh, 1e-3).to(dtype) for sh in shapes]
+    params = [rand(sh, 2e-2).to(dtype) for sh in shapes]
+    ms = [rand(sh, 1e-4) for sh in shapes]
+    vs = [rand(sh, 1e-4).square() for sh in shapes]
+    c = torch.tensor(step, dtype=torch.int32, device=dev).float()
+    return (grads, ms, vs, params, torch.tensor(3e-4, device=dev), 1 - 0.9 ** c,
+            1 - 0.95 ** c, torch.tensor(0.37, device=dev))
+
+
+def adamw_kernel_vs_plain(dev) -> dict:
+    """Phase 33: the optimizer phase's kernels at rwkv6-1.6b's leaf set (19
+    float32 leaves, 1.48B elements): ``grad_sq_norm``'s norm within 1e-6 of
+    its plain version, its clip scale the clip's formula of that norm bit for
+    bit and so within the norm's error of the plain scale, both the same bits
+    twice; ``adamw_update`` at the kernel's
+    scale against its plain version bit for bit, leaf by leaf; each timed
+    against its bytes bound, the plain clip and update (the step's eager
+    optimizer before the kernels) timed, and beside them PyTorch's own fused
+    AdamW (``torch._fused_adamw_``, another formula: a yardstick of speed).
+    Returns the kernels line's row."""
+    shapes = [tuple(t.shape) for t in tree_leaves(abstract_state(get_config(ARCH))["params"])]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    args = adamw_inputs(shapes, dev, seed=33)
+    grads, ms, vs, params, lr, bc1, bc2, _ = args
+    ops.reset_launches()
+    norm, scale = grad_sq_norm(grads, 1.0)
+    norm2, scale2 = grad_sq_norm(grads, 1.0)
+    want_norm, want_scale = grad_sq_norm_ref(grads, 1.0)
+    norm_rel = float((norm - want_norm).abs() / want_norm)
+    scale_rel = float((scale - want_scale).abs() / want_scale)
+    twice = tune.same_bits((norm, scale), (norm2, scale2))
+    # the scale is the clip's formula of the kernel's own norm, bit for bit,
+    # and so within the norm's error (and two float32 roundings) of the plain
+    # scale; the gradients' norm (~38) makes the clip act (scale ~0.026)
+    scale_bits = tune.same_bits(scale, clip_scale(norm, 1.0))
+    if (norm_rel > 1e-6 or not twice or not scale_bits or not float(want_scale) < 1.0
+            or scale_rel > norm_rel + 2.0 ** -22):
+        raise AssertionError(f"grad_sq_norm: {float(norm)} against {float(want_norm)} "
+                             f"(rel {norm_rel}), scale {float(scale)} against "
+                             f"{float(want_scale)} (rel {scale_rel}, the clip's formula of "
+                             f"the norm bit for bit {scale_bits}), the same bits twice {twice}")
+    got = adamw_update(grads, ms, vs, params, lr, bc1, bc2, scale)
+    counted({"grad_sq_norm": 2 * (-(-len(shapes) // ADAMW_MAX_LEAVES) + 1),
+             "adamw": -(-len(shapes) // ADAMW_MAX_LEAVES)})
+    for i, leaf in enumerate(zip(grads, ms, vs, params)):
+        want = adamw_update_ref(*([t] for t in leaf), lr, bc1, bc2, scale)
+        if not tune.same_bits(tuple(o[i] for o in got), tuple(w[0] for w in want)):
+            raise AssertionError(f"adamw_update differs from its plain version on leaf "
+                                 f"{i} {shapes[i]}")
+        del want
+    del got
+    norm_ms = cuda_ms(lambda: grad_sq_norm(grads, 1.0), ADAMW_REPS)
+    update_ms = cuda_ms(lambda: adamw_update(*args), ADAMW_REPS)
+    plain_ms = cuda_ms(lambda: adamw_update_ref(*args[:7], grad_sq_norm_ref(grads, 1.0)[1]),
+                       ADAMW_PLAIN_REPS)
+    norm_bytes = grad_sq_norm_work(grads)[0]
+    update_bytes = adamw_update_work(grads, params)[0]
+    library_ms = None
+    if hasattr(torch, "_fused_adamw_"):   # in place: the inputs' last use
+        steps = [torch.tensor(5.0, device=dev) for _ in params]
+        library_ms = cuda_ms(lambda: torch._fused_adamw_(
+            params, grads, ms, vs, [], steps, lr=3e-4, beta1=0.9, beta2=0.95,
+            weight_decay=0.1, eps=1e-8, amsgrad=False, maximize=False), ADAMW_REPS)
+    peak = torch.cuda.max_memory_allocated(dev)
+    del args, grads, ms, vs, params
+    torch.cuda.empty_cache()
+    bytes_ms = (norm_bytes + update_bytes) / PEAK_BYTES_PER_S * 1e3
+    emit("adamw_kernel_vs_plain", arch=ARCH, leaves=len(shapes),
+         elements=sum(math.prod(sh) for sh in shapes), norm_rel_err=norm_rel,
+         scale=float(scale), scale_rel_err=scale_rel, norm_same_bits_twice=twice, update_equal="bits, leaf by leaf",
+         norm_ms=norm_ms, update_ms=update_ms, kernel_ms=norm_ms + update_ms,
+         norm_bound_ms=norm_bytes / PEAK_BYTES_PER_S * 1e3,
+         update_bound_ms=update_bytes / PEAK_BYTES_PER_S * 1e3, bound_ms=bytes_ms,
+         bytes=norm_bytes + update_bytes, plain_ms=plain_ms,
+         fused_adamw_library_ms=library_ms, reps=ADAMW_REPS,
+         plain_reps=ADAMW_PLAIN_REPS, max_memory_allocated=peak)
+    return dict(max_abs_err=0.0, ms=norm_ms + update_ms, plain_ms=plain_ms,
+                bytes_ms=bytes_ms, ops_ms=0.0, library_ms=library_ms)
 
 
 def tuner_cases(dev, batch, diva) -> dict:
@@ -3525,6 +3665,8 @@ def tuner_cases(dev, batch, diva) -> dict:
                  for i, sh in enumerate(TUNE_WKV_EDGES)]
     bwd_main = wkv_bwd_inputs(WKV_TRAIN, dev, 34, with_state=False)
     bwd_edge = wkv_bwd_inputs(TUNE_WKV_BWD_EDGE, dev, 35, with_state=True)
+    opt_main = adamw_inputs(TUNE_ADAMW_SHAPES, dev, seed=38)
+    opt_edge = adamw_inputs(TUNE_ADAMW_EDGE, dev, torch.bfloat16, seed=39)
     return {
         "secded_encode": (lambda lc: encode_checks(enc, launch=lc), ((enc,), {}),
                           lambda lc: encode_checks(enc_edge, launch=lc),
@@ -3562,6 +3704,9 @@ def tuner_cases(dev, batch, diva) -> dict:
         "wkv6_bwd": (lambda lc: wkv6_bwd(*bwd_main, launch=lc), (bwd_main, {}),
                      lambda lc: wkv6_bwd(*bwd_edge, launch=lc),
                      wkv6_bwd_ref(*bwd_edge), WKV_BWD_TOL[torch.float32][0], {}),
+        "adamw": (lambda lc: adamw_update(*opt_main, launch=lc), (tuple(opt_main[3]), {}),
+                  lambda lc: adamw_update(*opt_edge, launch=lc),
+                  adamw_update_ref(*opt_edge), 0, {}),
     }
 
 
@@ -3846,6 +3991,9 @@ def main() -> int:
     # ---- 32. the launch tuner
     tuned = tuner_phase(dev, batch, diva)
 
+    # ---- 33. the optimizer phase's kernels at rwkv6-1.6b's leaves
+    ints["adamw"] = adamw_kernel_vs_plain(dev)
+
     rows = [dict(name="fail_prob",
                  source="src/repro_torch/kernels/csrc/fail_prob.cu",
                  replaces="src/repro/kernels/fail_prob.py:114",
@@ -3867,6 +4015,9 @@ def main() -> int:
     # no Pallas twin: the reference differentiates its scan with XLA
     rows.append(dict(name="wkv6_bwd", source="src/repro_torch/kernels/csrc/wkv6_bwd.cu",
                      replaces="src/repro/models/rwkv6.py:54", **ints["wkv6_bwd"]))
+    # no Pallas twin: the reference's clip and AdamW are jnp that XLA fuses
+    rows.append(dict(name="adamw", source="src/repro_torch/kernels/csrc/adamw.cu",
+                     replaces="src/repro/optim/optimizers.py:31", **ints["adamw"]))
     print(json.dumps({"kernels": [{
         "name": r["name"], "route": "cuda", "source": r["source"],
         "replaces": r["replaces"], "launches": total[r["name"]],

@@ -77,6 +77,29 @@ def part(name: str):
         c._part = prev
 
 
+def kernel_call(name: str, work):
+    """The active counter with a call of kernel ``name`` added, its work
+    ``work()`` = (bytes, float32 operations) by the kernel's formula; None
+    without a counter."""
+    counter = active_counter()
+    if counter is not None:
+        n_bytes, flops = work()
+        counter.add_kernel(name, flops, n_bytes, "float32")
+    return counter
+
+
+def plain_call(counter, fn, *args):
+    """``fn(*args)``, a kernel's plain version, uncounted under ``counter``
+    (the kernel's work is counted instead), its outputs tracked as the
+    kernel's would be."""
+    if counter is None:
+        return fn(*args)
+    with counter.paused():
+        out = fn(*args)
+    counter.adopt(out)
+    return out
+
+
 def _rounded(n: int) -> int:
     return -(-n // BLOCK) * BLOCK
 

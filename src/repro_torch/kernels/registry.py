@@ -1,9 +1,10 @@
-"""Declarative kernel registry: the port's eleven hand-written kernels as data.
+"""Declarative kernel registry: the port's twelve hand-written kernels as data.
 
 The counterpart of ``repro/kernels/registry.py``.  Each :class:`KernelSpec`
 names one kernel under the reference's dispatch-site name (plus
-``wkv6_bwd``, the backward the reference leaves to XLA, and
-``fail_prob_rows``, ``fail_prob``'s grid summed on chip), its public wrapper,
+``wkv6_bwd``, the backward the reference leaves to XLA,
+``fail_prob_rows``, ``fail_prob``'s grid summed on chip, and ``adamw``, the
+train step's AdamW update, which the reference leaves to XLA), its public wrapper,
 its plain PyTorch version, the launch space the tuner (``kernels/tune.py``)
 may sweep, and the shape bucket a call's winner is cached under.
 
@@ -27,6 +28,7 @@ import sys
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
+from repro_torch.kernels.adamw import adamw_update
 from repro_torch.kernels.bank_sched import memsim_walk
 from repro_torch.kernels.bit_signature import bit_signature
 from repro_torch.kernels.fail_prob import fail_prob, fail_prob_op, fail_prob_rows
@@ -58,6 +60,11 @@ def _wkv6_bucket(args, kw) -> int:
     # r (B, S, H, dh): B*H*S, as the reference's
     r = args[0]
     return int(r.shape[0] * r.shape[2] * r.shape[1])
+
+
+def _numel_bucket(args, kw) -> int:
+    # the leaves of one update: their elements together
+    return sum(int(t.numel()) for t in args)
 
 
 @dataclass(frozen=True, eq=False)
@@ -178,8 +185,18 @@ REGISTRY: dict[str, KernelSpec] = {s.name: s for s in (
                launch_space=({}, {"row_tile": 4}, {"row_tile": 16},
                              {"row_tile": 32, "threads": 64}),
                bucket=_fail_prob_bucket),
+    # threads a block (a block updates threads x 32 elements of one leaf):
+    # the default alone, the one block the kernel is built for.  128 and 512
+    # give the same bits (elementwise), but at rwkv6-1.6b's leaves they ran
+    # within 1% of 256 on an H100 (14.7-15.1 ms), and a sweep holds two more
+    # copies of the new state beside the old: 77 GB of its 80 at the first
+    # step with three settings.  The norm's kernels (grad_sq_norm, same module) take
+    # no setting: another block would sum the squares in another order
+    KernelSpec("adamw", adamw_update, "adamw_update_ref",
+               defaults={"threads": 256},
+               bucket=_numel_bucket),
 )}
 
-#: the reference's nine dispatch-site names, in its order, then wkv6_bwd and
-#: fail_prob_rows
+#: the reference's nine dispatch-site names, in its order, then wkv6_bwd,
+#: fail_prob_rows and adamw
 KERNEL_NAMES: tuple[str, ...] = tuple(REGISTRY)

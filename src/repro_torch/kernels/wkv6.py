@@ -46,7 +46,7 @@ import functools
 
 import torch
 
-from repro_torch.counting import active_counter, is_fake
+from repro_torch.counting import is_fake, kernel_call, plain_call
 from repro_torch.kernels import tune
 
 DH = (8, 16, 32, 64)   # the kernel's instantiations of the head width
@@ -84,27 +84,6 @@ def wkv6_bwd_work(r, k, v, wlog, u, init_state, dy, dstate=None) -> tuple[int, i
     n_bytes = 2 * sum(_size(t) for t in (r, k, v, wlog, u, init_state)) \
         + _size(dy) + _size(dstate)
     return n_bytes, B * H * S * (WKV_BWD_FLOPS_PER_IJ * dh * dh + WKV_BWD_FLOPS_PER_I * dh)
-
-
-def _counted(name: str, work):
-    """The active counter with ``name``'s work added (a kernel call), or
-    None."""
-    counter = active_counter()
-    if counter is not None:
-        n_bytes, flops = work()
-        counter.add_kernel(name, flops, n_bytes, "float32")
-    return counter
-
-
-def _plain(counter, fn, *args):
-    """The plain version, uncounted under a counter (the kernel's work is
-    counted instead); its outputs tracked as the kernel's would be."""
-    if counter is None:
-        return fn(*args)
-    with counter.paused():
-        out = fn(*args)
-    counter.adopt(out)
-    return out
 
 
 def wkv6_ref(r, k, v, wlog, u, init_state=None):
@@ -214,13 +193,13 @@ def _forward(r, k, v, wlog, u, init_state, launch=None):
     outputs' shapes on fake tensors."""
     B, S, H, dh = r.shape
     args = (r, k, v, wlog, u, init_state)
-    counter = _counted("wkv6", lambda: wkv6_work(*args)) if S and B * H else None
+    counter = kernel_call("wkv6", lambda: wkv6_work(*args)) if S and B * H else None
     if is_fake(r) and S and B * H:
         tune.resolve("wkv6", launch, args, {}, None)   # checked; fake: no sweep
         return _launch(*args, fake=True)
     if r.device.type == "cpu":
         tune.resolve("wkv6", launch, args, {}, lambda setting: wkv6_ref(*args))
-        return _plain(counter, wkv6_ref, *args)
+        return plain_call(counter, wkv6_ref, *args)
     run = lambda setting: _launch(*args, chunk=setting["chunk"])
     setting = tune.resolve("wkv6", launch, args, {}, run)
     if S == 0 or B * H == 0:
@@ -388,13 +367,13 @@ def wkv6_bwd(r, k, v, wlog, u, init_state, dy, dstate=None, *,
     if kind not in ("cpu", "cuda"):
         raise ValueError(f"wkv6_bwd runs on cpu or cuda tensors, not {kind}")
     args = (r, k, v, wlog, u, init_state, dy, dstate)
-    counter = _counted("wkv6_bwd", lambda: wkv6_bwd_work(*args)) if S and B * H else None
+    counter = kernel_call("wkv6_bwd", lambda: wkv6_bwd_work(*args)) if S and B * H else None
     if is_fake(r) and S and B * H:
         tune.resolve("wkv6_bwd", launch, args, {}, None)   # checked; fake: no sweep
         return _bwd_launch(*args, fake=True)
     if kind == "cpu":
         tune.resolve("wkv6_bwd", launch, args, {}, lambda setting: wkv6_bwd_ref(*args))
-        return _plain(counter, wkv6_bwd_ref, *args)
+        return plain_call(counter, wkv6_bwd_ref, *args)
     run = lambda setting: _bwd_launch(*args)
     setting = tune.resolve("wkv6_bwd", launch, args, {}, run)
     if S == 0 or B * H == 0:

@@ -43,8 +43,8 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.counting import fake_mode
 from repro_torch.models import cache as cache_mod
 from repro_torch.models import model as model_mod
-from repro_torch.optim import (clip_by_global_norm, clip_to_norm, get_optimizer,
-                               linear_warmup_cosine)
+from repro_torch.kernels.adamw import grad_sq_norm
+from repro_torch.optim import clip_scale, get_optimizer, linear_warmup_cosine
 from repro_torch.tree import tree_leaves, tree_map, tree_map_with_path, tree_unflatten
 
 
@@ -99,9 +99,11 @@ def make_train_step(cfg: ModelConfig, *, base_lr: float = 3e-4, warmup: int = 10
     ``{"params", "opt", "step"}`` on one device and a batch with tokens (B,
     S+1).  As in the reference: the gradients of ``loss_fn`` are clipped to
     ``clip_norm`` by their global norm, then the rate is read from the
-    schedule at ``state["step"]``, then the optimizer updates.  The state
-    passed in is left as it is.  Metrics (0-d tensors): loss, ce, aux, gnorm
-    (before clipping), lr."""
+    schedule at ``state["step"]``, then the optimizer updates.  The norm and
+    the clip's scale come from ``kernels/adamw.grad_sq_norm`` (one read of
+    the gradients on a card), and the optimizer scales each gradient as it
+    updates (no clipped copy).  The state passed in is left as it is.
+    Metrics (0-d tensors): loss, ce, aux, gnorm (before clipping), lr."""
     opt = get_optimizer(cfg.optimizer)
     lr_fn = linear_warmup_cosine(base_lr, warmup, total_steps)
 
@@ -109,10 +111,11 @@ def make_train_step(cfg: ModelConfig, *, base_lr: float = 3e-4, warmup: int = 10
         params = tree_map(lambda p: p.detach().requires_grad_(), state["params"])
         with torch.enable_grad():
             loss, parts = model_mod.loss_fn(cfg, params, batch)
-            grads = tree_unflatten(params, torch.autograd.grad(loss, tree_leaves(params)))
-        grads, gnorm = clip_by_global_norm(grads, clip_norm)
+            grads = torch.autograd.grad(loss, tree_leaves(params))
+        gnorm, scale = grad_sq_norm(grads, clip_norm)
         lr = lr_fn(state["step"])
-        new_params, new_opt = opt.update(grads, state["opt"], state["params"], lr)
+        new_params, new_opt = opt.update(tree_unflatten(params, grads), state["opt"],
+                                         state["params"], lr, scale=scale)
         new_state = {"params": new_params, "opt": new_opt, "step": state["step"] + 1}
         metrics = {"loss": loss.detach(), "ce": parts["ce"].detach(),
                    "aux": parts["aux"].detach(), "gnorm": gnorm, "lr": lr}
@@ -240,10 +243,10 @@ def make_sharded_train_step(cfg: ModelConfig, mesh, state_sh, *, base_lr: float 
             gnorm = torch.sqrt(sum(sq))
             grads = tree_map(lambda g, sh, kp: sh.shard(g, keep=kp).contiguous(),
                              grads, psh, keep)
-            grads = clip_to_norm(grads, gnorm, clip_norm)
             lr = lr_fn(state["step"])
             new_params, new_opt = opt.update(grads, state["opt"], state["params"], lr,
-                                             shardings=psh)
+                                             shardings=psh,
+                                             scale=clip_scale(gnorm, clip_norm))
         new_state = {"params": new_params, "opt": new_opt, "step": state["step"] + 1}
         metrics = {"loss": parts[0], "ce": parts[1], "aux": parts[2], "gnorm": gnorm,
                    "lr": lr}

@@ -12,6 +12,12 @@ operations.  Weight decay follows the reference's rule ``p.ndim >= 2``: on
 the layer-stacked ``(L, ...)`` leaves of a model it also decays norms and
 the per-channel vectors, as the reference does.
 
+Every ``update`` takes the global-norm clip's ``scale`` (``optim.clip``'s
+``clip_scale`` of the norm; None: no clip) and scales each gradient by it
+first, as ``clip_to_norm`` does, so that a step builds no clipped copy of its
+gradients.  AdamW's update runs through ``kernels/adamw.adamw_update``: on
+a card one fused pass over the leaves, on the CPU the plain version.
+
 On a mesh, ``update(..., shardings=)`` takes each leaf as this rank's shard
 (``sharding.NamedSharding`` per parameter): AdamW and SGD are elementwise,
 and Adafactor's means over a split dim (the factored ``vr``/``vc``, their
@@ -24,7 +30,11 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from repro_torch.tree import tree_leaves, tree_map, tree_unzip
+# the kernel module by name: it imports optim.clip, which runs this package's
+# __init__, so either may be imported first
+from repro_torch.kernels import adamw as adamw_kernels
+from repro_torch.optim.clip import scaled
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten, tree_unzip
 
 
 class Optimizer(NamedTuple):
@@ -39,25 +49,6 @@ def _zeros(p, dtype=torch.float32, shape=None):
 
 def _count(params):
     return torch.zeros((), dtype=torch.int32, device=tree_leaves(params)[0].device)
-
-
-def global_norm(tree) -> torch.Tensor:
-    leaves = tree_leaves(tree)
-    return torch.sqrt(sum(torch.sum(torch.square(leaf.float())) for leaf in leaves))
-
-
-def clip_to_norm(tree, gn, max_norm: float):
-    """``tree`` scaled so that a global norm ``gn`` becomes at most
-    ``max_norm``; each leaf keeps its dtype."""
-    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
-    return tree_map(lambda g: (g.float() * scale).to(g.dtype), tree)
-
-
-def clip_by_global_norm(tree, max_norm: float):
-    """``(tree scaled so that its global norm is at most max_norm, the norm
-    before)``; each leaf keeps its dtype."""
-    gn = global_norm(tree)
-    return clip_to_norm(tree, gn, max_norm), gn
 
 
 def _mean(x, dim, sh, pdim: int, ndim: int, keepdim=False):
@@ -84,23 +75,16 @@ def adamw(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1) -> Optimizer:
                 "count": _count(params)}
 
     @torch.no_grad()
-    def update(grads, state, params, lr, shardings=None):  # elementwise
+    def update(grads, state, params, lr, shardings=None, scale=None):  # elementwise
         c = state["count"] + 1
         bc1 = 1 - b1 ** c.float()
         bc2 = 1 - b2 ** c.float()
-
-        def upd(g, m, v, p):
-            g = g.float()
-            m = b1 * m + (1 - b1) * g
-            v = b2 * v + (1 - b2) * g * g
-            step = (m / bc1) / (torch.sqrt(v / bc2) + eps)
-            if p.ndim >= 2:  # decay matrices only (norms/bias exempt)
-                step = step + weight_decay * p.float()
-            return (p.float() - lr * step).to(p.dtype), m, v
-
-        new_params, new_m, new_v = tree_unzip(
-            tree_map(upd, grads, state["m"], state["v"], params), 3)
-        return new_params, {"m": new_m, "v": new_v, "count": c}
+        new_p, new_m, new_v = adamw_kernels.adamw_update(
+            *(tree_leaves(t) for t in (grads, state["m"], state["v"], params)),
+            lr, bc1, bc2, scale, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
+        return tree_unflatten(params, new_p), {"m": tree_unflatten(params, new_m),
+                                               "v": tree_unflatten(params, new_v),
+                                               "count": c}
 
     return Optimizer(init, update, "adamw")
 
@@ -126,12 +110,12 @@ def adafactor(eps=1e-30, clip_threshold=1.0, decay=0.8, weight_decay=0.0,
         return {"f": tree_map(one, params), "count": _count(params)}
 
     @torch.no_grad()
-    def update(grads, state, params, lr, shardings=None):
+    def update(grads, state, params, lr, shardings=None, scale=None):
         c = state["count"] + 1
         rho = 1.0 - c.float() ** (-decay)
 
         def one(g, st, p, sh=None):
-            g = g.float()
+            g = scaled(g, scale).float()
             g2 = g * g + eps
             new_st = dict(st)
             n = p.ndim
@@ -170,9 +154,9 @@ def sgd_momentum(beta=0.9) -> Optimizer:
         return {"m": tree_map(_zeros, params), "count": _count(params)}
 
     @torch.no_grad()
-    def update(grads, state, params, lr, shardings=None):  # elementwise
+    def update(grads, state, params, lr, shardings=None, scale=None):  # elementwise
         def upd(g, m, p):
-            m = beta * m + g.float()
+            m = beta * m + scaled(g, scale).float()
             return (p.float() - lr * m).to(p.dtype), m
         new_params, new_m = tree_unzip(tree_map(upd, grads, state["m"], params), 2)
         return new_params, {"m": new_m, "count": state["count"] + 1}

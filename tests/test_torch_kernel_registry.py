@@ -1,7 +1,8 @@
 """The port's kernel registry against the reference's.
 
 ``repro_torch.kernels.registry`` lists the reference's nine dispatch sites,
-in its order, plus ``wkv6_bwd`` and ``fail_prob_rows``; every launch space starts with ``{}`` (the
+in its order, plus ``wkv6_bwd``, ``fail_prob_rows`` and ``adamw``: twelve
+kernels; every launch space starts with ``{}`` (the
 kernels' constants) and holds at most 4 settings; each kernel with a
 counterpart buckets a call as the reference buckets the same shapes (inputs
 made with numpy from a seed, handed to both); ``launch=`` outside a space
@@ -34,7 +35,9 @@ def _no_opt_in(monkeypatch):
 
 
 def test_names_are_the_reference_sites_then_wkv6_bwd():
-    assert KERNEL_NAMES == ref_registry.KERNEL_NAMES + ("wkv6_bwd", "fail_prob_rows")
+    assert KERNEL_NAMES == ref_registry.KERNEL_NAMES + ("wkv6_bwd", "fail_prob_rows",
+                                                        "adamw")
+    assert len(KERNEL_NAMES) == 12
     assert list(ops.KERNELS) == list(KERNEL_NAMES)
     assert all(ops.KERNELS[n] is REGISTRY[n].kernel for n in KERNEL_NAMES)
 
@@ -77,7 +80,7 @@ def _bucket_args(name, rng):
 
 @pytest.mark.parametrize("name", [n for n in KERNEL_NAMES
                                   if n not in ("bank_sched", "wkv6_bwd",
-                                               "fail_prob_rows")])
+                                               "fail_prob_rows", "adamw")])
 def test_buckets_equal_the_references(name):
     rng = np.random.default_rng(RNG_SEED)
     for port_args, ref_args in _bucket_args(name, rng):
@@ -94,6 +97,8 @@ def test_buckets_without_a_counterpart():
     assert REGISTRY["wkv6_bwd"].bucket((r,), {}) == 2 * 3 * 13            # B * H * S
     rows, d_mat, cf = torch.zeros((3, 100), dtype=torch.int32), torch.ones(5), torch.ones((3, 9))
     assert REGISTRY["fail_prob_rows"].bucket((rows, d_mat, cf), {}) == 100   # R, as fail_prob
+    leaves = (torch.zeros((3, 5)), torch.zeros(7), torch.zeros((2, 2, 2)))
+    assert REGISTRY["adamw"].bucket(leaves, {}) == 30                     # the leaves' elements
 
 
 def _calls(name):
@@ -135,6 +140,13 @@ def _calls(name):
         rf, cf = (t(rng.uniform(0, 1, 3).astype(np.float32)) for _ in range(2))
         return (lambda lc: spec.kernel(rf, cf, **RC_KW, launch=lc),
                 lambda: spec.plain(rf, cf, **RC_KW))
+    if name == "adamw":
+        shapes = ((3, 5), (7,), (2, 3, 2))
+        grads, ms, vs, ps = ([t(rng.normal(0, 0.1, sh).astype(np.float32)) for sh in shapes]
+                             for _ in range(4))
+        vs = [v.abs() for v in vs]
+        args = (grads, ms, vs, ps, 1e-2, t(0.271), t(0.0975), t(0.5))
+        return lambda lc: spec.kernel(*args, launch=lc), lambda: spec.plain(*args)
     r, k, v, w = (t(rng.normal(0, 0.5, (1, 3, 2, 8)).astype(np.float32)) for _ in range(4))
     u = t(rng.normal(0, 0.1, (2, 8)).astype(np.float32))
     if name == "wkv6":

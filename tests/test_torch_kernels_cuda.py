@@ -769,6 +769,20 @@ def _tuner_calls(name, dev):
             args = _wkv6_inputs(B, S, H, dh, dev, seed=S + dh)
             calls.append(lambda lc, a=args: wkv6(*a, launch=lc))
         return calls
+    if name == "adamw":
+        from repro_torch.kernels.adamw import adamw_update
+        calls = []
+        for dtype, shapes in ((torch.float32, ((3, 5, 7), (1001,), (64, 4099))),
+                              (torch.bfloat16, ((2, 3, 33), (5,)))):
+            gen = torch.Generator(device=dev).manual_seed(len(shapes))
+            leaves = [[torch.randn(sh, generator=gen, device=dev) * 1e-2 for sh in shapes]
+                      for _ in range(4)]
+            leaves[0] = [g.to(dtype) for g in leaves[0]]
+            leaves[3] = [p.to(dtype) for p in leaves[3]]
+            leaves[2] = [v.square() for v in leaves[2]]
+            rates = [torch.tensor(x, device=dev) for x in (3e-3, 0.271, 0.1426, 0.37)]
+            calls.append(lambda lc, a=(*leaves, *rates): adamw_update(*a, launch=lc))
+        return calls
     from repro_torch.kernels.wkv6 import wkv6_bwd
     args = _wkv6_inputs(2, 9, 3, 64, dev, seed=4)
     dy = torch.randn(args[0].shape, device=dev)

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 
 from repro.optim import optimizers as ref_opt
 from repro.optim import schedule as ref_sched
+from repro_torch.optim import clip as port_clip
 from repro_torch.optim import optimizers as port_opt
 from repro_torch.optim import schedule as port_sched
 from repro_torch.tree import tree_leaves
@@ -112,16 +113,16 @@ def test_update_leaves_its_arguments_untouched():
 def test_clip_by_global_norm_matches_reference(max_norm):
     tree = _tree(np.random.default_rng(2), scale=3.0)
     want, want_gn = ref_opt.clip_by_global_norm(jax.tree.map(jnp.asarray, tree), max_norm)
-    got, got_gn = port_opt.clip_by_global_norm(_to_torch(tree), max_norm)
+    got, got_gn = port_clip.clip_by_global_norm(_to_torch(tree), max_norm)
     np.testing.assert_allclose(float(got_gn), float(want_gn), rtol=TOL)
     _assert_trees_close(got, want)
-    np.testing.assert_allclose(float(port_opt.global_norm(got)), min(max_norm, float(got_gn)),
+    np.testing.assert_allclose(float(port_clip.global_norm(got)), min(max_norm, float(got_gn)),
                                rtol=1e-5)
 
 
 def test_bfloat16_leaves_keep_their_dtype():
     grads = {"g": torch.full((4,), 10.0, dtype=torch.bfloat16)}
-    clipped, gn = port_opt.clip_by_global_norm(grads, 1.0)
+    clipped, gn = port_clip.clip_by_global_norm(grads, 1.0)
     assert clipped["g"].dtype == torch.bfloat16 and float(gn) == pytest.approx(20.0)
 
 

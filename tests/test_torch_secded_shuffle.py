@@ -135,4 +135,5 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
                                    "secded_syndrome": 0, "diva_shuffle": 0,
                                    "bank_sched": 0, "fail_prob_op": 0,
                                    "bit_signature": 0, "rc_transient": 0,
-                                   "wkv6": 0, "wkv6_bwd": 0, "fail_prob_rows": 0}
+                                   "wkv6": 0, "wkv6_bwd": 0, "fail_prob_rows": 0,
+                                   "adamw": 0, "grad_sq_norm": 0}
