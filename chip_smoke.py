@@ -295,31 +295,11 @@ of 512x512 mats, 16 mats and 8 subarrays — it
      run counted; each step then timed without the counter beside its three
      roofline terms (exactly 64 ``wkv6``, 8 ``wkv6_bwd`` and 4 ``adamw``
      launches over the phase, into the ``kernels`` line);
- 32. the launch tuner (``kernels/tune.py`` over ``kernels/registry.py``):
-     for each of eleven kernels, at the shape its phase times it at (fail_prob
-     and fail_prob_op at (96, 16, 512, 512), the latter with both channels;
-     the syndrome, encode and shuffle at phase 5's; bit_signature at
-     (262,144, 512); bank_sched on the whole-DIMM grid at n = 20,000;
-     rc_transient on one mat; wkv6 and wkv6_bwd at (8, 512, 32, 64); adamw
-     over 210M elements of rwkv6-1.6b's leaves, at the edge odd bfloat16
-     leaves), every setting of its launch space launched through
-     ``launch=`` and held against the default bit for bit, at that shape
-     and at an edge shape no
-     setting tiles evenly (there the default is held against the plain
-     version: bit for bit, wkv6 and wkv6_bwd within phases 18 and 23's
-     bounds); each setting timed (wkv6 also at the decode shape); then
-     ``tune.clear()`` and two tuned calls: exactly one sweep counted
-     (``repro_kernel_tune_total``), none on the second call, the same bits.
-     One line a kernel with the settings, their ms, the winner and its gain
-     over the default; the ``kernels`` line's rows carry the winner
-     (``launch``) and the default's time (``default_ms``).  A sweep's
-     launches count nowhere, so phases 1-31's launch counts are those of the
-     calls alone; the first concrete call of a bucket in phases 2-31 sweeps,
-     and their times are the winner's;
- 33. the optimizer phase's kernels (``kernels/adamw.py``) at rwkv6-1.6b's
+ 32. the optimizer phase's kernels (``kernels/adamw.py``) at rwkv6-1.6b's
      19 float32 leaves (1.48B elements): ``grad_sq_norm`` within 1e-6 of its
      plain version and the same bits twice, ``adamw_update`` at that scale
-     against its plain version bit for bit, leaf by leaf; each timed beside
+     against its plain version bit for bit, leaf by leaf, and at odd
+     bfloat16 leaves (one 1-d, so without decay) bit for bit; each timed beside
      its bytes bound (4 and 28 bytes an element), the plain clip and update
      timed, and PyTorch's ``torch._fused_adamw_`` on the same leaves as a
      yardstick of speed (another formula).
@@ -392,9 +372,7 @@ from repro_torch.discovery.recover import (  # noqa: E402
     recover_mapping_population)
 from repro_torch.discovery.signatures import (  # noqa: E402
     bit_signature_population)
-from repro_torch import obs  # noqa: E402
-from repro_torch.kernels import build, ops, tune  # noqa: E402
-from repro_torch.kernels.registry import REGISTRY as KERNEL_SPECS  # noqa: E402
+from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels.adamw import (  # noqa: E402
     MAX_LEAVES as ADAMW_MAX_LEAVES, adamw_update, adamw_update_ref, adamw_update_work,
     grad_sq_norm, grad_sq_norm_ref, grad_sq_norm_work)
@@ -653,23 +631,10 @@ DRYRUN_CELLS = (("qwen2-0.5b", "train_4k", False), ("rwkv6-1.6b", "train_4k", Fa
 PREDICT_BATCH, PREDICT_SEQ, PREDICT_RWKV_LAYERS = 8, 512, 4
 PREDICT_WKV6, PREDICT_WKV6_BWD = 2 * (24 + 2 * PREDICT_RWKV_LAYERS), 2 * PREDICT_RWKV_LAYERS
 PEAK_RTOL = 0.15
-# the launch tuner (phase 32): each kernel at the shape its phase times it at,
-# every setting of its space timed over TUNE_REPS runs; the edge shapes tile
-# no setting evenly (N = 1000003 codewords or bursts, 100,003 count rows, 130
-# cells, R = 100 rows of 998 columns, 13 walks of 33 requests, S = 13 and 9
-# steps)
-TUNE_REPS = 10
-TUNE_FP_EDGE = (2, 3, 100, 998)
-TUNE_RC_EDGE = 130
-TUNE_WALK_EDGE = (13, 33)
-TUNE_WKV_EDGES = ((2, 13, 3, 64), (1, 13, 2, 8))
-TUNE_WKV_BWD_EDGE = (2, 9, 3, 64)
-# adamw: 4 of rwkv6-1.6b's layers' largest leaves and its embedding (210M
-# elements); the edge: odd leaves in bfloat16, one 1-d (no decay)
-TUNE_ADAMW_SHAPES = ((4, 2048, 7168), (4, 2048, 2048), (65536, 2048), (2048,))
-TUNE_ADAMW_EDGE = ((3, 5, 7), (1001,), (2, 3, 33))
-# the optimizer phase (phase 33): runs of each timing
+# the optimizer phase (phase 32): runs of each timing, and its edge: odd
+# leaves in bfloat16, one 1-d (no decay)
 ADAMW_REPS, ADAMW_PLAIN_REPS = 20, 5
+ADAMW_EDGE = ((3, 5, 7), (1001,), (2, 3, 33))
 # phases 3-17 keep the dense results that phases 22 and 25 hold the scans and
 # the sharded runs to
 DENSE: dict = {}
@@ -1812,7 +1777,7 @@ def wkv_kernel_vs_plain(dev) -> dict:
                 "float16": WKV_TOL[torch.float16]},
          bytes=n_bytes, flops=n_ops, serving_dtypes_ms=mix_ms,
          decode_shape=list(WKV_DECODE), decode_ms=dec_ms,
-         decode_kernel_ms_per_launch=dec_run_ms, decode_launches_timed=WKV_DECODE_RUN,
+         decode_kernel_ms_each=dec_run_ms, decode_launches_timed=WKV_DECODE_RUN,
          decode_wrapper_host_us_per_call=dec_host_us, decode_plain_ms=dec_plain_ms,
          decode_bytes_ms=dec_bytes / bw * 1e3, decode_ops_ms=dec_ops / flops * 1e3,
          library="none (no single PyTorch call computes the recurrence)",
@@ -3553,7 +3518,7 @@ def adamw_inputs(shapes, dev, dtype=torch.float32, seed: int = 0, step: int = 5)
 
 
 def adamw_kernel_vs_plain(dev) -> dict:
-    """Phase 33: the optimizer phase's kernels at rwkv6-1.6b's leaf set (19
+    """Phase 32: the optimizer phase's kernels at rwkv6-1.6b's leaf set (19
     float32 leaves, 1.48B elements): ``grad_sq_norm``'s norm within 1e-6 of
     its plain version, its clip scale the clip's formula of that norm bit for
     bit and so within the norm's error of the plain scale, both the same bits
@@ -3574,11 +3539,11 @@ def adamw_kernel_vs_plain(dev) -> dict:
     want_norm, want_scale = grad_sq_norm_ref(grads, 1.0)
     norm_rel = float((norm - want_norm).abs() / want_norm)
     scale_rel = float((scale - want_scale).abs() / want_scale)
-    twice = tune.same_bits((norm, scale), (norm2, scale2))
+    twice = ops.same_bits((norm, scale), (norm2, scale2))
     # the scale is the clip's formula of the kernel's own norm, bit for bit,
     # and so within the norm's error (and two float32 roundings) of the plain
     # scale; the gradients' norm (~38) makes the clip act (scale ~0.026)
-    scale_bits = tune.same_bits(scale, clip_scale(norm, 1.0))
+    scale_bits = ops.same_bits(scale, clip_scale(norm, 1.0))
     if (norm_rel > 1e-6 or not twice or not scale_bits or not float(want_scale) < 1.0
             or scale_rel > norm_rel + 2.0 ** -22):
         raise AssertionError(f"grad_sq_norm: {float(norm)} against {float(want_norm)} "
@@ -3590,11 +3555,16 @@ def adamw_kernel_vs_plain(dev) -> dict:
              "adamw": -(-len(shapes) // ADAMW_MAX_LEAVES)})
     for i, leaf in enumerate(zip(grads, ms, vs, params)):
         want = adamw_update_ref(*([t] for t in leaf), lr, bc1, bc2, scale)
-        if not tune.same_bits(tuple(o[i] for o in got), tuple(w[0] for w in want)):
+        if not ops.same_bits(tuple(o[i] for o in got), tuple(w[0] for w in want)):
             raise AssertionError(f"adamw_update differs from its plain version on leaf "
                                  f"{i} {shapes[i]}")
         del want
     del got
+    edge = adamw_inputs(ADAMW_EDGE, dev, torch.bfloat16, seed=39)
+    if not ops.same_bits(adamw_update(*edge), adamw_update_ref(*edge)):
+        raise AssertionError(f"adamw_update differs from its plain version at the odd "
+                             f"bfloat16 leaves {ADAMW_EDGE}")
+    del edge
     norm_ms = cuda_ms(lambda: grad_sq_norm(grads, 1.0), ADAMW_REPS)
     update_ms = cuda_ms(lambda: adamw_update(*args), ADAMW_REPS)
     plain_ms = cuda_ms(lambda: adamw_update_ref(*args[:7], grad_sq_norm_ref(grads, 1.0)[1]),
@@ -3614,6 +3584,7 @@ def adamw_kernel_vs_plain(dev) -> dict:
     emit("adamw_kernel_vs_plain", arch=ARCH, leaves=len(shapes),
          elements=sum(math.prod(sh) for sh in shapes), norm_rel_err=norm_rel,
          scale=float(scale), scale_rel_err=scale_rel, norm_same_bits_twice=twice, update_equal="bits, leaf by leaf",
+         edge_shapes=[list(sh) for sh in ADAMW_EDGE], edge_equal="bits (bfloat16)",
          norm_ms=norm_ms, update_ms=update_ms, kernel_ms=norm_ms + update_ms,
          norm_bound_ms=norm_bytes / PEAK_BYTES_PER_S * 1e3,
          update_bound_ms=update_bytes / PEAK_BYTES_PER_S * 1e3, bound_ms=bytes_ms,
@@ -3622,167 +3593,6 @@ def adamw_kernel_vs_plain(dev) -> dict:
          plain_reps=ADAMW_PLAIN_REPS, max_memory_allocated=peak)
     return dict(max_abs_err=0.0, ms=norm_ms + update_ms, plain_ms=plain_ms,
                 bytes_ms=bytes_ms, ops_ms=0.0, library_ms=library_ms)
-
-
-def tuner_cases(dev, batch, diva) -> dict:
-    """Phase 32's calls: {kernel name: (main(launch) at the shape its phase
-    times it at, the bucket's (args, kw), edge(launch) at a shape no setting
-    tiles evenly, the plain version's output there, the tolerance of the
-    kernel against it: 0 for bit for bit, {label: another call(launch) timed
-    beside the main one})}."""
-    g = batch.geom
-    C = g.cols_per_mat
-    row_src = batch.row_src[:, 0].contiguous()
-    d_mat = torch.as_tensor(_geom_consts(g)[1], device=dev)
-    adder = torch.as_tensor(condition_adders(batch, 85.0, 64.0), device=dev)
-    coeffs = _pack_coeffs(batch, 2, 7.5, PATTERN_STRESS["0101"], adder, 0, 0)
-    op_adder = torch.as_tensor(condition_adders(batch, OP_TEMP, OP_REFRESH), device=dev)
-    op_coeffs = _pack_op_coeffs(
-        batch, 1, OP_T, PATTERN_STRESS["0101"], op_adder, 0, 0,
-        access_vdd_shift(batch.vdd_coef.cpu().numpy(), OP_VDD),
-        retention_stress(OP_TEMP, OP_REFRESH, OP_VDD))
-    De, Me, Re, Ce = TUNE_FP_EDGE
-    fp_edge = edge_inputs(De, Me, Re, coeffs, d_mat, seed=32)
-    op_edge = edge_inputs(De, Me, Re, op_coeffs, d_mat, seed=33)
-    op_kw = dict(voltage=True, retention=True)
-    syn, enc = bits(SYN_ROWS, 72, dev, seed=72), bits(ENCODE_ROWS, 64, dev, seed=64)
-    syn_edge, enc_edge = bits(RAGGED[1], 72, dev, 7), bits(RAGGED[1], 64, dev, 6)
-    bursts, bursts_edge = bits(SHUFFLE_ROWS, 576, dev, 576), bits(RAGGED[1], 576, dev, 5)
-    index = _perm_tensor(shuffle_permutation(True).tobytes(), False, dev)
-    counts = counts_rows(SIG_ROWS, SIG_NBITS, dev, 2)
-    counts_edge = counts_rows(SIG_RAGGED[1], SIG_NBITS, dev, 3)
-    rf, cf = mat_cells(dev)
-    rf_edge, cf_edge = (t[::2017][:TUNE_RC_EDGE].contiguous() for t in (rf, cf))
-    tc = torch.as_tensor(np.stack([memsim.timing_cycles_banks(t, 16)
-                                   for t in [memsim.STANDARD, *diva]]), device=dev)
-    traces = memsim._stack_traces(MEMSIM_N, 16, 0, dev)
-    walk_kw = memsim._walk_kw(memsim.MemSimConfig())
-    T_e, n_e = TUNE_WALK_EDGE
-    traces_edge, tc_edge = memsim._stack_traces(n_e, 16, 0, dev)[:1], tc[:T_e]
-    wkv_main = wkv_inputs(WKV_PREFILL, dev, seed=32)
-    wkv_decode = (*wkv_inputs(WKV_DECODE, dev, seed=36), wkv_state(WKV_DECODE, dev, 37))
-    wkv_edges = [(*wkv_inputs(sh, dev, seed=33 + i), wkv_state(sh, dev, 40 + i))
-                 for i, sh in enumerate(TUNE_WKV_EDGES)]
-    bwd_main = wkv_bwd_inputs(WKV_TRAIN, dev, 34, with_state=False)
-    bwd_edge = wkv_bwd_inputs(TUNE_WKV_BWD_EDGE, dev, 35, with_state=True)
-    opt_main = adamw_inputs(TUNE_ADAMW_SHAPES, dev, seed=38)
-    opt_edge = adamw_inputs(TUNE_ADAMW_EDGE, dev, torch.bfloat16, seed=39)
-    return {
-        "secded_encode": (lambda lc: encode_checks(enc, launch=lc), ((enc,), {}),
-                          lambda lc: encode_checks(enc_edge, launch=lc),
-                          encode_checks_ref(enc_edge), 0, {}),
-        "secded_syndrome": (lambda lc: syndrome(syn, launch=lc), ((syn,), {}),
-                            lambda lc: syndrome(syn_edge, launch=lc),
-                            syndrome_ref(syn_edge), 0, {}),
-        "fail_prob": (lambda lc: fail_prob(row_src, d_mat, coeffs, cols=C, launch=lc),
-                      ((row_src, d_mat, coeffs), dict(cols=C)),
-                      lambda lc: fail_prob(*fp_edge, cols=Ce, launch=lc),
-                      fail_prob_ref(*fp_edge, cols=Ce), 0, {}),
-        "fail_prob_op": (lambda lc: fail_prob_op(row_src, d_mat, op_coeffs, cols=C,
-                                                 **op_kw, launch=lc),
-                         ((row_src, d_mat, op_coeffs), dict(cols=C)),
-                         lambda lc: fail_prob_op(*op_edge, cols=Ce, **op_kw, launch=lc),
-                         fail_prob_op_ref(*op_edge, cols=Ce, **op_kw), 0, {}),
-        "bit_signature": (lambda lc: bit_signature(counts, nbits=SIG_NBITS, launch=lc),
-                          ((counts,), dict(nbits=SIG_NBITS)),
-                          lambda lc: bit_signature(counts_edge, nbits=SIG_NBITS, launch=lc),
-                          bit_signature_ref(counts_edge, nbits=SIG_NBITS), 0, {}),
-        "bank_sched": (lambda lc: memsim_walk(traces, tc, **walk_kw, launch=lc),
-                       ((traces, tc), {}),
-                       lambda lc: memsim_walk(traces_edge, tc_edge, **walk_kw, launch=lc),
-                       memsim_walk_ref(traces_edge, tc_edge, **walk_kw), 0, {}),
-        "diva_shuffle": (lambda lc: apply_shuffle(bursts, launch=lc), ((bursts,), {}),
-                         lambda lc: apply_shuffle(bursts_edge, launch=lc),
-                         apply_shuffle_ref(bursts_edge, index), 0, {}),
-        "rc_transient": (lambda lc: rc_transient(rf, cf, launch=lc), ((rf, cf), {}),
-                         lambda lc: rc_transient(rf_edge, cf_edge, launch=lc),
-                         rc_transient_ref(rf_edge, cf_edge), 0, {}),
-        "wkv6": (lambda lc: wkv6(*wkv_main, launch=lc), (wkv_main, {}),
-                 lambda lc: [wkv6(*a, launch=lc) for a in wkv_edges],
-                 [wkv6_ref(*a) for a in wkv_edges], WKV_TOL[torch.float32],
-                 {"decode": lambda lc: wkv6(*wkv_decode, launch=lc)}),
-        "wkv6_bwd": (lambda lc: wkv6_bwd(*bwd_main, launch=lc), (bwd_main, {}),
-                     lambda lc: wkv6_bwd(*bwd_edge, launch=lc),
-                     wkv6_bwd_ref(*bwd_edge), WKV_BWD_TOL[torch.float32][0], {}),
-        "adamw": (lambda lc: adamw_update(*opt_main, launch=lc), (tuple(opt_main[3]), {}),
-                  lambda lc: adamw_update(*opt_edge, launch=lc),
-                  adamw_update_ref(*opt_edge), 0, {}),
-    }
-
-
-def _close(got, want, tol: float) -> bool:
-    """Outputs (tensors or nested lists/tuples/dicts of them) within ``tol``
-    (rtol = atol) of the plain version's."""
-    if isinstance(got, torch.Tensor):
-        return torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
-    if isinstance(got, dict):
-        return all(_close(got[k], want[k], tol) for k in got)
-    if isinstance(got, (list, tuple)):
-        return all(_close(a, b, tol) for a, b in zip(got, want, strict=True))
-    return got is None and want is None
-
-
-def tuner_phase(dev, batch, diva) -> dict:
-    """Phase 32: every setting of every kernel's launch space against the
-    default bit for bit (at the main shape and at an edge shape, where the
-    default is held against the plain version), each setting timed; then
-    ``tune.clear()`` and two tuned calls: exactly one sweep.  Returns {kernel
-    name: {"launch": the winner, "default_ms": {}'s time}}."""
-    was_enabled, obs.REGISTRY.enabled = obs.REGISTRY.enabled, True
-    tag = tune.backend_tag(torch.empty(0, device=dev))
-    sweeps = lambda name: int(obs.REGISTRY.value("repro_kernel_tune_total",
-                                                 kernel=name, backend=tag))
-    t_phase = time.perf_counter()
-    out = {}
-    for name, (main_call, (args, kw), edge_call, edge_plain, tol, extra) in \
-            tuner_cases(dev, batch, diva).items():
-        spec = KERNEL_SPECS[name]
-        base, edge_base = main_call({}), edge_call({})
-        exact_edge = tol == 0
-        if not (tune.same_bits(edge_base, edge_plain) if exact_edge
-                else _close(edge_base, edge_plain, tol)):
-            raise AssertionError(f"{name}: the default launch differs from the plain "
-                                 f"version at the edge shape")
-        ms = {}   # {index in the space: ms}
-        for i, setting in enumerate(spec.launch_space):
-            if not (tune.same_bits(main_call(setting), base)
-                    and tune.same_bits(edge_call(setting), edge_base)):
-                raise AssertionError(f"{name}: launch {setting} gives other bits "
-                                     f"than the default")
-            ms[i] = cuda_ms(lambda: main_call(setting), TUNE_REPS)
-        extra_ms = {label: [dict(launch=spec.setting(s), ms=cuda_ms(lambda: call(s), TUNE_REPS))
-                            for s in spec.launch_space] for label, call in extra.items()}
-        tune.clear()
-        before = sweeps(name)
-        t0 = time.perf_counter()
-        tuned = main_call(None)
-        torch.cuda.synchronize()
-        first_s = time.perf_counter() - t0
-        after_first = sweeps(name)
-        again = main_call(None)
-        torch.cuda.synchronize()
-        if (after_first - before, sweeps(name) - after_first) != (1, 0):
-            raise AssertionError(f"{name}: {after_first - before} sweeps on the first "
-                                 f"tuned call, {sweeps(name) - after_first} on the "
-                                 f"second; expected 1 and 0")
-        if not (tune.same_bits(tuned, base) and tune.same_bits(again, base)):
-            raise AssertionError(f"{name}: the tuned call gives other bits")
-        bucket = tune.bucket_pow2(spec.bucket(args, kw))
-        winner = tune.lookup(name, tag, bucket)
-        default_ms, winner_ms = ms[0], ms[spec.launch_space.index(winner)]
-        emit("launch_tuner", kernel=name, backend=tag, bucket=bucket,
-             settings=[dict(launch=spec.setting(s), ms=ms[i])
-                       for i, s in enumerate(spec.launch_space)],
-             reps=TUNE_REPS, winner=winner, winner_ms=winner_ms, default_ms=default_ms,
-             other_shapes=extra_ms,
-             gain_over_default=default_ms / winner_ms - 1.0,
-             first_tuned_call_s=first_s, sweeps=1, edge_equal="bits" if exact_edge
-             else f"bits across settings, plain within {tol}")
-        out[name] = dict(launch=spec.setting(winner), default_ms=default_ms)
-        del base, edge_base, tuned, again
-    obs.REGISTRY.enabled = was_enabled
-    emit("tuner_phase", seconds=time.perf_counter() - t_phase, kernels=len(out))
-    return out
 
 
 def main() -> int:
@@ -3988,10 +3798,7 @@ def main() -> int:
     emit("dryrun_phase", seconds=time.perf_counter() - t0)
     total = {name: sum(p[name] for p in paths) for name in ops.KERNELS}
 
-    # ---- 32. the launch tuner
-    tuned = tuner_phase(dev, batch, diva)
-
-    # ---- 33. the optimizer phase's kernels at rwkv6-1.6b's leaves
+    # ---- 32. the optimizer phase's kernels at rwkv6-1.6b's leaves
     ints["adamw"] = adamw_kernel_vs_plain(dev)
 
     rows = [dict(name="fail_prob",
@@ -4025,7 +3832,7 @@ def main() -> int:
         "plain_ms": r["plain_ms"],
         "bound_ms": max(r["bytes_ms"], r["ops_ms"]),
         "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",
-        "library_ms": r["library_ms"], **tuned[r["name"]]} for r in rows]}), flush=True)
+        "library_ms": r["library_ms"]} for r in rows]}), flush=True)
     emit("script", seconds=time.perf_counter() - t_script, build_s=build_s,
          nvidia_smi=smi)
     print(json.dumps({"ok": True, "device": {

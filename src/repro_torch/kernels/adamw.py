@@ -37,7 +37,6 @@ import functools
 import torch
 
 from repro_torch.counting import is_fake, kernel_call, plain_call
-from repro_torch.kernels import tune
 from repro_torch.optim.clip import clip_scale, global_norm, scaled
 
 MAX_LEAVES = 32     # leaves a launch (csrc/adamw.cu's kMaxLeaves)
@@ -126,7 +125,7 @@ def _entries():
     norm.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 \
         + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
     upd.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_float] * 6 \
-        + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+        + [ctypes.c_void_p] * 5
     return norm, upd
 
 
@@ -191,10 +190,8 @@ def grad_sq_norm(grads, max_norm: float):
 grad_sq_norm.launches = 0
 
 
-def _launch(grads, ms, vs, params, lr, bc1, bc2, scale, hyper: dict, threads: int = 256,
-            fake: bool = False):
-    """Launch the update at ``threads`` a block; returns ``(new params, new
-    m, new v)`` (uncounted: the tuner's sweep runs this too) or raises.
+def _launch(grads, ms, vs, params, lr, bc1, bc2, scale, hyper: dict, fake: bool = False):
+    """Launch the update; returns ``(new params, new m, new v)`` or raises.
     ``fake``: everything but the launch."""
     dev = params[0].device
     g, m, v, p = ([t.contiguous() for t in ts] for ts in (grads, ms, vs, params))
@@ -214,16 +211,15 @@ def _launch(grads, ms, vs, params, lr, bc1, bc2, scale, hyper: dict, threads: in
     _call(_entries()[1], dev, len(live), *map(ctypes.addressof, ptrs),
           ctypes.addressof(numel), *map(ctypes.addressof, codes),
           b1, 1 - b1, b2, 1 - b2, hyper["eps"], hyper["weight_decay"],
-          *(t.data_ptr() for t in rates), 0 if clip is None else clip.data_ptr(), threads)
+          *(t.data_ptr() for t in rates), 0 if clip is None else clip.data_ptr())
     return new
 
 
 def adamw_update(grads, ms, vs, params, lr, bc1, bc2, scale=None, *, b1=0.9, b2=0.95,
-                 eps=1e-8, weight_decay=0.1, launch: dict | None = None):
+                 eps=1e-8, weight_decay=0.1):
     """AdamW over the leaves ``params`` (lists, all on one device, each g, m
     and v of its p's shape): ``(new params, new m, new v)``, lists in the
-    same order.  ``launch``: a setting of ``adamw``'s launch space
-    (``kernels/registry.py``), or None for the tuner's choice."""
+    same order."""
     grads, ms, vs, params = (list(x) for x in (grads, ms, vs, params))
     if not len(grads) == len(ms) == len(vs) == len(params):
         raise ValueError(f"adamw_update: {len(grads)} gradients, {len(ms)} m, "
@@ -235,20 +231,14 @@ def adamw_update(grads, ms, vs, params, lr, bc1, bc2, scale=None, *, b1=0.9, b2=
                              f"{tuple(g.shape)}, m {tuple(m.shape)}, v {tuple(v.shape)}")
     hyper = dict(b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
     args = (grads, ms, vs, params, lr, bc1, bc2, scale)
-    leaves = tuple(params)
     counter = kernel_call("adamw", lambda: adamw_update_work(grads, params))
     if is_fake(params[0]):
         _kernel_dtypes("adamw", grads + params, ms + vs)
-        tune.resolve("adamw", launch, leaves, {}, None)   # checked; fake: no sweep
         return _launch(*args, hyper, fake=True)
-    plain = functools.partial(adamw_update_ref, **hyper)
     if dev.type == "cpu":
-        tune.resolve("adamw", launch, leaves, {}, lambda setting: plain(*args))
-        return plain_call(counter, plain, *args)
+        return plain_call(counter, functools.partial(adamw_update_ref, **hyper), *args)
     _kernel_dtypes("adamw", grads + params, ms + vs)
-    run = lambda setting: _launch(*args, hyper, threads=setting["threads"])
-    setting = tune.resolve("adamw", launch, leaves, {}, run)
-    out = run(setting)
+    out = _launch(*args, hyper)
     adamw_update.launches += -(-sum(1 for p in params if p.numel()) // MAX_LEAVES)
     return out
 

@@ -31,9 +31,7 @@ inputs: the fast one (bank state in registers, one reduction a step) where
 banks, ranks and channels are at most 32, arrivals never decrease along a
 trace and n < 2^25 — every trace ``memsim`` builds — and the general one
 otherwise.  ``memsim_walk.launches`` counts kernel launches, and
-``memsim_walk.route_launches`` each route's.  The fast kernel launches at the
-warps a block ``kernels/tune.py`` picks; the general one at one warp a
-block.
+``memsim_walk.route_launches`` each route's.
 """
 from __future__ import annotations
 
@@ -41,8 +39,6 @@ import ctypes
 
 import numpy as np
 import torch
-
-from repro_torch.kernels import tune
 
 #: output names, in order, of ``candidate_times``
 OUTPUTS = ("key", "hit", "t_act", "t_col", "done", "new_pre", "latency")
@@ -225,11 +221,11 @@ def walk_route(traces, banks: int, ranks: int, channels: int) -> str:
     return "fast" if bool((arrive[:, 1:] >= arrive[:, :-1]).all()) else "general"
 
 
-def _run(traces, tc, Q, *, route, warps, ranks, channels, tbl, trrd, tfaw,
-         use_bus, use_act):
+def _launch(traces, tc, Q, *, route, ranks, channels, tbl, trrd, tfaw, use_bus,
+            use_act):
     """Launch the ``route`` kernel ("fast" or "general"; ``walk_route``
-    chooses; the fast one at ``warps`` warps a block) on CUDA tensors;
-    returns (latency, hit), uncounted: the tuner's sweep runs this too."""
+    chooses) on CUDA tensors; returns (latency, hit), counted in
+    ``memsim_walk.launches`` and its route's count."""
     from repro_torch.kernels.build import LaunchError, load
     if route not in ROUTES:
         raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
@@ -245,38 +241,26 @@ def _run(traces, tc, Q, *, route, warps, ranks, channels, tbl, trrd, tfaw,
         fn = getattr(load("bank_sched"), "bank_sched_fast_launch" if fast
                      else "bank_sched_walk_launch")
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * (13 if fast else 12) \
-            + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
         with torch.cuda.device(traces.device):
             stream = torch.cuda.current_stream(traces.device).cuda_stream
             err = fn(traces.data_ptr(), tc.data_ptr(), lat.data_ptr(),
                      hit.data_ptr(), T, W, n, Q, B, ranks, channels, tbl,
-                     trrd, tfaw, int(use_bus), int(use_act),
-                     *((warps,) if fast else ()), stream)
+                     trrd, tfaw, int(use_bus), int(use_act), stream)
         if err != 0:
             raise LaunchError(f"bank_sched ({route}) failed: CUDA error {err}")
-    return lat, hit
-
-
-def _launch(traces, tc, Q, *, route, warps: int = 1, **kw):
-    """``_run``, counted in ``memsim_walk.launches`` and its route's count."""
-    lat, hit = _run(traces, tc, Q, route=route, warps=warps, **kw)
-    if lat.numel():
         memsim_walk.launches += 1
         memsim_walk.route_launches[route] += 1
     return lat, hit
 
 
 def memsim_walk(traces, tc, *, queue: int, ranks: int, channels: int,
-                tbl: int, trrd: int, tfaw: int, use_bus: bool, use_act: bool,
-                launch: dict | None = None):
+                tbl: int, trrd: int, tfaw: int, use_bus: bool, use_act: bool):
     """traces: (W, n, 4) int32 requests [bank, row, write, arrive]; tc:
     (T, B, 6) int32 per-bank cycle rows -> (latency, hit), each (T, W, n)
     int32 in service order, for every (table, trace) walk under a
     ``queue``-deep FR-FCFS queue (``use_bus``: tBL per channel;
-    ``use_act``: tRRD/tFAW per rank).  ``launch``: a setting of
-    ``bank_sched``'s launch space (``kernels/registry.py``), or None for the
-    tuner's choice; the general walk takes the default alone."""
+    ``use_act``: tRRD/tFAW per rank)."""
     for name, x, width in (("traces", traces, 4), ("tc", tc, 6)):
         if not isinstance(x, torch.Tensor):
             raise TypeError(f"memsim_walk takes torch tensors, got "
@@ -306,16 +290,9 @@ def memsim_walk(traces, tc, *, queue: int, ranks: int, channels: int,
     kw = dict(ranks=ranks, channels=channels, tbl=tbl, trrd=trrd, tfaw=tfaw,
               use_bus=use_bus, use_act=use_act)
     if traces.device.type == "cpu":
-        run = lambda setting: memsim_walk_ref(traces, tc, queue=queue, **kw)
-        return run(tune.resolve("bank_sched", launch, (traces, tc), kw, run))
-    route = walk_route(traces, B, ranks, channels)
-    Q = min(queue, traces.shape[1])
-    if route == "general":   # one warp a block: ``launch`` checked, not used
-        tune.resolve("bank_sched", launch or {}, (traces, tc), kw, None)
-        return _launch(traces, tc, Q, route=route, **kw)
-    run = lambda setting: _run(traces, tc, Q, route=route, warps=setting["warps"], **kw)
-    setting = tune.resolve("bank_sched", launch, (traces, tc), kw, run)
-    return _launch(traces, tc, Q, route=route, warps=setting["warps"], **kw)
+        return memsim_walk_ref(traces, tc, queue=queue, **kw)
+    return _launch(traces, tc, min(queue, traces.shape[1]),
+                   route=walk_route(traces, B, ranks, channels), **kw)
 
 
 memsim_walk.launches = 0

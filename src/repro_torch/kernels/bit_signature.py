@@ -9,8 +9,7 @@ it clear.  The sums wrap like the reference's int32 arithmetic.
 
 Dispatch is by the tensor's device alone: CPU tensors go to
 ``bit_signature_ref``, CUDA tensors to the kernel in ``csrc/bit_signature.cu``
-(its header states the bound and the design) at the launch
-``kernels/tune.py`` picks; anything else raises.
+(its header states the bound and the design); anything else raises.
 ``bit_signature.launches`` counts kernel launches.
 """
 from __future__ import annotations
@@ -18,8 +17,6 @@ from __future__ import annotations
 import ctypes
 
 import torch
-
-from repro_torch.kernels import tune
 
 MAX_BITS = 16
 
@@ -45,9 +42,8 @@ def _check(counts, nbits: int):
                          f"{counts.shape[1]}, nbits = {nbits}")
 
 
-def _run(counts, nbits: int, threads: int):
-    """Launch the kernel in blocks of ``threads``; returns the sums
-    (uncounted: the tuner's sweep runs this too)."""
+def _launch(counts, nbits: int):
+    """Launch the kernel; returns the sums."""
     from repro_torch.kernels.build import LaunchError, load
     if not counts.is_contiguous():
         raise ValueError("counts must be contiguous")
@@ -57,33 +53,27 @@ def _run(counts, nbits: int, threads: int):
         fn = load("bit_signature").bit_signature_launch
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         vec = R % 4 == 0 and counts.data_ptr() % 16 == 0
         with torch.cuda.device(counts.device):
             stream = torch.cuda.current_stream(counts.device).cuda_stream
-            err = fn(counts.data_ptr(), out.data_ptr(), n, R, nbits, int(vec),
-                     threads, stream)
+            err = fn(counts.data_ptr(), out.data_ptr(), n, R, nbits, int(vec), stream)
         if err != 0:
             raise LaunchError(f"bit_signature kernel launch failed: CUDA "
                               f"error {err}")
     return out
 
 
-def bit_signature(counts, *, nbits: int, launch: dict | None = None):
-    """(N, 2**nbits) int32 counts -> (N, nbits) int32 signature sums.
-    ``launch``: a setting of ``bit_signature``'s launch space
-    (``kernels/registry.py``), or None for the tuner's choice."""
+def bit_signature(counts, *, nbits: int):
+    """(N, 2**nbits) int32 counts -> (N, nbits) int32 signature sums."""
     _check(counts, nbits)
     kind = counts.device.type
     if kind not in ("cpu", "cuda"):
         raise ValueError(f"bit_signature runs on cpu or cuda tensors, not {kind}")
     if kind == "cpu":
-        run = lambda setting: bit_signature_ref(counts, nbits=nbits)
-    else:
-        run = lambda setting: _run(counts, nbits, setting["threads"])
-    out = run(tune.resolve("bit_signature", launch, (counts,), dict(nbits=nbits), run))
-    if kind == "cuda" and counts.shape[0]:
+        return bit_signature_ref(counts, nbits=nbits)
+    out = _launch(counts, nbits)
+    if counts.shape[0]:
         bit_signature.launches += 1
     return out
 

@@ -48,9 +48,7 @@
 // - Where Q, B, R and C are at most 16 (Fig 19's configurations), 16 lanes
 //   walk a trace and a warp walks two: the shuffles take width 16, each walk
 //   has its own reduction, and the warps issue half the instructions.
-// - A block is kWarps warps (1 by default; 2 and 4 are the tuner's launch
-//   space, kernels/registry.py), each walking its own traces: a walk's
-//   operations are the same in any block, so its bits are too.
+// - A block is kWarps warps (kFastWarps, 1), each walking its own traces.
 //
 // walk_kernel, the general one, for what the fast one does not take (B up to
 // 512, R and C up to 64, arrivals that decrease, n >= 2^25): lane q < Q owns
@@ -224,6 +222,9 @@ __global__ void __launch_bounds__(32) walk_kernel(const int* __restrict__ traces
 
 constexpr int kIdxBits = 25;                       // trace indices below 2^25
 constexpr unsigned kIdxTop = (1u << kIdxBits) - 1u;
+// warps a block of the fast walk (the kernel's kWarps): 2 and 4 ran within 5%
+// of 1 on the H100, ahead in some runs and behind in others
+constexpr int kFastWarps = 1;
 
 struct FastCfg {
   int n, Q, B, R, C, tbl, trrd, tfaw;
@@ -404,8 +405,8 @@ __global__ void __launch_bounds__(32 * kWarps) fast_walk_kernel(const int* __res
 }
 
 template <bool kBus, bool kAct, int kWarps>
-void launch_fast(const int* traces, const int* tc, int* lat, int* hit, int walks, int W,
-                 const FastCfg& cfg, cudaStream_t stream) {
+int launch_fast(const int* traces, const int* tc, int* lat, int* hit, int walks, int W,
+                const FastCfg& cfg, cudaStream_t stream) {
   const bool narrow = cfg.Q <= 16 && cfg.B <= 16 && cfg.R <= 16 && cfg.C <= 16;
   const long long per_block = (narrow ? 2LL : 1LL) * kWarps;   // walks a block
   const unsigned blocks = static_cast<unsigned>((walks + per_block - 1) / per_block);
@@ -418,17 +419,6 @@ void launch_fast(const int* traces, const int* tc, int* lat, int* hit, int walks
     if (cfg.Q == 1) WALK(32, true); else WALK(32, false);
   }
 #undef WALK
-}
-
-template <bool kBus, bool kAct>
-int launch_fast_warps(const int* traces, const int* tc, int* lat, int* hit, int walks, int W,
-                      const FastCfg& cfg, int warps, cudaStream_t stream) {
-  switch (warps) {
-    case 1: launch_fast<kBus, kAct, 1>(traces, tc, lat, hit, walks, W, cfg, stream); break;
-    case 2: launch_fast<kBus, kAct, 2>(traces, tc, lat, hit, walks, W, cfg, stream); break;
-    case 4: launch_fast<kBus, kAct, 4>(traces, tc, lat, hit, walks, W, cfg, stream); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -457,10 +447,10 @@ extern "C" int bank_sched_walk_launch(const int* traces, const int* tc, int* lat
 
 // The fast kernel's entry point: the same arguments, for B, R, C <= 32,
 // arrivals nondecreasing along each trace and n < 2^25 (the wrapper checks
-// the arrivals; here the sizes), and `warps` (1, 2 or 4) warps a block.
+// the arrivals; here the sizes).
 extern "C" int bank_sched_fast_launch(const int* traces, const int* tc, int* lat, int* hit,
                                       int T, int W, int n, int Q, int B, int R, int C, int tbl,
-                                      int trrd, int tfaw, int use_bus, int use_act, int warps,
+                                      int trrd, int tfaw, int use_bus, int use_act,
                                       void* stream) {
   if (T <= 0 || W <= 0 || n <= 0) return 0;
   if (Q < 1 || Q > 32 || Q > n || B < 1 || R < 1 || C < 1 || B > 32 || R > 32 || C > 32 ||
@@ -471,8 +461,8 @@ extern "C" int bank_sched_fast_launch(const int* traces, const int* tc, int* lat
   const int walks = T * W;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (use_bus && use_act)
-    return launch_fast_warps<true, true>(traces, tc, lat, hit, walks, W, cfg, warps, s);
-  if (use_bus) return launch_fast_warps<true, false>(traces, tc, lat, hit, walks, W, cfg, warps, s);
-  if (use_act) return launch_fast_warps<false, true>(traces, tc, lat, hit, walks, W, cfg, warps, s);
-  return launch_fast_warps<false, false>(traces, tc, lat, hit, walks, W, cfg, warps, s);
+    return launch_fast<true, true, kFastWarps>(traces, tc, lat, hit, walks, W, cfg, s);
+  if (use_bus) return launch_fast<true, false, kFastWarps>(traces, tc, lat, hit, walks, W, cfg, s);
+  if (use_act) return launch_fast<false, true, kFastWarps>(traces, tc, lat, hit, walks, W, cfg, s);
+  return launch_fast<false, false, kFastWarps>(traces, tc, lat, hit, walks, W, cfg, s);
 }

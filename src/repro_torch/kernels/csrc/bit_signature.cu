@@ -17,11 +17,11 @@
 // reduction are N*R*nbits*2 = 2.4e9 int32 operations, 0.145 ms at 16.7e12
 // op/s, so it is bound by bytes.  At the blind-discovery path's shape
 // (N = 768, R = 512, 1.5 MB) it is bound by the launch.  Design: one warp per
-// count row (a grid-stride loop over rows; blocks of 256 threads by default,
-// 128, 512 or 1024 in the tuner's launch space); the lanes read the row with
-// coalesced 16-byte loads, four counts at a time.  The four indices of a load
-// share every bit above bit 1, so for those bits a lane adds or subtracts the
-// four counts' sum once; bits 0 and 1 take their two-and-two differences.
+// count row (a grid-stride loop over rows, blocks of kThreads); the lanes
+// read the row with coalesced 16-byte loads, four counts at a time.  The four
+// indices of a load share every bit above bit 1, so for those bits a lane
+// adds or subtracts the four counts' sum once; bits 0 and 1 take their
+// two-and-two differences.
 // Each lane keeps its nbits partial sums in registers, an xor butterfly of
 // warp shuffles totals them, and lane b writes bit b's sum, so the row's
 // output leaves in one coalesced store.
@@ -32,6 +32,9 @@ namespace {
 
 constexpr int kMaxBits = 16;
 constexpr int kWarp = 32;
+// threads a block: a warp a count row whatever the block; 128 and 512 ran
+// within 3% of 256 on the H100
+constexpr int kThreads = 256;
 
 __device__ __forceinline__ unsigned plus_minus(bool set, unsigned v) {
   return set ? v : 0u - v;
@@ -86,18 +89,16 @@ __global__ void bit_signature_kernel(const int* __restrict__ counts, int* __rest
 // Plain C entry point for ctypes.  Launches on `stream` (PyTorch's current
 // stream) and returns cudaGetLastError() as an int: non-zero means the launch
 // was refused and nothing ran.  `vec` says the rows may be read 16 bytes at a
-// time (R a multiple of 4 and `counts` 16-byte aligned); `threads` (a
-// multiple of 32 up to 1024) is the block's size.
+// time (R a multiple of 4 and `counts` 16-byte aligned).
 extern "C" int bit_signature_launch(const int* counts, int* out, long long n, int n_rows,
-                                    int nbits, int vec, int threads, void* stream) {
-  if (nbits < 1 || nbits > kMaxBits || n_rows != (1 << nbits) || threads < kWarp ||
-      threads > 1024 || threads % kWarp)
+                                    int nbits, int vec, void* stream) {
+  if (nbits < 1 || nbits > kMaxBits || n_rows != (1 << nbits))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long warps_per_block = threads / kWarp;
+  const long long warps_per_block = kThreads / kWarp;
   long long blocks = (n + warps_per_block - 1) / warps_per_block;
   if (blocks > (1LL << 20)) blocks = 1LL << 20;   // the rows loop covers the rest
   if (blocks < 1) blocks = 1;
-  bit_signature_kernel<<<static_cast<unsigned>(blocks), threads, 0,
+  bit_signature_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(counts, out, n, n_rows, nbits,
                                                               vec);
   return static_cast<int>(cudaGetLastError());

@@ -40,9 +40,8 @@
 // time in registers (n_seg is a template parameter, so the ladder unrolls
 // into registers).  No shared memory and no synchronisation: cells are
 // independent, and a warp is 32 consecutive cells in any block, so the
-// block's size (kThreads: 128 by default, 32, 64 or 256 in the tuner's
-// launch space) changes no cell's operations.  What cuts the issued
-// instructions a step:
+// block's size (kThreads) changes no cell's operations.  What cuts the
+// issued instructions a step:
 // - Divisions.  Every divisor but the sigmoid's is a constant of the launch
 //   (tau_seg, wl_slope, tau_acc_cell, tau_acc_node, tau_pre): its refined
 //   reciprocal is computed once and each division is div_fast's three fmas
@@ -79,6 +78,9 @@ namespace {
 using fast_div::Divisor;
 
 constexpr unsigned kFull = 0xffffffffu;
+// cells a block (the kernel's kThreads): 32, 64 and 256 ran within 1% of 128
+// on the H100
+constexpr int kCellThreads = 128;
 // the least nonzero |x| a fast division may take, in qdiv's key form
 constexpr unsigned kKeyLo = (fast_div::kWideNumLoBits << 1) - 1u;
 
@@ -270,24 +272,6 @@ int launch(const float* row_frac, const float* col_frac, float* v_probe, float* 
   return static_cast<int>(cudaGetLastError());
 }
 
-// the instantiation for `threads` a block (the launch space)
-template <int kSeg>
-int launch_threads(const float* row_frac, const float* col_frac, float* v_probe,
-                   float* v_cell, float* sense, int n, const Circuit& c,
-                   unsigned long long* counters, int threads, void* stream) {
-  switch (threads) {
-    case 128: return launch<kSeg, 128>(row_frac, col_frac, v_probe, v_cell, sense, n, c,
-                                       counters, stream);
-    case 64: return launch<kSeg, 64>(row_frac, col_frac, v_probe, v_cell, sense, n, c,
-                                     counters, stream);
-    case 256: return launch<kSeg, 256>(row_frac, col_frac, v_probe, v_cell, sense, n, c,
-                                       counters, stream);
-    case 32: return launch<kSeg, 32>(row_frac, col_frac, v_probe, v_cell, sense, n, c,
-                                     counters, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
 // The fast divisions against "/" on every float32 operand of their ranges:
 // mode 0, qdiv's x / y (sign of zero included) for |x| in [2^-100, 2^40],
 // both signs, and each divisor; mode 1, recip's 1 / d for d in [1, 2^60].
@@ -329,9 +313,8 @@ __global__ void div_check_kernel(const float* __restrict__ divisors, int n, int 
 
 // Plain C entry points for ctypes.  Each launches on `stream` (PyTorch's
 // current stream) and returns cudaGetLastError() as an int: non-zero means the
-// launch was refused and nothing ran (cudaErrorInvalidValue for an n_seg or
-// a block size without an instantiation, or phase bounds out of order).
-// threads: 128, 64, 256 or 32 cells a block.
+// launch was refused and nothing ran (cudaErrorInvalidValue for an n_seg
+// without an instantiation or phase bounds out of order).
 //
 // i_sa and i_pre are the first steps of the sense-amp and precharge phases
 // (0 <= i_sa <= i_pre <= steps); fast = 0 runs every cell with IEEE
@@ -345,8 +328,7 @@ extern "C" int rc_transient_launch(const float* row_frac, const float* col_frac,
                                    float sa_enable, float dt, float tau_seg,
                                    float tau_acc_cell, float tau_acc_node, float tau_pre,
                                    float wl_slope, float sa_steep, float t_pre, float v_ready,
-                                   float v_cell0, unsigned long long* counters, int threads,
-                                   void* stream) {
+                                   float v_cell0, unsigned long long* counters, void* stream) {
   if (!(0 <= i_sa && i_sa <= i_pre && i_pre <= steps))
     return static_cast<int>(cudaErrorInvalidValue);
   const Circuit c{vdd,      v_half,   wl_delay_max, sa_gain,      sa_enable,
@@ -354,15 +336,12 @@ extern "C" int rc_transient_launch(const float* row_frac, const float* col_frac,
                   wl_slope, sa_steep, t_pre,        v_ready,      v_cell0,
                   steps,    i_sa,     i_pre,        fast};
   switch (n_seg) {
-    case 4:
-      return launch_threads<4>(row_frac, col_frac, v_probe, v_cell, sense, n, c, counters,
-                               threads, stream);
-    case 8:
-      return launch_threads<8>(row_frac, col_frac, v_probe, v_cell, sense, n, c, counters,
-                               threads, stream);
-    case 16:
-      return launch_threads<16>(row_frac, col_frac, v_probe, v_cell, sense, n, c, counters,
-                                threads, stream);
+    case 4: return launch<4, kCellThreads>(row_frac, col_frac, v_probe, v_cell, sense, n, c,
+                                           counters, stream);
+    case 8: return launch<8, kCellThreads>(row_frac, col_frac, v_probe, v_cell, sense, n, c,
+                                           counters, stream);
+    case 16: return launch<16, kCellThreads>(row_frac, col_frac, v_probe, v_cell, sense, n, c,
+                                             counters, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

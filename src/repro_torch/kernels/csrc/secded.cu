@@ -11,11 +11,10 @@
 // and do three integer operations per bit, so they are bound by bytes:
 // 0.983 GB for the Fig 17 syndrome (N = 3,072,000, W = 72), 0.29 ms at an
 // H100 SXM's 3.35 TB/s; 2.42 GB for a 64 MiB blob's encode (N = 8,388,608,
-// W = 64), 0.72 ms.  Design: a block stages its kRows (128 by default; 32
-// and 64 are the launch space the tuner sweeps, kernels/registry.py)
-// codewords (one per thread) in shared memory with coalesced 16-byte loads --
-// a thread reading its own 72 int32 straight from device memory would stride
-// by 288 B -- padded to W + 1 words a row so that the per-thread walk over
+// W = 64), 0.72 ms.  Design: a block stages its kRows (128) codewords (one
+// per thread) in shared memory with coalesced 16-byte loads -- a thread
+// reading its own 72 int32 straight from device memory would stride by
+// 288 B -- padded to W + 1 words a row so that the per-thread walk over
 // its row hits 32 distinct banks.  H lives in __constant__ memory; every
 // thread of a warp reads the same mask at the same step (broadcast).  Each
 // thread writes its 8 outputs with two 16-byte stores.
@@ -27,7 +26,11 @@ namespace {
 
 constexpr int kDataBits = 64;
 constexpr int kCheckBits = 8;
-// codewords per block, one per thread: a template parameter, 128 by default
+// codewords a block, one per thread (the kernel's kRows).  The staged tile is
+// kRows x (W + 1) int32 of static shared memory (37 KB at 128 and W = 72):
+// more rows would need dynamic shared memory; 32 and 64 ran within 1.5% of
+// 128 on the H100
+constexpr int kBlockRows = 128;
 
 // Row i of H_DATA (repro_torch/core/ecc.py::_hsiao_columns) as an 8-bit
 // mask, bit j = H_DATA[i, j]: the 56 weight-3 columns, then the first 8
@@ -93,30 +96,16 @@ int launch(const int* x, int* out, long long n, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// the instantiation for `rows` codewords a block (the launch space)
-template <int W>
-int launch_rows(const int* x, int* out, long long n, int rows, void* stream) {
-  switch (rows) {
-    case 128: return launch<W, 128>(x, out, n, stream);
-    case 64: return launch<W, 64>(x, out, n, stream);
-    case 32: return launch<W, 32>(x, out, n, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
 }  // namespace
 
 // Plain C entry points for ctypes.  `x` is (n, 64) or (n, 72) contiguous
 // int32 and `out` (n, 8) contiguous int32, 16-byte aligned (the wrapper
-// allocates it); `rows` is 128, 64 or 32 codewords a block.  Each launches
-// on `stream` (PyTorch's current stream) and returns cudaGetLastError() as an
-// int: non-zero means nothing ran.
-extern "C" int secded_encode_launch(const int* x, int* out, long long n, int rows,
-                                    void* stream) {
-  return launch_rows<kDataBits>(x, out, n, rows, stream);
+// allocates it).  Each launches on `stream` (PyTorch's current stream) and
+// returns cudaGetLastError() as an int: non-zero means nothing ran.
+extern "C" int secded_encode_launch(const int* x, int* out, long long n, void* stream) {
+  return launch<kDataBits, kBlockRows>(x, out, n, stream);
 }
 
-extern "C" int secded_syndrome_launch(const int* x, int* out, long long n, int rows,
-                                      void* stream) {
-  return launch_rows<kDataBits + kCheckBits>(x, out, n, rows, stream);
+extern "C" int secded_syndrome_launch(const int* x, int* out, long long n, void* stream) {
+  return launch<kDataBits + kCheckBits, kBlockRows>(x, out, n, stream);
 }

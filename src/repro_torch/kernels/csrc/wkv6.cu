@@ -36,11 +36,9 @@
 // 3 kRows + kCols per thread (r, k, decay of its rows; v of its columns)
 // for kRows * kCols elements.  No step waits on another thread: each row
 // group writes its partial sums to shared memory, and only at the end of a
-// chunk of kT steps (12 by default; 8 and 4 are the tuner's launch space,
-// kernels/registry.py: a step's operations and their order are the same in
-// any chunk, so the bits are too) does the block add the row groups'
-// partials and v_j times the step's rank-one sum, and write the chunk's y
-// as one coalesced tile.  While a chunk computes, the next chunk's r, k, v, wlog are already
+// chunk of kT steps (kChunk, 12) does the block add the row groups'
+// partials and v_j times the step's rank-one sum, and write the chunk's y as
+// one coalesced tile.  While a chunk computes, the next chunk's r, k, v, wlog are already
 // loading into registers (raw 16- or 32-bit words, so no wait); between
 // chunks the block widens them into shared memory and computes the chunk's
 // decays exp(-exp(wlog)) and rank-one sums sum_i r u k in parallel.  Three
@@ -56,6 +54,13 @@ namespace {
 
 using wkv6io::load_raw;
 using wkv6io::widen;
+
+// steps a chunk (the kernel's kT): whole steps must tile the block at every
+// head width, so a multiple of 4; 16 and 24 would pass the 48 KB of static
+// shared memory at dh = 64 (49,280 and 73,920 bytes of staged steps and
+// partial sums), and 8 and 4 ran 7% and 15% slower at the prefill shape
+// (8, 512, 32, 64) on the H100
+constexpr int kChunk = 12;
 
 // A thread's tile of the state: kRows x kCols, by head width
 template <int kDh> struct Tile;
@@ -231,19 +236,10 @@ wkv6_kernel(const void* __restrict__ r, const void* __restrict__ k,
 template <int kDh>
 int launch(const void* r, const void* k, const void* v, const void* wlog, int cr, int ck,
            int cv, int cw, const float* u, const float* s0, float* y, float* s_out, int B,
-           int S, int H, int chunk, cudaStream_t stream) {
-#define WKV6_CHUNK(T)                                                              \
-  case T:                                                                          \
-    wkv6_kernel<kDh, T><<<B * H, Shape<kDh, T>::kThreads, 0, stream>>>(            \
-        r, k, v, wlog, cr, ck, cv, cw, u, s0, y, s_out, S, H);                     \
-    return static_cast<int>(cudaGetLastError());
-  switch (chunk) {
-    WKV6_CHUNK(12)
-    WKV6_CHUNK(8)
-    WKV6_CHUNK(4)
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef WKV6_CHUNK
+           int S, int H, cudaStream_t stream) {
+  wkv6_kernel<kDh, kChunk><<<B * H, Shape<kDh, kChunk>::kThreads, 0, stream>>>(
+      r, k, v, wlog, cr, ck, cv, cw, u, s0, y, s_out, S, H);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -251,25 +247,24 @@ int launch(const void* r, const void* k, const void* v, const void* wlog, int cr
 // r, k, v, wlog, y: (B, S, H, dh), contiguous; r..wlog each float32 (dtype
 // code 0), float16 (1) or bfloat16 (2), y float32; u: (H, dh) float32; s0 (or
 // null for zeros) and s_out: (B, H, dh, dh) float32, 16-byte aligned.  S >= 1 and B*H >= 1.
-// chunk: 12, 8 or 4 steps a chunk.  Returns the CUDA error of the launch (0 on
-// success).
+// Returns the CUDA error of the launch (0 on success).
 extern "C" int wkv6_launch(const void* r, const void* k, const void* v, const void* wlog,
                            int r_dtype, int k_dtype, int v_dtype, int w_dtype,
                            const float* u, const float* s0, float* y, float* s_out, int B,
-                           int S, int H, int dh, int chunk, cudaStream_t stream) {
+                           int S, int H, int dh, cudaStream_t stream) {
   if (B < 1 || S < 1 || H < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int codes[4] = {r_dtype, k_dtype, v_dtype, w_dtype};
   for (int c : codes)
     if (!wkv6io::valid(c)) return static_cast<int>(cudaErrorInvalidValue);
   switch (dh) {
     case 8: return launch<8>(r, k, v, wlog, r_dtype, k_dtype, v_dtype, w_dtype, u, s0, y,
-                             s_out, B, S, H, chunk, stream);
+                             s_out, B, S, H, stream);
     case 16: return launch<16>(r, k, v, wlog, r_dtype, k_dtype, v_dtype, w_dtype, u, s0, y,
-                               s_out, B, S, H, chunk, stream);
+                               s_out, B, S, H, stream);
     case 32: return launch<32>(r, k, v, wlog, r_dtype, k_dtype, v_dtype, w_dtype, u, s0, y,
-                               s_out, B, S, H, chunk, stream);
+                               s_out, B, S, H, stream);
     case 64: return launch<64>(r, k, v, wlog, r_dtype, k_dtype, v_dtype, w_dtype, u, s0, y,
-                               s_out, B, S, H, chunk, stream);
+                               s_out, B, S, H, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

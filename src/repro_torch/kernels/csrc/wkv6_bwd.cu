@@ -97,7 +97,11 @@ using wkv6io::load_raw;
 using wkv6io::store4;
 using wkv6io::widen;
 
-constexpr int kC = 8;   // steps per chunk: one saved state a chunk
+// steps per chunk: one saved state a chunk.  du sums each (b, h)'s steps by
+// their residue mod kC and then the residues in order, so another kC would
+// add du's terms in another order (other bits); and at dh = 64, kC = 4 would
+// stage fewer row values (4 x 32) than the block has threads (256)
+constexpr int kC = 8;
 
 // rows a block owns (kR), a thread's tile of them (kTR rows x kTC columns),
 // the steps the checkpoint sweep stages at once (kF) and the blocks an SM

@@ -15,8 +15,8 @@ in a fixed order on chip (``csrc/fail_prob.cu``).
 
 Dispatch is by the tensors' device alone: CPU tensors go to
 ``fail_prob_ref`` / ``fail_prob_op_ref``, CUDA tensors to the kernels in
-``csrc/fail_prob.cu`` (its header states the bounds and the design) at the
-launch ``kernels/tune.py`` picks; anything else raises.
+``csrc/fail_prob.cu`` (its header states the bounds and the design);
+anything else raises.
 ``fail_prob.launches``, ``fail_prob_op.launches`` and
 ``fail_prob_rows.launches`` count kernel launches.
 """
@@ -29,7 +29,6 @@ import torch
 
 from repro_torch.core.latency import (div_t, fail_mixture_t,
                                       retention_fail_mixture_t)
-from repro_torch.kernels import tune
 
 N_COEFFS = 9  # base_eff, k_bl', k_wl', k_mat', k_row', t_op, sigma, rate, ns
 # operating-point row: N_COEFFS access coefficients plus the voltage shift
@@ -134,13 +133,11 @@ def _entry(entry: str, argtypes: tuple):
     return fn
 
 
-def _launch(entry: str, row_src, d_mat, coeffs, cols: int, flags: tuple,
-            setting: dict):
+def _launch(entry: str, row_src, d_mat, coeffs, cols: int, flags: tuple):
     """Launch ``entry`` of the fail_prob library with the trailing int
     ``flags`` (open_bitline, then voltage and retention for the
-    operating-point entry) at the launch ``setting`` (row_tile, threads).
-    Returns the grid, or its row sums for the row-sum entry (uncounted: the
-    tuner's sweep runs this too), or raises."""
+    operating-point entry).  Returns the grid, or its row sums for the
+    row-sum entry, or raises."""
     from repro_torch.kernels.build import LaunchError
     rs = row_src if row_src.dim() == 2 else row_src[None]
     cf = coeffs if coeffs.dim() == 2 else coeffs[None]
@@ -153,12 +150,11 @@ def _launch(entry: str, row_src, d_mat, coeffs, cols: int, flags: tuple,
     shape = (D, R) if entry == "fail_prob_rows_launch" else (D, M, R, cols)
     out = torch.empty(shape, dtype=torch.float32, device=rs.device)
     if out.numel():
-        fn = _entry(entry, (_P,) * 4 + (_I,) * (6 + len(flags)) + (_P,))
+        fn = _entry(entry, (_P,) * 4 + (_I,) * (4 + len(flags)) + (_P,))
         with torch.cuda.device(rs.device):
             stream = torch.cuda.current_stream(rs.device).cuda_stream
             err = fn(rs.data_ptr(), d_mat.data_ptr(), cf.data_ptr(),
-                     out.data_ptr(), D, M, R, cols, *map(int, flags),
-                     setting["row_tile"], setting["threads"], stream)
+                     out.data_ptr(), D, M, R, cols, *map(int, flags), stream)
         if err != 0:
             raise LaunchError(f"{entry} failed: CUDA error {err}")
     return out if row_src.dim() == 2 else out[0]
@@ -171,62 +167,49 @@ def _device_kind(row_src, name: str) -> str:
     return kind
 
 
-def _grid(fn, entry: str, plain, row_src, d_mat, coeffs, cols: int,
-          flags: dict, launch):
-    """``fn``'s output: its plain version on the CPU, else ``entry`` at the
-    launch ``tune`` resolves (counted in ``fn.launches``)."""
+def _grid(fn, entry: str, plain, row_src, d_mat, coeffs, cols: int, flags: dict):
+    """``fn``'s output: its plain version on the CPU, else ``entry``
+    (counted in ``fn.launches``)."""
     if _device_kind(row_src, fn.__name__) == "cpu":
-        run = lambda setting: plain(row_src, d_mat, coeffs, cols=cols, **flags)
-    else:
-        run = lambda setting: _launch(entry, row_src, d_mat, coeffs, cols,
-                                      tuple(flags.values()), setting)
-    args, kw = (row_src, d_mat, coeffs), dict(cols=cols, **flags)
-    out = run(tune.resolve(fn.__name__, launch, args, kw, run))
-    if row_src.device.type == "cuda" and out.numel():
+        return plain(row_src, d_mat, coeffs, cols=cols, **flags)
+    out = _launch(entry, row_src, d_mat, coeffs, cols, tuple(flags.values()))
+    if out.numel():
         fn.launches += 1
     return out
 
 
-def fail_prob(row_src, d_mat, coeffs, *, cols: int, open_bitline: bool = True,
-              launch: dict | None = None):
+def fail_prob(row_src, d_mat, coeffs, *, cols: int, open_bitline: bool = True):
     """``row_src`` (R,) or (D, R) int repair-resolved internal rows;
     ``d_mat`` (M,) f32 precharge-arrival delays; ``coeffs`` (9,) or (D, 9)
-    f32 folded coefficient rows.  Returns (M, R, C) or (D, M, R, C) f32.
-    ``launch``: a setting of ``fail_prob``'s launch space
-    (``kernels/registry.py``), or None for the tuner's choice."""
+    f32 folded coefficient rows.  Returns (M, R, C) or (D, M, R, C) f32."""
     _check(row_src, d_mat, coeffs, cols, N_COEFFS)
     return _grid(fail_prob, "fail_prob_launch", fail_prob_ref, row_src, d_mat,
-                 coeffs, cols, dict(open_bitline=open_bitline), launch)
+                 coeffs, cols, dict(open_bitline=open_bitline))
 
 
 def fail_prob_op(row_src, d_mat, coeffs, *, cols: int,
                  open_bitline: bool = True, voltage: bool = False,
-                 retention: bool = False, launch: dict | None = None):
+                 retention: bool = False):
     """The operating-point grid: as ``fail_prob`` with (15,) or (D, 15)
     coefficient rows ``[*access 0-8, vdd_shift, ret_base, ret_k, ret_x,
     ret_sigma, ret_drop]``; ``voltage``/``retention`` switch the extra terms
     on (both off gives ``fail_prob`` on ``coeffs[..., :9]``, bit for bit).
-    Returns the summed two-channel grid.  ``launch``: as ``fail_prob``'s
-    (``fail_prob_op``'s space)."""
+    Returns the summed two-channel grid."""
     _check(row_src, d_mat, coeffs, cols, N_OP_COEFFS)
     return _grid(fail_prob_op, "fail_prob_op_launch", fail_prob_op_ref, row_src,
                  d_mat, coeffs, cols, dict(open_bitline=open_bitline,
-                                           voltage=voltage, retention=retention),
-                 launch)
+                                           voltage=voltage, retention=retention))
 
 
 def fail_prob_rows(row_src, d_mat, coeffs, *, cols: int,
-                   open_bitline: bool = True, launch: dict | None = None):
+                   open_bitline: bool = True):
     """``fail_prob``'s grid summed over mats and columns: (R,) or (D, R)
     f32, for the same arguments.  On the card the kernel adds each row's
     cells in a fixed order on chip (``csrc/fail_prob.cu``: within about
-    1e-6 relative of ``torch.sum``'s, the same bits at every launch setting)
-    and writes no grid.  ``launch``: a setting of ``fail_prob_rows``'s
-    launch space, or None for the tuner's choice."""
+    1e-6 relative of ``torch.sum``'s) and writes no grid."""
     _check(row_src, d_mat, coeffs, cols, N_COEFFS)
     return _grid(fail_prob_rows, "fail_prob_rows_launch", fail_prob_rows_ref,
-                 row_src, d_mat, coeffs, cols, dict(open_bitline=open_bitline),
-                 launch)
+                 row_src, d_mat, coeffs, cols, dict(open_bitline=open_bitline))
 
 
 def division_check(divisors) -> list[int]:

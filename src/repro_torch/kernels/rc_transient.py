@@ -12,8 +12,7 @@ never did).
 
 Dispatch is by the tensors' device alone: CPU tensors go to
 ``rc_transient_ref``, CUDA tensors to the kernel in ``csrc/rc_transient.cu``
-(its header states the bound and the design) at the launch
-``kernels/tune.py`` picks; anything else raises.
+(its header states the bound and the design); anything else raises.
 ``rc_transient.launches`` counts kernel launches.
 
 The kernel runs the wordline-open, sense-amp and precharge phases as step
@@ -34,7 +33,6 @@ import torch
 from repro_torch.core.spice import (SA_STEEPNESS, WL_SLOPE_NS, CircuitParams,
                                     divisors, euler_step, ladder_init, n_steps,
                                     step_phases, step_times, time_constants)
-from repro_torch.kernels import tune
 
 N_SEGS = (4, 8, 16)   # the kernel's instantiations of the ladder length
 #: the fast divisions' divisor range and the bound the wrapper keeps every
@@ -171,12 +169,9 @@ def division_check(divisors) -> list[int]:
 
 
 def _launch(row_frac, col_frac, cp: CircuitParams, t_total_ns: float,
-            t_pre_ns: float, v_ready: float, cell_charged: bool, *,
-            threads: int, counters):
-    """Launch the kernel in blocks of ``threads`` cells, adding its route
-    counts to ``counters`` (3 int64 on the device); returns the (3, N)
-    outputs (uncounted: the tuner's sweep runs this too, on scratch
-    counters)."""
+            t_pre_ns: float, v_ready: float, cell_charged: bool):
+    """Launch the kernel, adding its route counts to the device's
+    counters; returns the (3, N) outputs."""
     from repro_torch.kernels.build import LaunchError
     if cp.n_seg not in N_SEGS:
         raise ValueError(f"the rc_transient kernel is built for n_seg in "
@@ -195,14 +190,14 @@ def _launch(row_frac, col_frac, cp: CircuitParams, t_total_ns: float,
                    v_ready, cp.vdd if cell_charged else 0.0)
         fn = _entry("rc_transient_launch", [ctypes.c_void_p] * 5
                     + [ctypes.c_int] * 6 + [ctypes.c_float] * len(scalars)
-                    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+                    + [ctypes.c_void_p, ctypes.c_void_p])
         i_sa, i_pre, steps = phase_bounds(cp, t_total_ns, t_pre_ns)
         with torch.cuda.device(row_frac.device):
             stream = torch.cuda.current_stream(row_frac.device).cuda_stream
             err = fn(row_frac.data_ptr(), col_frac.data_ptr(), out[0].data_ptr(),
                      out[1].data_ptr(), out[2].data_ptr(), n, cp.n_seg, steps,
                      i_sa, i_pre, int(fast_route(cp, t_total_ns)), *scalars,
-                     counters.data_ptr(), threads, stream)
+                     _counters(row_frac.device).data_ptr(), stream)
         if err != 0:
             raise LaunchError(f"rc_transient failed: CUDA error {err}")
     return out
@@ -210,12 +205,9 @@ def _launch(row_frac, col_frac, cp: CircuitParams, t_total_ns: float,
 
 def rc_transient(row_frac, col_frac, *, cp: CircuitParams = CircuitParams(),
                  t_total_ns: float = 45.0, t_pre_ns: float = 30.0,
-                 v_ready: float = 0.9, cell_charged: bool = True,
-                 launch: dict | None = None):
+                 v_ready: float = 0.9, cell_charged: bool = True):
     """``row_frac``/``col_frac``: (N,) float32 in [0, 1] on one device.
-    Returns {"v_probe", "v_cell", "sense_t"}, each (N,) float32.
-    ``launch``: a setting of ``rc_transient``'s launch space
-    (``kernels/registry.py``), or None for the tuner's choice."""
+    Returns {"v_probe", "v_cell", "sense_t"}, each (N,) float32."""
     _check(row_frac, col_frac, cp, t_total_ns)
     kind = row_frac.device.type
     if kind not in ("cpu", "cuda"):
@@ -223,17 +215,8 @@ def rc_transient(row_frac, col_frac, *, cp: CircuitParams = CircuitParams(),
     kw = dict(cp=cp, t_total_ns=t_total_ns, t_pre_ns=t_pre_ns,
               v_ready=v_ready, cell_charged=cell_charged)
     if kind == "cpu":
-        run = lambda setting: rc_transient_ref(row_frac, col_frac, **kw)
-    else:   # a sweep's launches count their routes on scratch counters
-        run = lambda setting: _launch(
-            row_frac, col_frac, **kw, threads=setting["threads"],
-            counters=torch.zeros(len(ROUTE_COUNTERS), dtype=torch.int64,
-                                 device=row_frac.device))
-    setting = tune.resolve("rc_transient", launch, (row_frac, col_frac), kw, run)
-    if kind == "cpu":
-        return run(setting)
-    out = _launch(row_frac, col_frac, **kw, threads=setting["threads"],
-                  counters=_counters(row_frac.device))
+        return rc_transient_ref(row_frac, col_frac, **kw)
+    out = _launch(row_frac, col_frac, **kw)
     if out.shape[1]:
         rc_transient.launches += 1
     return {"v_probe": out[0], "v_cell": out[1], "sense_t": out[2]}

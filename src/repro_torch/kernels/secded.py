@@ -10,7 +10,7 @@ Dispatch is by the tensor's device alone: a CPU tensor goes to the plain
 version (``encode_checks_ref`` / ``syndrome_ref``, the TPU kernel's own body
 ``(x @ H) % 2`` — exact in float32, every sum is at most 72), a CUDA tensor
 to the kernels of ``csrc/secded.cu`` (its header states the bound and the
-design) at the launch ``kernels/tune.py`` picks; anything else raises.
+design); anything else raises.
 ``encode_checks.launches`` and ``syndrome.launches`` count kernel launches.
 """
 from __future__ import annotations
@@ -18,8 +18,6 @@ from __future__ import annotations
 import ctypes
 
 import torch
-
-from repro_torch.kernels import tune
 
 DATA_BITS, CODE_BITS, CHECK_BITS = 64, 72, 8
 
@@ -50,9 +48,8 @@ def _check(x, width: int, name: str):
         raise TypeError(f"{name} takes int32 bits, got {x.dtype}")
 
 
-def _run(symbol: str, x, rows: int):
-    """Launch ``symbol`` at ``rows`` codewords a block; returns the check bits
-    (uncounted: the tuner's sweep runs this too)."""
+def _launch(symbol: str, x):
+    """Launch ``symbol``; returns the check bits."""
     from repro_torch.kernels.build import LaunchError, load
     if not x.is_contiguous():
         raise ValueError(f"{symbol}: the bits must be contiguous")
@@ -61,44 +58,37 @@ def _run(symbol: str, x, rows: int):
         entry = getattr(load("secded"), symbol)
         entry.restype = ctypes.c_int
         entry.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                          ctypes.c_int, ctypes.c_void_p]
+                          ctypes.c_void_p]
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = entry(x.data_ptr(), out.data_ptr(), x.shape[0], rows, stream)
+            err = entry(x.data_ptr(), out.data_ptr(), x.shape[0], stream)
         if err != 0:
             raise LaunchError(f"{symbol} failed: CUDA error {err}")
     return out
 
 
-def _dispatch(fn, ref, name: str, symbol: str, x, launch):
+def _dispatch(fn, ref, symbol: str, x):
     kind = x.device.type
     if kind not in ("cpu", "cuda"):
         raise ValueError(f"{fn.__name__} runs on cpu or cuda tensors, not {kind}")
     if kind == "cpu":
-        run = lambda setting: ref(x)
-    else:
-        run = lambda setting: _run(symbol, x, setting["rows"])
-    out = run(tune.resolve(name, launch, (x,), {}, run))
-    if kind == "cuda" and x.shape[0]:
+        return ref(x)
+    out = _launch(symbol, x)
+    if x.shape[0]:
         fn.launches += 1
     return out
 
 
-def encode_checks(data_bits, *, launch: dict | None = None):
-    """(N, 64) int32 0/1 data bits -> (N, 8) int32 check bits.  ``launch``:
-    a setting of ``registry.REGISTRY["secded_encode"]``'s space, or None for
-    the tuner's choice."""
+def encode_checks(data_bits):
+    """(N, 64) int32 0/1 data bits -> (N, 8) int32 check bits."""
     _check(data_bits, DATA_BITS, "encode_checks")
-    return _dispatch(encode_checks, encode_checks_ref, "secded_encode",
-                     "secded_encode_launch", data_bits, launch)
+    return _dispatch(encode_checks, encode_checks_ref, "secded_encode_launch", data_bits)
 
 
-def syndrome(code_bits, *, launch: dict | None = None):
-    """(N, 72) int32 0/1 codewords -> (N, 8) int32 syndrome bits.
-    ``launch``: as ``encode_checks``'s (``secded_syndrome``'s space)."""
+def syndrome(code_bits):
+    """(N, 72) int32 0/1 codewords -> (N, 8) int32 syndrome bits."""
     _check(code_bits, CODE_BITS, "syndrome")
-    return _dispatch(syndrome, syndrome_ref, "secded_syndrome",
-                     "secded_syndrome_launch", code_bits, launch)
+    return _dispatch(syndrome, syndrome_ref, "secded_syndrome_launch", code_bits)
 
 
 encode_checks.launches = 0

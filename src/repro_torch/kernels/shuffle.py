@@ -13,8 +13,7 @@ on Hopper the permutation is a gather, so the port carries no matrix.
 
 Dispatch is by the tensor's device alone: a CPU tensor goes to the plain
 version ``apply_shuffle_ref`` (``x[:, perm]``), a CUDA tensor to the kernel
-in ``csrc/shuffle.cu`` at the launch ``kernels/tune.py`` picks; anything else
-raises.  ``apply_shuffle.launches``
+in ``csrc/shuffle.cu``; anything else raises.  ``apply_shuffle.launches``
 counts kernel launches.
 """
 from __future__ import annotations
@@ -26,7 +25,6 @@ import numpy as np
 import torch
 
 from repro_torch.core.shuffling import N_DQ, beat_of_bit
-from repro_torch.kernels import tune
 
 LANES = 9 * 64
 
@@ -66,10 +64,8 @@ def apply_shuffle_ref(bursts, perm):
     return bursts[:, perm]
 
 
-def _run(bursts, perm, tile_rows: int, blocks_per_sm: int):
-    """Launch the kernel at ``tile_rows`` bursts a tile and ``blocks_per_sm``
-    persistent blocks an SM; returns the permuted bursts (uncounted: the
-    tuner's sweep runs this too)."""
+def _launch(bursts, perm):
+    """Launch the kernel; returns the permuted bursts."""
     from repro_torch.kernels.build import LaunchError, load
     if not bursts.is_contiguous():
         raise ValueError("diva_shuffle: the bursts must be contiguous")
@@ -77,24 +73,22 @@ def _run(bursts, perm, tile_rows: int, blocks_per_sm: int):
     if bursts.shape[0]:
         fn = load("shuffle").diva_shuffle_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
-                                               ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p]
         with torch.cuda.device(bursts.device):
             stream = torch.cuda.current_stream(bursts.device).cuda_stream
             err = fn(bursts.data_ptr(), perm.data_ptr(), out.data_ptr(),
-                     bursts.shape[0], tile_rows, blocks_per_sm, stream)
+                     bursts.shape[0], stream)
         if err != 0:
             raise LaunchError(f"diva_shuffle failed: CUDA error {err}")
     return out
 
 
 def apply_shuffle(bursts, *, inverse: bool = False, shuffle: bool = True,
-                  perm=None, launch: dict | None = None):
+                  perm=None):
     """bursts: (N, 576) int32 lanes -> permuted (or, with ``inverse``,
     un-permuted) lanes.  ``perm`` overrides the permutation (default:
     ``shuffle_permutation(shuffle)``); one that is not a permutation of
-    0..575 raises.  ``launch``: a setting of ``diva_shuffle``'s launch space
-    (``kernels/registry.py``), or None for the tuner's choice."""
+    0..575 raises."""
     if not isinstance(bursts, torch.Tensor):
         raise TypeError(f"apply_shuffle takes a torch tensor, got "
                         f"{type(bursts).__name__}")
@@ -114,12 +108,9 @@ def apply_shuffle(bursts, *, inverse: bool = False, shuffle: bool = True,
     if kind not in ("cpu", "cuda"):
         raise ValueError(f"apply_shuffle runs on cpu or cuda tensors, not {kind}")
     if kind == "cpu":
-        run = lambda setting: apply_shuffle_ref(bursts, index)
-    else:
-        run = lambda setting: _run(bursts, index, setting["tile_rows"],
-                                   setting["blocks_per_sm"])
-    out = run(tune.resolve("diva_shuffle", launch, (bursts,), {}, run))
-    if kind == "cuda" and bursts.shape[0]:
+        return apply_shuffle_ref(bursts, index)
+    out = _launch(bursts, index)
+    if bursts.shape[0]:
         apply_shuffle.launches += 1
     return out
 

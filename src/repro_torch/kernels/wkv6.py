@@ -27,7 +27,7 @@ was given.
 Dispatch is by the tensors' device alone: CPU tensors go to the plain
 versions ``wkv6_ref`` / ``wkv6_bwd_ref``, CUDA tensors to the kernels in
 ``csrc/wkv6.cu`` / ``csrc/wkv6_bwd.cu`` (their headers state the bounds and
-the designs) at the launch ``kernels/tune.py`` picks; anything else raises.
+the designs); anything else raises.
 ``wkv6.launches`` and ``wkv6_bwd.launches`` count kernel launches.
 
 Fake tensors (the dry run, ``launch/dryrun.py``) take the kernels' path up
@@ -47,7 +47,6 @@ import functools
 import torch
 
 from repro_torch.counting import is_fake, kernel_call, plain_call
-from repro_torch.kernels import tune
 
 DH = (8, 16, 32, 64)   # the kernel's instantiations of the head width
 # the input dtypes, with their codes in csrc/wkv6.cu
@@ -149,14 +148,13 @@ def _entry():
     fn = load("wkv6").wkv6_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     return fn
 
 
-def _launch(r, k, v, wlog, u, init_state, fake: bool = False, chunk: int = 12):
+def _launch(r, k, v, wlog, u, init_state, fake: bool = False):
     """Launch the kernel on r, k, v, wlog in their own dtypes (no cast, and no
-    copy of a contiguous tensor) at ``chunk`` steps a chunk; returns ``(y,
-    final state)`` (uncounted: the tuner's sweep runs this too) or raises.
+    copy of a contiguous tensor); returns ``(y, final state)`` or raises.
     ``fake``: everything but the launch (fake tensors)."""
     from repro_torch.kernels.build import LaunchError
     B, S, H, dh = r.shape
@@ -173,7 +171,7 @@ def _launch(r, k, v, wlog, u, init_state, fake: bool = False, chunk: int = 12):
     args = (r.data_ptr(), k.data_ptr(), v.data_ptr(), wlog.data_ptr(),
             _CODE[r.dtype], _CODE[k.dtype], _CODE[v.dtype], _CODE[wlog.dtype],
             u.data_ptr(), 0 if s0 is None else s0.data_ptr(), y.data_ptr(),
-            state.data_ptr(), B, S, H, dh, chunk,
+            state.data_ptr(), B, S, H, dh,
             # the current stream's handle, as torch.cuda.current_stream(index)
             # .cuda_stream gives it, without building a Stream object
             torch._C._cuda_getCurrentRawStream(index))
@@ -187,26 +185,22 @@ def _launch(r, k, v, wlog, u, init_state, fake: bool = False, chunk: int = 12):
     return y, state
 
 
-def _forward(r, k, v, wlog, u, init_state, launch=None):
+def _forward(r, k, v, wlog, u, init_state):
     """``(y, final state)`` on the tensors' device: the plain version on the
-    CPU, the kernel (counted) on a card at the launch ``tune`` resolves, its
-    outputs' shapes on fake tensors."""
+    CPU, the kernel (counted) on a card, its outputs' shapes on fake
+    tensors."""
     B, S, H, dh = r.shape
     args = (r, k, v, wlog, u, init_state)
     counter = kernel_call("wkv6", lambda: wkv6_work(*args)) if S and B * H else None
     if is_fake(r) and S and B * H:
-        tune.resolve("wkv6", launch, args, {}, None)   # checked; fake: no sweep
         return _launch(*args, fake=True)
     if r.device.type == "cpu":
-        tune.resolve("wkv6", launch, args, {}, lambda setting: wkv6_ref(*args))
         return plain_call(counter, wkv6_ref, *args)
-    run = lambda setting: _launch(*args, chunk=setting["chunk"])
-    setting = tune.resolve("wkv6", launch, args, {}, run)
     if S == 0 or B * H == 0:
         state = torch.zeros((B, H, dh, dh), dtype=torch.float32, device=r.device) \
             if init_state is None else init_state.clone()
         return torch.empty((B, S, H, dh), dtype=torch.float32, device=r.device), state
-    out = run(setting)
+    out = _launch(*args)
     wkv6.launches += 1
     return out
 
@@ -217,10 +211,10 @@ class Wkv6Fn(torch.autograd.Function):
     the inputs, not the states: the backward recomputes them."""
 
     @staticmethod
-    def forward(ctx, r, k, v, wlog, u, init_state, launch=None):
+    def forward(ctx, r, k, v, wlog, u, init_state):
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(r, k, v, wlog, u, init_state)
-        return _forward(r, k, v, wlog, u, init_state, launch)
+        return _forward(r, k, v, wlog, u, init_state)
 
     @staticmethod
     def backward(ctx, dy, dstate):
@@ -228,21 +222,19 @@ class Wkv6Fn(torch.autograd.Function):
         if dy is None:
             dy = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
         grads = wkv6_bwd(r, k, v, wlog, u, init_state, dy, dstate)
-        return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad)) \
-            + (None,)   # the launch setting
+        return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))
 
 
-def wkv6(r, k, v, wlog, u, init_state=None, *, launch: dict | None = None):
+def wkv6(r, k, v, wlog, u, init_state=None):
     """``r, k, v, wlog``: (B, S, H, dh); ``u``: (H, dh); ``init_state``: None
     (zeros) or (B, H, dh, dh) float32; all on one device.  Returns ``(y, s)``:
     y (B, S, H, dh) float32 and the final state (B, H, dh, dh) float32, both
-    differentiable through ``Wkv6Fn``.  ``launch``: a setting of ``wkv6``'s
-    launch space (``kernels/registry.py``), or None for the tuner's choice."""
+    differentiable through ``Wkv6Fn``."""
     _check(r, k, v, wlog, u, init_state)
     kind = r.device.type
     if kind not in ("cpu", "cuda"):
         raise ValueError(f"wkv6 runs on cpu or cuda tensors, not {kind}")
-    return Wkv6Fn.apply(r, k, v, wlog, u, init_state, launch)
+    return Wkv6Fn.apply(r, k, v, wlog, u, init_state)
 
 
 wkv6.launches = 0
@@ -313,6 +305,7 @@ def _bwd_launch(r, k, v, wlog, u, init_state, dy, dstate, fake: bool = False):
     """Launch the backward kernel (and its deterministic sum of du over the
     batch); returns the gradients or raises.  ``fake``: everything but the
     launch (fake tensors)."""
+    from repro_torch.kernels.build import LaunchError
     B, S, H, dh = r.shape
     if dh not in DH:
         raise ValueError(f"the wkv6_bwd kernel is built for dh in {DH}, got {dh}")
@@ -346,15 +339,12 @@ def _bwd_launch(r, k, v, wlog, u, init_state, dy, dstate, fake: bool = False):
     return dr, dk, dv, dw, du, ds0
 
 
-def wkv6_bwd(r, k, v, wlog, u, init_state, dy, dstate=None, *,
-             launch: dict | None = None):
+def wkv6_bwd(r, k, v, wlog, u, init_state, dy, dstate=None):
     """The VJP of ``wkv6`` at ``(r, k, v, wlog, u, init_state)`` for the
     cotangents ``dy`` (B, S, H, dh) of ``y`` and ``dstate`` (None for zeros,
     or (B, H, dh, dh)) of the final state.  Returns ``(dr, dk, dv, dwlog, du,
     d init_state)`` as ``wkv6_bwd_ref`` does: the plain version on CPU
-    tensors, the kernel on CUDA tensors.  ``launch``: a setting of
-    ``wkv6_bwd``'s launch space, which holds the default alone
-    (``kernels/registry.py`` says why), or None."""
+    tensors, the kernel on CUDA tensors."""
     _check(r, k, v, wlog, u, init_state)
     if dy.shape != r.shape or dy.device != r.device:
         raise ValueError(f"dy must be {tuple(r.shape)} on {r.device}, got "
@@ -369,19 +359,15 @@ def wkv6_bwd(r, k, v, wlog, u, init_state, dy, dstate=None, *,
     args = (r, k, v, wlog, u, init_state, dy, dstate)
     counter = kernel_call("wkv6_bwd", lambda: wkv6_bwd_work(*args)) if S and B * H else None
     if is_fake(r) and S and B * H:
-        tune.resolve("wkv6_bwd", launch, args, {}, None)   # checked; fake: no sweep
         return _bwd_launch(*args, fake=True)
     if kind == "cpu":
-        tune.resolve("wkv6_bwd", launch, args, {}, lambda setting: wkv6_bwd_ref(*args))
         return plain_call(counter, wkv6_bwd_ref, *args)
-    run = lambda setting: _bwd_launch(*args)
-    setting = tune.resolve("wkv6_bwd", launch, args, {}, run)
     if S == 0 or B * H == 0:
         zeros = [torch.zeros_like(t) for t in (r, k, v, wlog, u)]
         d0 = None if init_state is None else (
             torch.zeros_like(init_state) if dstate is None else dstate.float().clone())
         return (*zeros, d0)
-    out = run(setting)
+    out = _bwd_launch(*args)
     wkv6_bwd.launches += 1
     return out
 

@@ -23,9 +23,9 @@ torch = pytest.importorskip("torch")
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.counting import WorkCounter
-from repro_torch.kernels import tune
 from repro_torch.kernels.adamw import (adamw_update, adamw_update_ref, adamw_update_work,
                                        grad_sq_norm, grad_sq_norm_work)
+from repro_torch.kernels.ops import same_bits
 from repro_torch.optim import clip as port_clip
 from repro_torch.optim import optimizers as port_opt
 from repro_torch.tree import tree_leaves, tree_map, tree_unzip
@@ -91,8 +91,8 @@ def test_scaled_update_equals_the_eager_clip_then_update(dtype, max_norm, clippe
         new, new_state = opt.update(grads, new_state, new, lr, scale=scale)
         clipped_grads, want_gn = _eager_clip(grads, max_norm)
         old, old_state = _eager_adamw_update(clipped_grads, old_state, old, lr)
-        assert tune.same_bits(gnorm, want_gn)
-        assert tune.same_bits(new, old) and tune.same_bits(new_state, old_state), i
+        assert same_bits(gnorm, want_gn)
+        assert same_bits(new, old) and same_bits(new_state, old_state), i
     assert all(p.dtype == dtype for p in tree_leaves(new))
     assert all(m.dtype == torch.float32 for m in tree_leaves(new_state["m"]))
 
@@ -108,7 +108,7 @@ def test_other_optimizers_take_the_same_scale(name):
     _, scale = grad_sq_norm(tree_leaves(grads), 1.0)
     assert float(scale) < 1.0
     want = opt.update(clipped, state, params, 1e-2)
-    assert tune.same_bits(opt.update(grads, state, params, 1e-2, scale=scale), want)
+    assert same_bits(opt.update(grads, state, params, 1e-2, scale=scale), want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -117,8 +117,8 @@ def test_grad_sq_norm_is_the_clips_norm_and_scale(dtype):
     before = (grad_sq_norm.launches, adamw_update.launches)
     gn, scale = grad_sq_norm(tree_leaves(grads), 1.0)
     want_gn = port_clip.global_norm(grads)
-    assert tune.same_bits(gn, want_gn)
-    assert tune.same_bits(scale, torch.clamp(1.0 / torch.clamp(want_gn, min=1e-9), max=1.0))
+    assert same_bits(gn, want_gn)
+    assert same_bits(scale, torch.clamp(1.0 / torch.clamp(want_gn, min=1e-9), max=1.0))
     assert gn.shape == scale.shape == () and gn.dtype == scale.dtype == torch.float32
     opt = port_opt.adamw()
     params = _tree(np.random.default_rng(2), dtype, 1.0)
@@ -186,11 +186,6 @@ def test_what_the_kernels_do_not_take_raises():
         grad_sq_norm([np.zeros(3, np.float32)], 1.0)
     with pytest.raises(ValueError, match="at least one leaf"):
         grad_sq_norm([], 1.0)
-    meta = [torch.empty(3, device="meta")]
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        grad_sq_norm(meta, 1.0)
-    with pytest.raises(ValueError, match="outside its space"):
-        adamw_update(grads, ms, vs, params, 1e-3, 0.1, 0.05, launch={"threads": 3})
 
 
 def test_plain_update_is_the_eager_update_leaf_by_leaf():
@@ -204,5 +199,5 @@ def test_plain_update_is_the_eager_update_leaf_by_leaf():
     whole = adamw_update_ref(*args)
     for i in range(len(shapes)):
         one = adamw_update_ref(*([t[i]] for t in leaves), *args[4:])
-        assert tune.same_bits(tuple(o[0] for o in one), tuple(w[i] for w in whole))
-    assert tune.same_bits(adamw_update(*args), whole)
+        assert same_bits(tuple(o[0] for o in one), tuple(w[i] for w in whole))
+    assert same_bits(adamw_update(*args), whole)

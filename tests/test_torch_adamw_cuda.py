@@ -26,9 +26,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import adamw as adamw_mod
-from repro_torch.kernels import tune
 from repro_torch.kernels.adamw import (MAX_LEAVES, adamw_update, adamw_update_ref,
                                        grad_sq_norm, grad_sq_norm_ref)
+from repro_torch.kernels.ops import same_bits
 from repro_torch.optim import clip_scale
 
 # numels 105, 1001, 198, 4096, 5 and 262,336: tails of 1-3 elements, 1-d
@@ -70,7 +70,7 @@ def test_adamw_update_equals_the_eager_update_bit_for_bit(cuda, dtype, g_dtype, 
     got = adamw_update(*args)
     assert adamw_update.launches == before + 1
     want = adamw_update_ref(*args)
-    assert tune.same_bits(got, want)
+    assert same_bits(got, want)
     assert [t.dtype for t in got[0]] == [dtype] * len(SHAPES)
 
 
@@ -84,10 +84,10 @@ def test_adamw_update_off_alignment_and_over_one_table(cuda):
     assert all(x.data_ptr() % 16 for ts in off for x in ts)
     before = adamw_update.launches
     got = adamw_update(*off, *args[4:])
-    assert tune.same_bits(got, adamw_update_ref(*off, *args[4:]))
+    assert same_bits(got, adamw_update_ref(*off, *args[4:]))
     many = _args(((17,), (3, 4), (9, 2, 3), (6,)) * 10, cuda, seed=2)
     got = adamw_update(*many)
-    assert tune.same_bits(got, adamw_update_ref(*many))
+    assert same_bits(got, adamw_update_ref(*many))
     assert adamw_update.launches == before + 1 + -(-40 // MAX_LEAVES)
 
 
@@ -101,13 +101,13 @@ def test_grad_sq_norm_within_1e6_and_the_same_bits_every_run(cuda, dtype, max_no
     before = grad_sq_norm.launches
     runs = [grad_sq_norm(grads, max_norm) for _ in range(3)]
     assert grad_sq_norm.launches == before + 3 * (-(-len(shapes) // MAX_LEAVES) + 1)
-    assert all(tune.same_bits(r, runs[0]) for r in runs[1:])
+    assert all(same_bits(r, runs[0]) for r in runs[1:])
     norm, scale = runs[0]
     want, _ = grad_sq_norm_ref(grads, max_norm)
     exact = torch.sqrt(sum(torch.sum(torch.square(g.double())) for g in grads))
     assert abs(float(norm) - float(want)) <= 1e-6 * float(want)
     assert abs(float(norm) - float(exact)) <= 1e-6 * float(exact)
-    assert tune.same_bits(scale, clip_scale(norm, max_norm))
+    assert same_bits(scale, clip_scale(norm, max_norm))
     assert (float(scale) < 1.0) == (max_norm == 1.0)
 
 
@@ -121,8 +121,6 @@ def test_what_the_kernels_do_not_take_raises_on_the_card(cuda):
         grad_sq_norm(half, 1.0)
     with pytest.raises(ValueError, match="float32 moments"):
         adamw_update(grads, [m.bfloat16() for m in ms], vs, params, lr, bc1, bc2, scale)
-    with pytest.raises(ValueError, match="outside its space"):
-        adamw_update(grads, ms, vs, params, lr, bc1, bc2, scale, launch={"threads": 64})
     # the update leaves its arguments as they are
     before = [t.clone() for t in grads + ms + vs + params]
     adamw_update(grads, ms, vs, params, lr, bc1, bc2, scale)

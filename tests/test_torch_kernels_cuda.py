@@ -21,15 +21,14 @@ state is held to the same bound), also at sequence lengths around its 12-step
 chunk and for the serving path's mix of dtypes; ``fail_prob_op`` with both channels off must
 equal ``fail_prob`` bit for bit; the SECDED, shuffle, bank_sched and
 bit_signature kernels are integer work and must equal their plain versions
-exactly.  Every setting of a kernel's launch space (``kernels/registry.py``)
-gives the default setting's bits."""
+exactly.  Every kernel gives the same bits on two launches at shapes its
+launch constants do not tile evenly."""
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import ops, tune
-from repro_torch.kernels.registry import REGISTRY as KERNEL_SPECS
+from repro_torch.kernels import ops
 from repro_torch.kernels.bank_sched import _launch as bank_sched_launch
 from repro_torch.kernels.bank_sched import memsim_walk, memsim_walk_ref, walk_route
 from repro_torch.kernels.bit_signature import bit_signature, bit_signature_ref
@@ -726,48 +725,48 @@ def test_rwkv6_serving_on_the_card_equals_the_cpu(cuda):
     torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
 
 
-def _tuner_calls(name, dev):
-    """Small calls of kernel ``name`` (shapes no setting of its launch space
-    tiles evenly), each a function of ``launch``."""
+def _ragged_calls(name, dev):
+    """Small calls of kernel ``name`` at shapes its launch constants do not
+    tile evenly."""
     if name in ("secded_encode", "secded_syndrome"):
         kern, width = (encode_checks, 64) if name == "secded_encode" else (syndrome, 72)
         x = _bits(4099, width, dev)
-        return [lambda lc: kern(x, launch=lc)]
+        return [lambda: kern(x)]
     if name in ("fail_prob", "fail_prob_op", "fail_prob_rows"):
         calls = []
         for D, M, R, C, ob in FP_SHAPES:
             if name in ("fail_prob", "fail_prob_rows"):
-                args, kern = _inputs(D, M, R, dev), KERNEL_SPECS[name].kernel
-                calls.append(lambda lc, a=args, C=C, ob=ob, kern=kern:
-                             kern(*a, cols=C, open_bitline=ob, launch=lc))
+                args, kern = _inputs(D, M, R, dev), ops.KERNELS[name]
+                calls.append(lambda a=args, C=C, ob=ob, kern=kern:
+                             kern(*a, cols=C, open_bitline=ob))
             else:
                 args = _op_inputs(D, M, R, dev)
-                calls.append(lambda lc, a=args, C=C, ob=ob:
+                calls.append(lambda a=args, C=C, ob=ob:
                              fail_prob_op(*a, cols=C, open_bitline=ob, voltage=True,
-                                          retention=True, launch=lc))
+                                          retention=True))
         return calls
     if name == "bit_signature":
         x = _counts(4099, 9, dev)
-        return [lambda lc: bit_signature(x, nbits=9, launch=lc)]
+        return [lambda: bit_signature(x, nbits=9)]
     if name == "bank_sched":
         calls = []
         for cfg_name, tables in (("default", 3), ("inorder", 1), ("queue32", 2)):
             traces, tc, kw = _walk_inputs(MEMSIM_CONFIGS[cfg_name], 33, dev)
-            calls.append(lambda lc, t=traces[:1], c=tc[:tables], kw=kw:
-                         memsim_walk(t, c, **kw, launch=lc))
+            calls.append(lambda t=traces[:1], c=tc[:tables], kw=kw:
+                         memsim_walk(t, c, **kw))
         return calls
     if name == "diva_shuffle":
         x = _bits(1003, 576, dev)
-        return [lambda lc: apply_shuffle(x, launch=lc),
-                lambda lc: apply_shuffle(x, inverse=True, launch=lc)]
+        return [lambda: apply_shuffle(x),
+                lambda: apply_shuffle(x, inverse=True)]
     if name == "rc_transient":
         cells = _cells(130, dev, seed=3)
-        return [lambda lc: rc_transient(*cells, launch=lc)]
+        return [lambda: rc_transient(*cells)]
     if name == "wkv6":
         calls = []
         for B, S, H, dh in ((2, 13, 3, 64), (1, 13, 2, 8), (2, 9, 2, 16), (1, 1, 2, 32)):
             args = _wkv6_inputs(B, S, H, dh, dev, seed=S + dh)
-            calls.append(lambda lc, a=args: wkv6(*a, launch=lc))
+            calls.append(lambda a=args: wkv6(*a))
         return calls
     if name == "adamw":
         from repro_torch.kernels.adamw import adamw_update
@@ -781,21 +780,18 @@ def _tuner_calls(name, dev):
             leaves[3] = [p.to(dtype) for p in leaves[3]]
             leaves[2] = [v.square() for v in leaves[2]]
             rates = [torch.tensor(x, device=dev) for x in (3e-3, 0.271, 0.1426, 0.37)]
-            calls.append(lambda lc, a=(*leaves, *rates): adamw_update(*a, launch=lc))
+            calls.append(lambda a=(*leaves, *rates): adamw_update(*a))
         return calls
     from repro_torch.kernels.wkv6 import wkv6_bwd
     args = _wkv6_inputs(2, 9, 3, 64, dev, seed=4)
     dy = torch.randn(args[0].shape, device=dev)
-    return [lambda lc: wkv6_bwd(*args, None, dy, launch=lc)]
+    return [lambda: wkv6_bwd(*args, None, dy)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", list(KERNEL_SPECS))
-def test_every_launch_setting_gives_the_default_bits(cuda, name):
-    """Every setting of the kernel's launch space against the default, bit for
-    bit."""
-    spec = KERNEL_SPECS[name]
-    for call in _tuner_calls(name, cuda):
-        want = call({})
-        for setting in spec.launch_space[1:]:
-            assert tune.same_bits(call(setting), want), (name, setting)
+@pytest.mark.parametrize("name", list(ops.KERNELS))
+def test_every_kernel_repeats_its_bits_at_ragged_shapes(cuda, name):
+    """Each kernel's output depends on its inputs alone: two launches at a
+    shape its launch constants do not tile evenly give the same bits."""
+    for call in _ragged_calls(name, cuda):
+        assert ops.same_bits(call(), call()), name

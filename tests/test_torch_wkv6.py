@@ -124,9 +124,6 @@ def test_wrapper_checks_inputs():
         wkv6(r, k, v, w, u, init_state=torch.zeros((1, 2, 8, 4)))
     with pytest.raises(TypeError):
         wkv6(r.numpy(), k, v, w, u)
-    meta = [t.to("meta") for t in (r, k, v, w, u)]
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        wkv6(*meta)
     with pytest.raises(ValueError, match="one device"):
         wkv6(r, k, v, w, u.to("meta"))
 
