@@ -414,6 +414,7 @@ from repro_torch.models import cache as model_cache  # noqa: E402
 from repro_torch.models import model  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.layers import apply_norm  # noqa: E402
+from repro_torch.obs import REGISTRY  # noqa: E402
 from repro_torch.memsim import sim as memsim  # noqa: E402
 from repro_torch.optim import clip_scale, global_norm  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten  # noqa: E402
@@ -2057,17 +2058,30 @@ PROFILE_GROUPS = (("wkv6_bwd", ("wkv6_bwd_kernel", "wkv6_du_kernel")), ("wkv6", 
                   ("matmul", ("gemm", "nvjet", "xmma")))
 
 
+# each wrapper a replayed train step credits with launches, and the kernels
+# whose launches those are (``wkv6_bwd``'s second kernel, ``wkv6_du_kernel``,
+# runs once a call too but is not counted)
+CREDITED_KERNELS = {"wkv6": ("wkv6_kernel",), "wkv6_bwd": ("wkv6_bwd_kernel",),
+                    "adamw": ("adamw_kernel",),
+                    "grad_sq_norm": ("sq_partials_kernel", "norm_finish_kernel")}
+
+
 def profile_train_step(cfg, dev, required=("wkv6_bwd", "wkv6"), seq=TRAIN_SEQ) -> dict:
-    """One full-size train step of TRAIN_BATCH x ``seq`` tokens (after a
-    warm-up step) under ``torch.profiler``: wall ms, kernel ms by group and
-    the idle share (1 - kernel time / wall time; the profiler's own host
-    cost slows the launches, so it reads high), and the 10 longest kernels.
-    Raises unless each group in ``required`` shows kernel time."""
+    """One full-size train step of TRAIN_BATCH x ``seq`` tokens, replayed
+    from the step's CUDA graph (after three calls: two op by op, then the
+    capture), under ``torch.profiler``: wall ms, kernel ms by group and the
+    idle share (1 - kernel time / wall time), and the 10 longest kernels.
+    Raises unless the step replayed, each group in ``required`` shows
+    kernel time, and each kernel the replay credits to the launch counters
+    (``ops.launch_counts``) shows in the trace as many times as credited."""
     state = build_state(cfg, device=dev)
     step = make_train_step(cfg)
     batch = make_batch(cfg, TRAIN_BATCH, seq, seed=0, step=0)
-    state, _ = step(state, batch)
+    for _ in range(3):
+        state, _ = step(state, batch)
     torch.cuda.synchronize()
+    before = ops.launch_counts()
+    replays = REGISTRY.value("repro_train_steps_total", path="graph")
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -2075,8 +2089,17 @@ def profile_train_step(cfg, dev, required=("wkv6_bwd", "wkv6"), seq=TRAIN_SEQ) -
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     del state
+    if REGISTRY.value("repro_train_steps_total", path="graph") != replays + 1:
+        raise AssertionError("the profiled train step did not replay its graph")
+    credited = {k: n - before[k] for k, n in ops.launch_counts().items() if n != before[k]}
     kernels = [(e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
+    traced = {name: sum(n for key, n, _ in kernels
+                        if any(re.search(rf"\b{sym}\b", key) for sym in syms))
+              for name, syms in CREDITED_KERNELS.items()}
+    if set(credited) - set(CREDITED_KERNELS) or \
+            any(traced[k] != credited.get(k, 0) for k in CREDITED_KERNELS):
+        raise AssertionError(f"the replay credited {credited}, its trace shows {traced}")
     groups = dict.fromkeys([g for g, _ in PROFILE_GROUPS] + ["other"], 0.0)
     fp32_mm = 0.0
     for name, _, ms in kernels:
@@ -2088,6 +2111,7 @@ def profile_train_step(cfg, dev, required=("wkv6_bwd", "wkv6"), seq=TRAIN_SEQ) -
     if not all(groups[g] for g in required):
         raise AssertionError(f"the profiled step shows no {required} kernel: {groups}")
     return dict(wall_ms=wall_ms, kernel_ms=kernel_ms, idle_share=1 - kernel_ms / wall_ms,
+                credited_launches=credited, traced_launches=traced,
                 kernel_ms_by_group=groups, fp32_matmul_ms=fp32_mm,
                 top=[dict(kernel=name[:90], count=n, ms=ms)
                      for name, n, ms in sorted(kernels, key=lambda k: -k[2])[:10]])

@@ -17,7 +17,10 @@ each gradient first scaled by ``scale`` (None: unclipped) as
 ``optim.clip.clip_to_norm`` scales it; ``lr``, ``bc1`` and ``bc2`` are the rate
 and the bias corrections that ``optim.adamw``'s update computes (0-d
 tensors or floats).  Parameters keep their dtypes, weight decay follows the
-reference's rule ``p.ndim >= 2``, and nothing passed in is changed.
+reference's rule ``p.ndim >= 2``, and nothing passed in is changed but
+``out``: lists ``(params, m, v)`` of tensors, none of them an input, that
+receive the results in place of new ones (the kernel writes them directly;
+a CUDA graph of the train step writes its next state there).
 
 Dispatch is by the tensors' device alone: CPU tensors go to the plain
 versions ``grad_sq_norm_ref`` / ``adamw_update_ref`` (the eager code the
@@ -69,10 +72,11 @@ def grad_sq_norm_ref(grads, max_norm: float):
     return norm, clip_scale(norm, max_norm)
 
 
-def adamw_update_ref(grads, ms, vs, params, lr, bc1, bc2, scale=None, *, b1=0.9,
-                     b2=0.95, eps=1e-8, weight_decay=0.1):
+def adamw_update_ref(grads, ms, vs, params, lr, bc1, bc2, scale=None, *, out=None,
+                     b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1):
     """Plain PyTorch version, on any device: the reference's AdamW update of
-    each leaf in float32, its gradient scaled first."""
+    each leaf in float32, its gradient scaled first; copied into ``out``
+    where given."""
     new_p, new_m, new_v = [], [], []
     for g, m, v, p in zip(grads, ms, vs, params):
         g = scaled(g, scale).float()
@@ -84,7 +88,12 @@ def adamw_update_ref(grads, ms, vs, params, lr, bc1, bc2, scale=None, *, b1=0.9,
         new_p.append((p.float() - lr * step).to(p.dtype))
         new_m.append(m)
         new_v.append(v)
-    return new_p, new_m, new_v
+    if out is None:
+        return new_p, new_m, new_v
+    for dst, src in zip(out, (new_p, new_m, new_v)):
+        for d, s in zip(dst, src):
+            d.copy_(s)
+    return tuple(list(dst) for dst in out)
 
 
 def _device(tensors, what: str) -> torch.device:
@@ -190,12 +199,15 @@ def grad_sq_norm(grads, max_norm: float):
 grad_sq_norm.launches = 0
 
 
-def _launch(grads, ms, vs, params, lr, bc1, bc2, scale, hyper: dict, fake: bool = False):
-    """Launch the update; returns ``(new params, new m, new v)`` or raises.
-    ``fake``: everything but the launch."""
+def _launch(grads, ms, vs, params, lr, bc1, bc2, scale, hyper: dict, out=None,
+            fake: bool = False):
+    """Launch the update into ``out`` (checked by ``_outputs``) or new
+    tensors; returns ``(new params, new m, new v)`` or raises.  ``fake``:
+    everything but the launch."""
     dev = params[0].device
     g, m, v, p = ([t.contiguous() for t in ts] for ts in (grads, ms, vs, params))
-    new = tuple([torch.empty_like(t) for t in ts] for ts in (p, m, v))
+    new = tuple([torch.empty_like(t) for t in ts] for ts in (p, m, v)) \
+        if out is None else out
     live = [i for i, t in enumerate(p) if t.numel()]
     if fake or not live:
         return new
@@ -215,11 +227,28 @@ def _launch(grads, ms, vs, params, lr, bc1, bc2, scale, hyper: dict, fake: bool 
     return new
 
 
-def adamw_update(grads, ms, vs, params, lr, bc1, bc2, scale=None, *, b1=0.9, b2=0.95,
-                 eps=1e-8, weight_decay=0.1):
+def _outputs(out, ms, params):
+    """``out`` as three lists, each leaf contiguous and of its input's
+    shape, dtype and device; else raises."""
+    out = tuple(list(x) for x in out)
+    if len(out) != 3 or not all(len(x) == len(params) for x in out):
+        raise ValueError("adamw_update: out takes (params, m, v), a list of "
+                         f"{len(params)} leaves each")
+    for dst, like in zip(out, (params, ms, ms)):
+        for d, t in zip(dst, like):
+            if (d.shape, d.dtype, d.device) != (t.shape, t.dtype, t.device) \
+                    or not d.is_contiguous():
+                raise ValueError(f"adamw_update: an output {d.dtype} {tuple(d.shape)} "
+                                 f"for a leaf {t.dtype} {tuple(t.shape)} on {t.device}")
+    return out
+
+
+def adamw_update(grads, ms, vs, params, lr, bc1, bc2, scale=None, *, out=None, b1=0.9,
+                 b2=0.95, eps=1e-8, weight_decay=0.1):
     """AdamW over the leaves ``params`` (lists, all on one device, each g, m
     and v of its p's shape): ``(new params, new m, new v)``, lists in the
-    same order."""
+    same order; with ``out`` (lists ``(params, m, v)``) written into its
+    tensors and returned."""
     grads, ms, vs, params = (list(x) for x in (grads, ms, vs, params))
     if not len(grads) == len(ms) == len(vs) == len(params):
         raise ValueError(f"adamw_update: {len(grads)} gradients, {len(ms)} m, "
@@ -230,15 +259,18 @@ def adamw_update(grads, ms, vs, params, lr, bc1, bc2, scale=None, *, b1=0.9, b2=
             raise ValueError(f"adamw_update: a parameter {tuple(p.shape)} with a gradient "
                              f"{tuple(g.shape)}, m {tuple(m.shape)}, v {tuple(v.shape)}")
     hyper = dict(b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
+    if out is not None:
+        out = _outputs(out, ms, params)
     args = (grads, ms, vs, params, lr, bc1, bc2, scale)
     counter = kernel_call("adamw", lambda: adamw_update_work(grads, params))
     if is_fake(params[0]):
         _kernel_dtypes("adamw", grads + params, ms + vs)
-        return _launch(*args, hyper, fake=True)
+        return _launch(*args, hyper, out, fake=True)
     if dev.type == "cpu":
-        return plain_call(counter, functools.partial(adamw_update_ref, **hyper), *args)
+        return plain_call(counter, functools.partial(adamw_update_ref, out=out, **hyper),
+                          *args)
     _kernel_dtypes("adamw", grads + params, ms + vs)
-    out = _launch(*args, hyper)
+    out = _launch(*args, hyper, out)
     adamw_update.launches += -(-sum(1 for p in params if p.numel()) // MAX_LEAVES)
     return out
 

@@ -9,9 +9,14 @@ update.  ``COUNTED`` adds ``grad_sq_norm``, the global norm whose kernels
 share ``adamw``'s library.  A wrapper dispatches by its tensors' device (CPU
 -> the plain PyTorch version, fake tensors -> outputs of the right shapes
 where the dry run takes the kernel, CUDA -> the kernel, or it raises) and
-carries ``launches``, a count of kernel launches that only the launch itself
-increments.  There is no backend switch and no fallback: a CUDA tensor runs
-the kernel, at the launch constants of its ``csrc/*.cu`` source.
+carries ``launches``, a count of its kernel launches.  A launch increments
+it, and so does a replay of a CUDA graph that holds launches:
+``launch/steps``' train step counts what each graph captured
+(``launch_snapshot``), takes it back from the counters after the capture,
+which launches nothing, and adds it again at every replay
+(``add_launches``).  There is no backend switch and no fallback: a CUDA
+tensor runs the kernel, at the launch constants of its ``csrc/*.cu``
+source.
 """
 from __future__ import annotations
 
@@ -56,6 +61,29 @@ def reset_launches() -> None:
 def launch_counts() -> dict[str, int]:
     """{wrapper name: launches since the last reset}."""
     return {name: fn.launches for name, fn in COUNTED.items()}
+
+
+def launch_snapshot() -> dict:
+    """Every launch counter: ``{(wrapper name, None): launches}`` and, where
+    a wrapper also counts its routes (``bank_sched``), ``{(wrapper name,
+    route): launches}``."""
+    out = {}
+    for name, fn in COUNTED.items():
+        out[name, None] = fn.launches
+        for route, n in getattr(fn, "route_launches", {}).items():
+            out[name, route] = n
+    return out
+
+
+def add_launches(counts: dict) -> None:
+    """Add ``counts`` (keyed as ``launch_snapshot``'s; negative takes away)
+    to the counters."""
+    for (name, route), n in counts.items():
+        fn = COUNTED[name]
+        if route is None:
+            fn.launches += n
+        else:
+            fn.route_launches[route] += n
 
 
 def same_bits(a, b) -> bool:

@@ -40,12 +40,21 @@ import torch
 
 from repro_torch import sharding as shd
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.counting import fake_mode
+from repro_torch.counting import active_counter, fake_mode, is_fake
+from repro_torch.kernels import ops
 from repro_torch.models import cache as cache_mod
 from repro_torch.models import model as model_mod
 from repro_torch.kernels.adamw import grad_sq_norm
+from repro_torch.obs import REGISTRY as _OBS_REGISTRY
 from repro_torch.optim import clip_scale, get_optimizer, linear_warmup_cosine
 from repro_torch.tree import tree_leaves, tree_map, tree_map_with_path, tree_unflatten
+
+# the single-device train steps by how they ran: replayed from a CUDA graph
+# ("graph") or op by op ("eager")
+_M_STEPS = _OBS_REGISTRY.counter(
+    "repro_train_steps_total", "single-device train steps by path (graph or eager)",
+    labelnames=("path",))
+_M_GRAPH, _M_EAGER = (_M_STEPS.labels(path=p) for p in ("graph", "eager"))
 
 
 # ------------------------------------------------------------- input specs
@@ -102,26 +111,228 @@ def make_train_step(cfg: ModelConfig, *, base_lr: float = 3e-4, warmup: int = 10
     schedule at ``state["step"]``, then the optimizer updates.  The norm and
     the clip's scale come from ``kernels/adamw.grad_sq_norm`` (one read of
     the gradients on a card), and the optimizer scales each gradient as it
-    updates (no clipped copy).  The state passed in is left as it is.
-    Metrics (0-d tensors): loss, ce, aux, gnorm (before clipping), lr."""
+    updates (no clipped copy).  Metrics (0-d tensors): loss, ce, aux, gnorm
+    (before clipping), lr.
+
+    On a card the step is replayed from CUDA graphs.  That engages where
+    every leaf of the state is a CUDA tensor on one device (not fake, and no
+    ``counting.WorkCounter`` active) and every batch value a tensor there, a
+    CPU tensor or an array; other steps run op by op, as on the CPU.  At
+    each batch shape and dtypes (a key) the first two calls run op by op, the
+    second on a side stream (the warm-up capture asks for); the third
+    captures and replays, and so does every later call at that key.  The
+    state then lives in two buffers that the step owns: the state handed to
+    the first capturing call (adopted where each leaf is contiguous with a
+    storage of its own, else copied) and one more allocated beside it; a
+    replay reads one and writes the other, the batch copied into the key's
+    input first.  The graphs' work is the op-by-op step's, kernel for
+    kernel, and each replay adds the launches it holds to the kernels'
+    counters (``kernels/ops.launch_counts``).  Metrics are copies.  The
+    graphs' working memory (gradients, recomputed activations) is one pool,
+    held from the capture on; the first replay after a capture empties the
+    allocator's cache once (``_Graphed._replay``).
+    ``repro_train_steps_total{path="graph"|"eager"}`` counts the calls.
+
+    Nothing that a call hands in or returns is changed by that call.  Once
+    a key is captured, a state handed in may be written over by the next
+    call, and a state returned holds its values through the next call and
+    may be written over by the one after: the usual ``state = step(state,
+    batch)`` loop sees neither."""
     opt = get_optimizer(cfg.optimizer)
     lr_fn = linear_warmup_cosine(base_lr, warmup, total_steps)
 
-    def train_step(state, batch):
+    def run(state, batch, out=None):
+        """The step op by op; with ``out`` (a state of the same leaves, none
+        of them an input) the new state is written into its tensors."""
         params = tree_map(lambda p: p.detach().requires_grad_(), state["params"])
         with torch.enable_grad():
             loss, parts = model_mod.loss_fn(cfg, params, batch)
             grads = torch.autograd.grad(loss, tree_leaves(params))
         gnorm, scale = grad_sq_norm(grads, clip_norm)
         lr = lr_fn(state["step"])
-        new_params, new_opt = opt.update(tree_unflatten(params, grads), state["opt"],
-                                         state["params"], lr, scale=scale)
-        new_state = {"params": new_params, "opt": new_opt, "step": state["step"] + 1}
+        new_params, new_opt = opt.update(
+            tree_unflatten(params, grads), state["opt"], state["params"], lr, scale=scale,
+            out=None if out is None else (out["params"], out["opt"]))
+        step = state["step"] + 1
+        new_state = {"params": new_params, "opt": new_opt,
+                     "step": step if out is None else out["step"].copy_(step)}
         metrics = {"loss": loss.detach(), "ce": parts["ce"].detach(),
                    "aux": parts["aux"].detach(), "gnorm": gnorm, "lr": lr}
         return new_state, metrics
 
-    return train_step
+    return _Graphed(run)
+
+
+_CPU = torch.device("cpu")
+
+
+def _graph_device(state, batch):
+    """The CUDA device of ``state`` where a train step on it may replay a
+    graph (``make_train_step``'s docstring), else None."""
+    leaves = tree_leaves(state)
+    dev = leaves[0].device if leaves and isinstance(leaves[0], torch.Tensor) else None
+    if dev is None or dev.type != "cuda" or active_counter() is not None:
+        return None
+    if not all(isinstance(t, torch.Tensor) and t.device == dev and not is_fake(t)
+               for t in leaves):
+        return None
+    if any(isinstance(v, torch.Tensor) and (is_fake(v) or v.device not in (dev, _CPU))
+           for v in batch.values()):
+        return None
+    return dev
+
+
+def _signature(state) -> list:
+    """Each leaf's key path, shape, dtype and device."""
+    return tree_leaves(tree_map_with_path(
+        lambda path, t: (path, tuple(t.shape), t.dtype, t.device), state))
+
+
+class _Graphed:
+    """``run(state, batch, out=None)`` replayed from CUDA graphs where
+    ``make_train_step``'s docstring says.
+
+    The state's two buffers are ``bufs[0]`` and ``bufs[1]`` (leaves in
+    ``tree_leaves`` order).  A key holds its static batch and two graphs,
+    ``graphs[i]`` reading buffer i and writing buffer 1 - i, each with its
+    static metrics and its launches.  ``last`` is the buffer holding the
+    state the last call returned (None: neither), which no call writes; a
+    call whose state lies in no buffer runs op by op into the buffer it may
+    write, so the next call replays.  All graphs share one memory pool
+    (``_capture``) and one side stream (the warm-up's and the captures')."""
+
+    def __init__(self, run):
+        self.run = run
+        self.calls: dict = {}     # key -> calls so far
+        self.graphs: dict = {}    # key -> (static batch, [(graph, metrics, launches)] * 2)
+        self.bufs = self.ptrs = self.like = self.sig = None
+        self.last = None
+        self.stream = self.pool = self.block = None
+        self.fresh = False
+
+    def __call__(self, state, batch):
+        dev = _graph_device(state, batch)
+        if dev is None:
+            _M_EAGER.inc()
+            return self.run(state, batch)
+        batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+        key = tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(batch.items()))
+        n = self.calls[key] = self.calls.get(key, 0) + 1
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(dev)
+        with torch.cuda.device(dev):
+            if n >= 3 and self.bufs is None:
+                self._adopt(state)
+                src = 0     # the state's values, whether adopted or copied
+            else:
+                src = self._buffer_of(state)
+            if n >= 3 and src is not None and self.last in (None, src):
+                return self._replay(key, batch, src)
+            # op by op, into a buffer that holds neither this state nor the
+            # last one returned, where the state fits the buffers
+            free = [] if self.bufs is None or _signature(state) != self.sig else \
+                [i for i in (0, 1) if i not in (src, self.last)]
+            out = free[0] if free else None
+            self.last = out
+            _M_EAGER.inc()
+            if n != 2:
+                return self.run(state, batch, self._state(out))
+            here = torch.cuda.current_stream()
+            self.stream.wait_stream(here)
+            with torch.cuda.stream(self.stream):
+                new = self.run(state, batch, self._state(out))
+            here.wait_stream(self.stream)
+            return new
+
+    def _state(self, i):
+        return None if i is None else tree_unflatten(self.like, self.bufs[i])
+
+    def _adopt(self, state) -> None:
+        """Buffer 0: ``state``'s leaves where each is contiguous and has a
+        storage of its own, else a copy of every leaf; buffer 1 new."""
+        own = tree_leaves(state)
+        if not all(t.is_contiguous() for t in own) or \
+                len({t.untyped_storage().data_ptr() for t in own}) < len(own):
+            own = [t.clone(memory_format=torch.contiguous_format) for t in own]
+        self.bufs = [own, [torch.empty_like(t) for t in own]]
+        self.ptrs = [[t.data_ptr() for t in b] for b in self.bufs]
+        self.like = tree_map(lambda _: None, state)
+        self.sig = _signature(state)
+
+    def _buffer_of(self, state):
+        """The buffer whose tensors ``state``'s leaves are, or None."""
+        if self.bufs is None:
+            return None
+        ptrs = [t.data_ptr() for t in tree_leaves(state)]
+        for i in (0, 1):
+            if ptrs == self.ptrs[i] and _signature(state) == self.sig:
+                return i
+        return None
+
+    def _capture(self, key, batch) -> None:
+        """The key's static batch and its two graphs; the kernels' launch
+        counters are left as they were.
+
+        All graphs share one pool, made at the first capture as one block
+        sized from a probe: the graph reading buffer 0, captured in a pool
+        of its own and then freed.  A pool grown as a capture asks holds
+        segments each of a request's size, which no later request merges:
+        rwkv6-1.6b's reserved 12.4 GB for a live peak of 8.35 GB (PERF.md
+        §6).  One block is split and merged again in place."""
+        static = {k: torch.empty_like(v, device=torch.cuda.current_device())
+                  for k, v in batch.items()}
+        if self.pool is None:
+            torch.cuda.empty_cache()
+            held, live = torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+            probe = self._graph(torch.cuda.graph_pool_handle(), 0, static)
+            # the probe's live peak, or more where the process peaked higher
+            # before, with an eighth for the gaps splitting leaves
+            peak = torch.cuda.max_memory_allocated() - live
+            size = min(torch.cuda.memory_reserved() - held, peak + peak // 8)
+            del probe
+            torch.cuda.empty_cache()
+            self.pool = torch.cuda.graph_pool_handle()
+            # a graph that allocates the block and frees it into the pool;
+            # kept, since a pool no live graph holds is emptied
+            self.block = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.block, pool=self.pool, stream=self.stream):
+                torch.empty(size, dtype=torch.uint8, device=torch.cuda.current_device())[:1] \
+                    .zero_()
+        self.graphs[key] = (static, [self._graph(self.pool, src, static) for src in (0, 1)])
+        self.fresh = True
+
+    def _graph(self, pool, src, static):
+        """The graph reading buffer ``src`` and ``static`` into buffer 1 -
+        src, captured in ``pool``: (graph, its metrics, the launches it
+        holds)."""
+        graph = torch.cuda.CUDAGraph()
+        before = ops.launch_snapshot()
+        # the context synchronizes and empties the allocator's cache
+        with torch.cuda.graph(graph, pool=pool, stream=self.stream):
+            _, metrics = self.run(self._state(src), static, self._state(1 - src))
+        after = ops.launch_snapshot()
+        launches = {k: n - before[k] for k, n in after.items() if n != before[k]}
+        ops.add_launches({k: -n for k, n in launches.items()})
+        return graph, metrics, launches
+
+    def _replay(self, key, batch, src):
+        if key not in self.graphs:
+            self._capture(key, batch)
+        elif self.fresh:
+            # the capture emptied the allocator's cache; what was cached
+            # since is what the caller freed around the capturing call,
+            # which op-by-op steps would have held in their own freed blocks
+            torch.cuda.empty_cache()
+            self.fresh = False
+        static, graphs = self.graphs[key]
+        for k, v in batch.items():
+            static[k].copy_(v)
+        graph, metrics, launches = graphs[src]
+        graph.replay()
+        ops.add_launches(launches)
+        self.last = 1 - src
+        _M_GRAPH.inc()
+        return self._state(1 - src), {k: v.clone() for k, v in metrics.items()}
 
 
 def make_prefill_step(cfg: ModelConfig, max_seq: int | None = None):

@@ -284,7 +284,10 @@ def _run_stack(cfg, fn, layers, x, *args):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in layers:
         if remat:
-            x, a = checkpoint(fn, cfg, lp, x, *args, use_reentrant=False)
+            # no layer draws random numbers, so there is no generator state
+            # to stash (a CUDA graph's capture could not read it)
+            x, a = checkpoint(fn, cfg, lp, x, *args, use_reentrant=False,
+                              preserve_rng_state=False)
         else:
             x, a = fn(cfg, lp, x, *args)
         if a is not None:

@@ -84,7 +84,9 @@ def chunked_scan(step, init, xs: tuple, *, chunk: int = 128):
     def run(c, carry, outer):
         xc = tuple(x[c * chunk:(c + 1) * chunk] for x in xs)
         if records:
-            return checkpoint(_loop, step, carry, xc, outer, use_reentrant=False)
+            # the scan draws no random numbers (see model._run_stack)
+            return checkpoint(_loop, step, carry, xc, outer, use_reentrant=False,
+                              preserve_rng_state=False)
         return _loop(step, carry, xc, outer)
 
     n_chunks = S // chunk

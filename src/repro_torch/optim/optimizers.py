@@ -18,6 +18,11 @@ first, as ``clip_to_norm`` does, so that a step builds no clipped copy of its
 gradients.  AdamW's update runs through ``kernels/adamw.adamw_update``: on
 a card one fused pass over the leaves, on the CPU the plain version.
 
+Every ``update`` also takes ``out``: a ``(params, state)`` pair of trees of
+the new ones' leaves, written in place of new trees and returned (AdamW's
+kernel writes its results there directly; the others copy them in).  A
+train step replayed from a CUDA graph writes its next state so.
+
 On a mesh, ``update(..., shardings=)`` takes each leaf as this rank's shard
 (``sharding.NamedSharding`` per parameter): AdamW and SGD are elementwise,
 and Adafactor's means over a split dim (the factored ``vr``/``vc``, their
@@ -51,6 +56,15 @@ def _count(params):
     return torch.zeros((), dtype=torch.int32, device=tree_leaves(params)[0].device)
 
 
+def _into(out, new):
+    """``new``'s leaves copied into ``out``'s (``(params, state)`` pairs of
+    trees of one structure); returns ``out``."""
+    for dst, src in zip(out, new):
+        for d, s in zip(tree_leaves(dst), tree_leaves(src)):
+            d.copy_(s)
+    return tuple(out)
+
+
 def _mean(x, dim, sh, pdim: int, ndim: int, keepdim=False):
     """``x.mean(dim)`` where x's dim ``dim`` is dim ``pdim`` of an
     ``ndim``-dim parameter whose shard's sharding is ``sh``: the mean over
@@ -75,13 +89,18 @@ def adamw(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1) -> Optimizer:
                 "count": _count(params)}
 
     @torch.no_grad()
-    def update(grads, state, params, lr, shardings=None, scale=None):  # elementwise
+    def update(grads, state, params, lr, shardings=None, scale=None, out=None):
+        # elementwise
         c = state["count"] + 1
         bc1 = 1 - b1 ** c.float()
         bc2 = 1 - b2 ** c.float()
+        dst = None if out is None else \
+            tuple(tree_leaves(t) for t in (out[0], out[1]["m"], out[1]["v"]))
         new_p, new_m, new_v = adamw_kernels.adamw_update(
             *(tree_leaves(t) for t in (grads, state["m"], state["v"], params)),
-            lr, bc1, bc2, scale, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
+            lr, bc1, bc2, scale, out=dst, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
+        if out is not None:
+            c = out[1]["count"].copy_(c)
         return tree_unflatten(params, new_p), {"m": tree_unflatten(params, new_m),
                                                "v": tree_unflatten(params, new_v),
                                                "count": c}
@@ -110,7 +129,7 @@ def adafactor(eps=1e-30, clip_threshold=1.0, decay=0.8, weight_decay=0.0,
         return {"f": tree_map(one, params), "count": _count(params)}
 
     @torch.no_grad()
-    def update(grads, state, params, lr, shardings=None, scale=None):
+    def update(grads, state, params, lr, shardings=None, scale=None, out=None):
         c = state["count"] + 1
         rho = 1.0 - c.float() ** (-decay)
 
@@ -144,7 +163,8 @@ def adafactor(eps=1e-30, clip_threshold=1.0, decay=0.8, weight_decay=0.0,
 
         rest = (state["f"], params) + (() if shardings is None else (shardings,))
         new_params, new_f = tree_unzip(tree_map(one, grads, *rest), 2)
-        return new_params, {"f": new_f, "count": c}
+        new = (new_params, {"f": new_f, "count": c})
+        return new if out is None else _into(out, new)
 
     return Optimizer(init, update, "adafactor")
 
@@ -154,12 +174,14 @@ def sgd_momentum(beta=0.9) -> Optimizer:
         return {"m": tree_map(_zeros, params), "count": _count(params)}
 
     @torch.no_grad()
-    def update(grads, state, params, lr, shardings=None, scale=None):  # elementwise
+    def update(grads, state, params, lr, shardings=None, scale=None, out=None):
+        # elementwise
         def upd(g, m, p):
             m = beta * m + scaled(g, scale).float()
             return (p.float() - lr * m).to(p.dtype), m
         new_params, new_m = tree_unzip(tree_map(upd, grads, state["m"], params), 2)
-        return new_params, {"m": new_m, "count": state["count"] + 1}
+        new = (new_params, {"m": new_m, "count": state["count"] + 1})
+        return new if out is None else _into(out, new)
 
     return Optimizer(init, update, "sgd_momentum")
 
